@@ -1,0 +1,186 @@
+"""Metric definition framework (port of ``geodesic_raytracing_tpu.metrics.base``).
+
+A metric is a plain Python function ``g(x, params) -> (4, 4, *B)`` written
+componentwise on torch tensors, plus a static ``MetricConfig``.  Parameters
+are a dict of Python floats holding float32 values (the reference's
+``jnp.float32`` scalars); torch casts a Python scalar to the tensor's dtype
+before the op, so they behave as float32 constants.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping
+
+import numpy as np
+import torch
+
+from ..coordinates import transforms as _tr
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricConfig:
+    """Static per-metric configuration (field-for-field the reference's)."""
+
+    name: str = ""
+    description: str = ""
+    use_prepass: bool = False
+    max_acceleration_change: float = 1e-7
+
+    singular: bool = False
+    traversable_event_horizon: bool = False
+    singular_terminator: float = 1.0
+
+    adaptive_precision: bool = True
+    detect_singularities: bool = False
+    follow_geodesics_forward: bool = False
+
+    has_cylindrical_singularity: bool = False
+    cylindrical_terminator: float = 0.005
+
+    coordinate_system: str = "X_Y_THETA_PHI"
+
+    to_polar: str = ""
+    from_polar: str = ""
+    origin_distance: str = ""
+    coordinate_periodicity: str = ""
+
+    unconditionally_nonsingular: bool = False
+
+
+# The base preset the ported metric inherits (scripts/polar_base.json).
+BASE_CONFIGS: dict[str, dict] = {
+    "polar_base": dict(
+        coordinate_system="X_Y_THETA_PHI",
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-4,
+        to_polar="polar_to_polar",
+        from_polar="polar_to_polar",
+        coordinate_periodicity="polar_periodicity",
+        origin_distance="at_origin",
+    ),
+}
+
+
+def make_config(inherit: str | None = None, **overrides) -> MetricConfig:
+    """Build a MetricConfig, optionally inheriting a base preset."""
+    fields = {}
+    if inherit:
+        fields.update(BASE_CONFIGS[inherit])
+    fields.update(overrides)
+    return MetricConfig(**fields)
+
+
+def at_origin(polar: Tensor, params) -> Tensor:
+    """scripts/origins/at_origin.js — distance is just r."""
+    return polar[1]
+
+
+ORIGINS = {
+    "at_origin": at_origin,
+    "": at_origin,
+}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Metric:
+    """A spacetime: metric tensor function + static config + param defaults.
+
+    ``depends_on``: coordinates g depends on (partials for the others are
+    never taken).  ``structure``: structurally nonzero upper-triangle
+    entries, or None = dense; the integrator drops the absent entries'
+    terms from the inverse and the Christoffel contraction.
+    """
+
+    name: str
+    fn: Callable
+    config: MetricConfig
+    defaults: Mapping[str, float] = dataclasses.field(default_factory=dict)
+    diagonal: bool = False
+    spherically_symmetric: bool = False
+    depends_on: tuple = (0, 1, 2, 3)
+    structure: frozenset | None = None
+
+    def params(self, **overrides) -> dict:
+        """``{name: float32 value}`` (as Python floats) with overrides."""
+        p = {k: float(np.float32(v)) for k, v in self.defaults.items()}
+        for k, v in overrides.items():
+            if k not in p:
+                raise KeyError(f"{self.name} has no parameter {k!r}")
+            p[k] = float(np.float32(v))
+        return p
+
+    def nonzeros(self) -> frozenset | None:
+        """Structurally nonzero (i <= j) metric entries, or None = dense."""
+        if self.structure is not None:
+            return self.structure
+        if self.diagonal:
+            return frozenset((i, i) for i in range(4))
+        return None
+
+    def to_polar(self, x: Tensor, params) -> Tensor:
+        return _tr.get_transform(self.config.to_polar)(x, params)
+
+    def from_polar(self, x: Tensor, params) -> Tensor:
+        return _tr.get_transform(self.config.from_polar)(x, params)
+
+    def to_polar_velocity(self, x: Tensor, v: Tensor, params) -> Tensor:
+        return _tr.velocity_transform(
+            _tr.get_transform(self.config.to_polar), x, v, params)
+
+    def from_polar_velocity(self, x: Tensor, v: Tensor, params) -> Tensor:
+        return _tr.velocity_transform(
+            _tr.get_transform(self.config.from_polar), x, v, params)
+
+    def origin_distance(self, polar: Tensor, params) -> Tensor:
+        return ORIGINS[self.config.origin_distance](polar, params)
+
+    def precision_weights(self) -> tuple[float, float, float, float]:
+        """The reference's W_V1..4 per-coordinate error weights."""
+        cs = self.config.coordinate_system
+        if cs == "X_Y_THETA_PHI":
+            if self.spherically_symmetric:
+                return (1.0, 1.0, 8.0, 8.0)
+            return (1.0, 1.0, 8.0, 32.0)
+        if cs == "CYLINDRICAL":
+            return (1.0, 1.0, 8.0, 1.0)
+        return (1.0, 1.0, 1.0, 1.0)
+
+
+REGISTRY: dict[str, Metric] = {}
+
+
+def register(metric: Metric) -> Metric:
+    REGISTRY[metric.name] = metric
+    return metric
+
+
+def get_metric(name: str) -> Metric:
+    """The registered metric; a KeyError names the ported ones."""
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"metric {name!r} is not ported yet "
+                       f"(available: {list_metrics()})") from None
+
+
+def list_metrics() -> list[str]:
+    return sorted(REGISTRY)
+
+
+def sym_metric(entries: Mapping[tuple[int, int], Tensor]) -> Tensor:
+    """Assemble a symmetric 4x4 metric from an upper-triangle entry dict.
+
+    Scalar components give (4, 4); components of shape ``B`` give
+    (4, 4, *B) (component-first)."""
+    vals = torch.broadcast_tensors(*entries.values())
+    z = torch.zeros_like(vals[0])
+    grid = [[z] * 4 for _ in range(4)]
+    for (i, j), v in zip(entries.keys(), vals):
+        grid[i][j] = v
+        if i != j:
+            grid[j][i] = v
+    return torch.stack([torch.stack(row) for row in grid])
