@@ -1,15 +1,24 @@
 """Smoke test of the PyTorch / CUDA port on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--kernel-flags "..."]
+    python3 chip_smoke.py --sweep ["flags; flags; ..."]
 
 Builds the ray-march kernel from ``geodesic_raytracing_tpu_torch/csrc``,
 checks it against its plain eager-torch twin on the card, drives the port's
 main path (the dense 1920x1080 ``kerr_boyer`` frame through ``render_frame``,
-with a seeded sample of that launch's own rays re-marched by the plain twin),
-times it, and runs the CLI on the card.  ``--profile`` adds a
-``torch.profiler`` trace of one steady frame (kernel counts, device busy
-time, idle share).  Every failed check raises, so the script exits non-zero;
-it also refuses to run (exit 2, no result) without a CUDA GPU.
+with that launch's own rays marched once more by the plain twin),
+counts that launch's work (steps, trial iterations, idle lanes) and holds the
+kernel's time against its bound, times the frame, and runs the CLI on the
+card.  ``--profile`` adds a ``torch.profiler`` trace of one steady frame
+(kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
+nvcc flags to the kernel's build, to run every check on a variant of it.
+Every failed check raises, so the script exits non-zero; it also refuses to
+run (exit 2, no result) without a CUDA GPU.
+
+``--sweep`` runs no check of the port: it builds the kernel once for each set
+of nvcc flags (default ``SWEEP``: the steps of the kernel's design), marches
+the 1080p and the 480x270 frame's rays with each in turns, and prints each
+variant's registers, times, idle lanes and its agreement with the first.
 
 Output, one line per phase, then the kernel table as one JSON line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -24,6 +33,8 @@ import dataclasses
 import io
 import json
 import os
+import shlex
+import statistics
 import struct
 import subprocess
 import sys
@@ -49,6 +60,39 @@ GATE_RMSE = 4.0
 GATE_BAD_FRAC = 0.01
 # Estimated shadow: ~22 deg angular radius of a 90 deg fov ~ 23% of pixels.
 SHADOW_RANGE = (0.10, 0.40)
+
+# The kernel's bound.  Peaks of one H100 SXM (NVIDIA's data sheet): float32
+# outside the tensor cores, counting a fused multiply-add as two; HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# Bytes per ray, read once and written once: 3 float4 rows, next_ds, rdl,
+# status, steps (the launch |v^t| is read only).
+RAY_BYTES_RW = 3 * 16 + 4 * 4
+RAY_BYTES_RO = 4
+# Float32 operations of one trial iteration, counted from csrc/march.cuh with
+# the pruned duals of csrc/dual.cuh (an add, a multiply, a compare or select,
+# and each of sin, cos, 1/x, sqrt, rsqrt as one; negations, |x| and products
+# with a seed's 1 as none): 65 in the metric with its partials, 89 in the
+# contraction and the pruned inverse, 111 in the trial step, the probe and
+# the step controller.
+OPS_PER_TRIAL = 65 + 89 + 111
+
+# --sweep: the kernel's design, step by step.  The first variant is the
+# simple kernel (unpruned duals, separate sinf and cosf, 32 rays of a row per
+# warp, no bound on registers); each later one is compared with it.
+_ROWS = "-DGRT_MIN_BLOCKS=1 -DGRT_ROW_WARPS"
+SWEEP = (
+    f"{_ROWS} -DGRT_SEPARATE_TRIG -DGRT_FULL_TANGENTS",
+    f"{_ROWS} -DGRT_SEPARATE_TRIG",
+    _ROWS,
+    "-DGRT_MIN_BLOCKS=1",
+    "-DGRT_MIN_BLOCKS=3",
+    "",
+    "-DGRT_THREADS=64 -DGRT_MIN_BLOCKS=16",
+    "-DGRT_THREADS=128 -DGRT_MIN_BLOCKS=8",
+    "-DGRT_THREADS=512 -DGRT_MIN_BLOCKS=2",
+    "-fmad=true",
+)
 
 
 def nvidia_smi_line() -> str:
@@ -80,6 +124,170 @@ def compare_states(k, p):
     err = float((kp - pp).abs().max()) if kp.numel() else 0.0
     close = bool(torch.allclose(kp, pp, rtol=POS_TOL, atol=POS_TOL))
     return int(st_eq.sum()), int(sp_eq.sum()), err, close
+
+
+def idle_lane_factor(trials, width=None, tile=(8, 4)):
+    """32 x (sum over warps of the warp's largest count) / (sum of counts),
+    for a kernel that gives warp w the rays 32w .. 32w + 31 of ``trials``
+    (N,) in index order; with ``width``, for ``tile`` (wide, high) pixel
+    tiles of the row-major image of that width instead."""
+    import torch
+
+    t = trials.to(torch.int64)
+    if width is not None:
+        (tw, th), h = tile, t.numel() // width
+        t = t.reshape(h, width)
+        t = torch.nn.functional.pad(t, (0, -width % tw, 0, -h % th))
+        t = t.reshape(t.shape[0] // th, th, t.shape[1] // tw, tw).permute(
+            0, 2, 1, 3)
+    t = torch.nn.functional.pad(t.reshape(-1), (0, -t.numel() % 32))
+    return float(32 * t.reshape(-1, 32).max(dim=1).values.sum() / t.sum())
+
+
+def bound_ms(n_rays: int, total_trials: int):
+    """(bound, operations bound, bytes bound) in ms of a launch that marches
+    ``n_rays`` rays through ``total_trials`` trial iterations."""
+    ops = total_trials * OPS_PER_TRIAL / PEAK_FP32_FLOPS * 1e3
+    byt = n_rays * (2 * RAY_BYTES_RW + RAY_BYTES_RO) / PEAK_BYTES_PER_S * 1e3
+    return max(ops, byt), ops, byt
+
+
+def launch_work(metric, state, params, feats, opts, width) -> dict:
+    """One kernel launch on ``state`` (the pixels of a row-major image of
+    ``width``) that counts its work: ``state`` (the output), ``per_ray``
+    and ``trials`` (each ray's and all trial iterations), ``mean_steps``,
+    ``max_steps`` (committed), and the idle-lane factor (lane turns of the
+    march loop, busy or idle, over the trial iterations) of warps of 32 rays
+    in index order (``idle_rows``), of 8x4 pixel tiles (``idle_tiles``) and
+    of this launch (``idle_factor``: the rows' if the kernel was built with
+    GRT_ROW_WARPS)."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+
+    n = state.position.shape[0]
+    trials = torch.zeros(n, dtype=torch.int32, device=state.position.device)
+    out = raymarch.trace_rays_cuda(metric, state, params, feats, opts,
+                                   trials=trials, image_width=width)
+    torch.cuda.synchronize()
+    rows, tiled = idle_lane_factor(trials), idle_lane_factor(trials, width)
+    return {"state": out, "per_ray": trials,
+            "trials": int(trials.sum(dtype=torch.int64)),
+            "mean_steps": float(out.steps.float().mean()),
+            "max_steps": int(out.steps.max()),
+            "idle_factor": (rows if "-DGRT_ROW_WARPS" in raymarch.NVCC_FLAGS
+                            else tiled),
+            "idle_rows": rows, "idle_tiles": tiled}
+
+
+def sass_stats(lib_path: str) -> dict:
+    """Static counts from ``cuobjdump -sass`` of a kernel library:
+    ``instructions`` of the kernel, ``fp32`` of them FADD, FMUL or FFMA,
+    ``loop`` (instructions from the target of its longest backward branch
+    to the branch: the march loop with its slow paths) and ``reductions``
+    (IMAD.WIDE.U32, one per inlined copy of the trigonometric range
+    reduction's slow path)."""
+    import re
+
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+
+    tool = Path(raymarch.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    lines = re.findall(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", sass, re.M)
+    loops = [(int(at, 16) - int(m.group(1), 16)) // 16 + 1
+             for at, text in lines
+             if (m := re.search(r"\bBRA\b.*\b0x([0-9a-f]+)", text))
+             and int(m.group(1), 16) < int(at, 16)]
+    return {"instructions": len(lines), "loop": max(loops, default=0),
+            "fp32": sum(bool(re.match(r"(@!?U?P\w+ )?(FADD|FMUL|FFMA)\b", t))
+                        for _, t in lines),
+            "reductions": sum("IMAD.WIDE.U32" in t for _, t in lines)}
+
+
+def sweep(variants, metric, params, camera, settings, feats, rounds=5):
+    """Build the kernel once per set of nvcc flags in ``variants`` (all at
+    once), march the 1080p and the 480x270 frame's rays with each, in turns
+    over ``rounds`` rounds, and print one line per variant: registers and
+    stack, blocks per SM, static SASS counts (``sass_stats``: instructions,
+    march loop, range reductions), median and least kernel time at both
+    sizes, the
+    idle-lane factor at 1080p, and how its 1080p result agrees with the
+    first variant's (fates, steps, largest position difference)."""
+    import concurrent.futures
+
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    dev = torch.device("cuda")
+    default_flags = raymarch.NVCC_FLAGS
+    flags = [raymarch.with_flags(*shlex.split(v)) for v in variants]
+    with concurrent.futures.ThreadPoolExecutor(len(flags)) as pool:
+        list(pool.map(raymarch.build, dict.fromkeys(flags)))
+    small = dataclasses.replace(settings, width=480, height=270)
+    states = [(pl.init_camera_rays(metric, camera, params, s, feats,
+                                   device=dev)[0], s.width)
+              for s in (settings, small)]
+    n = states[0][0].position.shape[0]
+
+    infos, first = [], None
+    for f in flags:
+        raymarch.NVCC_FLAGS = f
+        work = launch_work(metric, states[0][0], params, feats,
+                           settings.trace, settings.width)
+        out, per_ray = work.pop("state"), work.pop("per_ray")
+        if first is None:
+            first = out
+            by_tile = {f"{w}x{h}": idle_lane_factor(per_ray, settings.width,
+                                                    (w, h))
+                       for w, h in ((32, 1), (16, 2), (8, 4), (4, 8), (2, 16))}
+            print("[sweep] idle-lane factor at 1080p by warp tile: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in by_tile.items()))
+        st, sp, err, _ = compare_states(out, first)
+        same = same_bits(out, first)
+        built = raymarch.BUILD_INFO[f]
+        infos.append({**raymarch.ptxas_summary(built["ptxas"]),
+                      **sass_stats(built["path"]),
+                      **raymarch.kernel_config(), **work, "status_eq": st,
+                      "steps_eq": sp, "max_dpos": err, "identical": same})
+    times = [([], []) for _ in flags]
+    for _ in range(rounds):
+        for f, t in zip(flags, times):
+            raymarch.NVCC_FLAGS = f
+            for (state, width), ms in zip(states, t):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                raymarch.trace_rays_cuda(metric, state, params, feats,
+                                         settings.trace, image_width=width)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+    bound = bound_ms(n, infos[0]["trials"])[0]
+    print(f"[sweep] {n} rays, {infos[0]['trials']} trial iterations, bound "
+          f"{bound:.3f} ms at {OPS_PER_TRIAL} operations each; {rounds} "
+          "rounds in turns; ms = median (least)")
+    for v, info, (big, sm) in zip(variants, infos, times):
+        print(f"[sweep] {v or '(default)':48s} regs {info['registers']:3d} "
+              f"stack {info['stack_bytes']:3d} spill "
+              f"{info['spill_store_bytes']}+{info['spill_load_bytes']} "
+              f"blocks/SM {info['blocks_per_sm']} x {info['threads']} | sass "
+              f"{info['instructions']} fp32 {info['fp32']} loop "
+              f"{info['loop']} reductions "
+              f"{info['reductions']} | "
+              f"1080p {statistics.median(big):7.3f} ({min(big):7.3f}) ms | "
+              f"480x270 {statistics.median(sm):6.3f} ({min(sm):6.3f}) ms | "
+              f"idle lanes {info['idle_factor']:.4f} | vs first: status "
+              f"{info['status_eq']}/{n} steps {info['steps_eq']}/{n} max "
+              f"|dpos| {info['max_dpos']:.3g} identical {info['identical']}")
+    raymarch.NVCC_FLAGS = default_flags
+
+
+def same_bits(a, b) -> bool:
+    """Whether two RayStates hold the same bits in every field."""
+    import torch
+
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
 
 
 def golden_gate(a, b):
@@ -163,6 +371,11 @@ def main(argv=None) -> int:
                                  "one GPU.")
     ap.add_argument("--profile", action="store_true",
                     help="trace one steady 1080p frame with torch.profiler")
+    ap.add_argument("--kernel-flags", default="",
+                    help="nvcc flags appended to the kernel's build")
+    ap.add_argument("--sweep", nargs="?", const=";".join(SWEEP),
+                    help="time kernel variants, one per ';'-separated set of "
+                    "nvcc flags, and stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -181,19 +394,30 @@ def main(argv=None) -> int:
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
 
+    metric, params, camera, settings, feats = flagship_config(device=dev)
+    settings = dataclasses.replace(settings, adaptive_sampling=False)
+    if args.sweep is not None:
+        print(f"[sweep] {smi} | torch {torch.__version__} cuda "
+              f"{torch.version.cuda}")
+        sweep([v.strip() for v in args.sweep.split(";")], metric, params,
+              camera, settings, feats)
+        return 0
+
     # -- 1. device and build ------------------------------------------------
+    raymarch.NVCC_FLAGS = raymarch.with_flags(*shlex.split(args.kernel_flags))
     t0 = time.perf_counter()
     raymarch.get_lib()
     build_s = time.perf_counter() - t0
+    built = raymarch.BUILD_INFO[raymarch.NVCC_FLAGS]
+    ptxas = raymarch.ptxas_summary(built["ptxas"])
+    config = raymarch.kernel_config()
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {name} | nvcc build "
-          f"{raymarch.BUILD_INFO.get('seconds')} s (load {build_s:.2f} s)")
-    for line in raymarch.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1 device] ptxas: {line.strip()}")
+          f"{built['seconds']} s (load {build_s:.2f} s)")
+    print(f"[1 device] nvcc {' '.join(raymarch.NVCC_FLAGS)} | ptxas {ptxas} "
+          f"| {config}")
+    assert ptxas["spill_store_bytes"] == 0 and ptxas["spill_load_bytes"] == 0
 
-    metric, params, camera, settings, feats = flagship_config(device=dev)
-    settings = dataclasses.replace(settings, adaptive_sampling=False)
     sky = bg.checker_background(device=dev)
 
     def kernel_and_plain(state, max_steps):
@@ -233,7 +457,7 @@ def main(argv=None) -> int:
 
     # -- 3. the main path at 1920x1080 ---------------------------------------
     # The frame's own march is recorded (its input and the kernel's output)
-    # so that a sample of its rays can be re-marched by the plain twin.
+    # so that the plain twin can march the same rays.
     launch = []
     trace_rays = integrate.trace_rays
 
@@ -262,20 +486,45 @@ def main(argv=None) -> int:
     (s_in, s_out), = launch
     n_rays = settings.width * settings.height
     assert s_in.position.shape == (n_rays, 4), s_in.position.shape
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    p_all = integrate.trace_rays_reference(metric, s_in, params, feats,
+                                           settings.trace)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
     rows = torch.from_numpy(np.sort(np.random.default_rng(1).choice(
         n_rays, 4096, replace=False))).to(dev)
-    p = integrate.trace_rays_reference(
-        metric, integrate.RayState(*(t[rows] for t in s_in)), params, feats,
-        settings.trace)
-    k = integrate.RayState(*(t[rows] for t in s_out))
-    st, sp, err_f, close = compare_states(k, p)
-    print(f"[3 frame] 4096 of the frame's {n_rays} kernel rays vs plain: "
-          f"status equal {st / 4096:.4f}, steps equal {sp / 4096:.4f}, "
-          f"max |dpos| {err_f:.3g}")
-    assert st >= SET_B_MIN_STATUS_EQ * 4096, st
-    assert sp >= SET_B_MIN_STEPS_EQ * 4096, sp
-    assert close, err_f
-    del launch, s_in, s_out
+    err_f = 0.0
+    for what, pick in ((f"4096 of the frame's {n_rays}", rows),
+                       (f"all {n_rays}", slice(None))):
+        k = integrate.RayState(*(t[pick] for t in s_out))
+        p = integrate.RayState(*(t[pick] for t in p_all))
+        n = k.status.numel()
+        st, sp, err, close = compare_states(k, p)
+        print(f"[3 frame] {what} kernel rays vs plain: status equal "
+              f"{st / n:.4f}, steps equal {sp / n:.4f}, max |dpos| "
+              f"{err:.3g}; plain march of the frame {plain_ms:.1f} ms")
+        assert st >= SET_B_MIN_STATUS_EQ * n, st
+        assert sp >= SET_B_MIN_STEPS_EQ * n, sp
+        assert close, err
+        err_f = max(err_f, err)
+    del p_all, p
+
+    # The work of that launch, from one more launch on the same input (the
+    # output must be the same again, in whatever order the warps ran).
+    work = launch_work(metric, s_in, params, feats, settings.trace,
+                       settings.width)
+    k = work.pop("state")
+    del work["per_ray"]
+    assert same_bits(k, s_out), "two launches on one input disagree"
+    print(f"[3 work] {n_rays} rays: committed steps mean "
+          f"{work['mean_steps']:.2f} max {work['max_steps']}, trial "
+          f"iterations {work['trials']} (mean {work['trials'] / n_rays:.2f});"
+          f" idle-lane factor of the launch {work['idle_factor']:.4f} (a "
+          f"warp per 8x4 pixel tile has {work['idle_tiles']:.4f}, per 32 "
+          f"pixels of a row {work['idle_rows']:.4f})")
+    del launch, s_in, s_out, k
 
     # -- 4. kernel frame vs plain frame at 480x270 ---------------------------
     small = dataclasses.replace(settings, width=480, height=270)
@@ -284,20 +533,25 @@ def main(argv=None) -> int:
                                     device=dev)
     torch.cuda.synchronize()
     ev[0].record()
-    fk = raymarch.trace_rays_cuda(metric, state, params, feats, small.trace)
+    fk = raymarch.trace_rays_cuda(metric, state, params, feats, small.trace,
+                                  image_width=small.width)
     ev[1].record()
     fp = integrate.trace_rays_reference(metric, state, params, feats,
                                         small.trace)
     ev[2].record()
     torch.cuda.synchronize()
-    trace_ms = ev[0].elapsed_time(ev[1])
-    plain_ms = ev[1].elapsed_time(ev[2])
+    small_ms = ev[0].elapsed_time(ev[1])
+    small_plain_ms = ev[1].elapsed_time(ev[2])
+    small_work = launch_work(metric, state, params, feats, small.trace,
+                             small.width)
+    small_bound, _, _ = bound_ms(small.width * small.height,
+                                 small_work["trials"])
     imgs = [pl.shade(pl.compute_render_data(metric, f, ku, params, feats),
                      sky, small) for f in (fk, fp)]
     rmse, bad = golden_gate(to_srgb8(imgs[0]), to_srgb8(imgs[1]))
     print(f"[4 gate] 480x270 kernel vs plain frame: RMSE {rmse:.4f}, "
-          f"pixels off by >32 {bad:.5f}; trace kernel {trace_ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms")
+          f"pixels off by >32 {bad:.5f}; trace kernel {small_ms:.3f} ms, "
+          f"plain {small_plain_ms:.1f} ms")
     assert rmse < GATE_RMSE and bad < GATE_BAD_FRAC, (rmse, bad)
 
     # -- 5. timing the 1080p frame -------------------------------------------
@@ -307,7 +561,8 @@ def main(argv=None) -> int:
         s, ku_ = pl.init_camera_rays(metric, camera, params, settings, feats,
                                      device=dev)
         e[1].record()
-        fin = integrate.trace_rays(metric, s, params, feats, settings.trace)
+        fin = integrate.trace_rays(metric, s, params, feats, settings.trace,
+                                   image_width=settings.width)
         e[2].record()
         rd = pl.compute_render_data(metric, fin, ku_, params, feats)
         e[3].record()
@@ -323,6 +578,16 @@ def main(argv=None) -> int:
         print(f"[5 time] frame {i}: {t:.3f} ms ({n_rays / t / 1e3:.4f} "
               f"Mrays/s) = ray init {s[0]:.3f} + trace kernel {s[1]:.3f} + "
               f"render data {s[2]:.3f} + shade {s[3]:.3f} ms")
+    kernel_ms = statistics.median(s[1] for s in splits)
+    bound, bound_ops, bound_bytes = bound_ms(n_rays, work["trials"])
+    print(f"[5 bound] 1080p trace kernel {kernel_ms:.3f} ms (median of "
+          f"{len(splits)}); bound {bound:.3f} ms = {work['trials']} trial "
+          f"iterations x {OPS_PER_TRIAL} operations / "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s (bound by operations; the "
+          f"bytes bound is {bound_bytes:.3f} ms); share of the bound "
+          f"{bound / kernel_ms:.4f}; 480x270: {small_ms:.3f} ms, bound "
+          f"{small_bound:.3f} ms, share {small_bound / small_ms:.4f}")
+    assert bound == bound_ops
     if args.profile:
         profile_frame(timed_frame, sum(totals) / len(totals))
 
@@ -355,8 +620,26 @@ def main(argv=None) -> int:
         "replaces": "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488",
         "launches": launches,
         "max_abs_err": max(err_a, err_b, err_f),
-        "ms": trace_ms,
+        # Of the main path's launch, the 1080p frame's 2,073,600 rays.
+        "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "operations",
+        "share_of_bound": bound / kernel_ms,
+        "library_ms": None,  # no PyTorch call computes an adaptive march
+        "rays": n_rays,
+        "trial_iterations": work["trials"],
+        "mean_steps": work["mean_steps"],
+        "max_steps": work["max_steps"],
+        "idle_lane_factor": work["idle_factor"],
+        # Of the 480x270 frame's launch (one wave of blocks: its time is
+        # that of its longest ray).
+        "small": {
+            "rays": small.width * small.height, "ms": small_ms,
+            "plain_ms": small_plain_ms, "bound_ms": small_bound,
+            "share_of_bound": small_bound / small_ms},
+        "build_flags": " ".join(raymarch.NVCC_FLAGS),
+        "ptxas": {**ptxas, **config},
     }]}
     print(json.dumps(table))
     print(smi)

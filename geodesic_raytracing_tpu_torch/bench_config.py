@@ -15,7 +15,7 @@ import math
 PRODUCTION_PROBE_SEGMENTS = ((0.11, 7),)
 
 
-def flagship_config(width: int = 1920, height: int = 1080, device="cpu"):
+def flagship_config(width: int = 1920, height: int = 1080, *, device):
     """``(metric, params, camera, settings, features)`` for the 1080p Kerr
     frame.  ``settings.adaptive_sampling`` keeps the reference's True: the
     adaptive pipeline is not ported yet, so callers of this slice pass
@@ -27,7 +27,7 @@ def flagship_config(width: int = 1920, height: int = 1080, device="cpu"):
 
     metric = metrics.get_metric("kerr_boyer")
     params = metric.params()
-    camera = Camera.default(device).rotate(pitch=-math.pi / 2)
+    camera = Camera.default(device=device).rotate(pitch=-math.pi / 2)
     settings = RenderSettings(
         width=width,
         height=height,

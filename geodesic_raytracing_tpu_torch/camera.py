@@ -20,7 +20,7 @@ def _vec(values, device) -> Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def quat_identity(device="cpu") -> Tensor:
+def quat_identity(*, device) -> Tensor:
     return _vec([0.0, 0.0, 0.0, 1.0], device)
 
 
@@ -137,10 +137,10 @@ class Camera(NamedTuple):
     basis_speed: Tensor
 
     @classmethod
-    def default(cls, device="cpu") -> "Camera":
+    def default(cls, *, device) -> "Camera":
         return cls(
             polar_position=_vec([0.0, 7.0, math.pi / 2, -math.pi / 2], device),
-            quat=quat_identity(device),
+            quat=quat_identity(device=device),
             basis_speed=torch.zeros(3, device=device),
         )
 

@@ -25,7 +25,7 @@ def _f32(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
 
-def camera_from_jax(camera, device="cpu") -> Camera:
+def camera_from_jax(camera, *, device) -> Camera:
     """The reference's ``Camera`` -> the port's (the geodesic-camera
     ``frame_override`` is not ported yet and must be None)."""
     if getattr(camera, "frame_override", None) is not None:
@@ -35,7 +35,7 @@ def camera_from_jax(camera, device="cpu") -> Camera:
                   basis_speed=_f32(camera.basis_speed, device))
 
 
-def background_from_jax(bgr, device="cpu") -> Background:
+def background_from_jax(bgr, *, device) -> Background:
     """The reference's ``Background`` (uint32 rgb10 words) -> the port's
     (int32 words with the same bits)."""
     packed = np.array(bgr.packed, dtype=np.uint32)  # a writable copy

@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     metric = metrics.get_metric(name)
     params = metric.params()
 
-    cam = Camera.default(device)._replace(
+    cam = Camera.default(device=device)._replace(
         polar_position=torch.tensor(args.camera, dtype=torch.float32,
                                     device=device))
     d2r = math.pi / 180.0

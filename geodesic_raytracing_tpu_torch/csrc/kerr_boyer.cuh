@@ -10,18 +10,21 @@ namespace grt {
 
 // The five structurally nonzero entries, in the order
 // g[0] = g_tt, g[1] = g_rr, g[2] = g_thth, g[3] = g_phph, g[4] = g_tph.
-// T is float, or Dual<K> for the partials (g depends on x[1] and x[2]).
-template <class T>
-GRT_HD GRT_INLINE void kerr_boyer_g(const T x[4], float rs, float a, T g[5]) {
-  const T& r = x[1];
-  const T& theta = x[2];
-  const T ct = grt_cos(theta);
-  const T st = grt_sin(theta);
-  const T st2 = st * st;
-  const T E = r * r + a * a * ct * ct;
-  const T D = r * r - rs * r + a * a;
-  const T invE = grt_recip(E);
-  const T rsr_invE = rs * r * invE;
+// g depends on r = x[1] and theta = x[2] only.  R, Th and G are all float, or
+// duals for the partials: R with the r tangent live, Th with the theta
+// tangent, G with both (every entry depends on both coordinates).  Each
+// intermediate takes the type its operands give it, so a dual carries only
+// the tangents that can be nonzero (dual.cuh).
+template <class R, class Th, class G>
+GRT_HD GRT_INLINE void kerr_boyer_g(const R& r, const Th& theta, float rs,
+                                    float a, G g[5]) {
+  Th st, ct;
+  grt_sincos(theta, st, ct);
+  const auto st2 = st * st;
+  const auto E = r * r + a * a * ct * ct;
+  const auto D = r * r - rs * r + a * a;
+  const auto invE = grt_recip(E);
+  const auto rsr_invE = rs * r * invE;
   g[0] = -(1.0f - rsr_invE);
   g[1] = E * grt_recip(D);
   g[2] = E;
@@ -35,8 +38,8 @@ struct KerrBoyer {
   float rs;
   float a;
   // MetricConfig of kerr_boyer (polar_base).  The step branches on
-  // detect_singularities; march_ray static_asserts the rest, which the
-  // step assumes (the Python side refuses other configs in
+  // detect_singularities and static_asserts the rest, which it assumes
+  // (the Python side refuses other configs in
   // integrate.check_ported_metric).
   static constexpr bool detect_singularities = true;
   static constexpr bool adaptive_precision = true;
@@ -47,9 +50,9 @@ struct KerrBoyer {
   // the step reads |r| straight from x[1].
   static constexpr bool polar_at_origin = true;
 
-  template <class T>
-  GRT_HD GRT_INLINE void g(const T x[4], T out[5]) const {
-    kerr_boyer_g(x, rs, a, out);
+  template <class R, class Th, class G>
+  GRT_HD GRT_INLINE void g(const R& r, const Th& theta, G out[5]) const {
+    kerr_boyer_g(r, theta, rs, a, out);
   }
 };
 

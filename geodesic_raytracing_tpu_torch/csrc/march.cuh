@@ -5,11 +5,11 @@
 // precision, polar coordinates with the at_origin distance) driven as its
 // `while` driver drives it: a ray takes trial iterations until it leaves
 // ACTIVE or `max_steps` iterations have run.  The CUDA kernel
-// (raymarch.cu) calls `march_ray`; the host test compiles this same header
-// with g++ and checks it against the plain torch march.
+// (raymarch.cu) calls `march_ray`; the host tests compile this same header
+// with g++ and check it against the plain torch march.
 //
-// The metric is a template parameter M providing `g(x, out[5])` for the
-// Kerr Boyer-Lindquist structure: g depends on x[1], x[2] only and its
+// The metric is a template parameter M providing `g(r, theta, out[5])` for
+// the Kerr Boyer-Lindquist structure: g depends on x[1], x[2] only and its
 // nonzero entries are tt, rr, thth, phph and t-phi.  The contraction and the
 // inverse below are the reference's sparsity-pruned forms for exactly that
 // structure, with the reference's order of operations.
@@ -67,17 +67,22 @@ GRT_HD GRT_INLINE float fmax2(float a, float b) { return a > b ? a : b; }
 GRT_HD GRT_INLINE float fmin2(float a, float b) { return a < b ? a : b; }
 
 // Geodesic acceleration a = -g^{-1} S with
-// S_n = v^a v^b (d_a g_nb - 1/2 d_n g_ab), partials by one Dual<2> pass.
+// S_n = v^a v^b (d_a g_nb - 1/2 d_n g_ab), partials by one dual pass: r seeds
+// tangent 0 and theta tangent 1, each with the other tangent pruned.
+// GRT_FULL_TANGENTS widens both seeds to all tangents, which computes every
+// structural zero (the unpruned pass; a measurement and test switch).
 template <class M>
 GRT_HD GRT_INLINE void acceleration(const M& m, const float x[4],
                                     const float v[4], float out[4]) {
-  Dual<2> xd[4];
-  xd[0] = dual_const<2>(x[0]);
-  xd[1] = dual_seed<2>(x[1], 0);
-  xd[2] = dual_seed<2>(x[2], 1);
-  xd[3] = dual_const<2>(x[3]);
-  Dual<2> g[5];
-  m.g(xd, g);
+#ifdef GRT_FULL_TANGENTS
+  const auto r = widen<kAllTangents>(dual_seed<0>(x[1]));
+  const auto theta = widen<kAllTangents>(dual_seed<1>(x[2]));
+#else
+  const auto r = dual_seed<0>(x[1]);
+  const auto theta = dual_seed<1>(x[2]);
+#endif
+  Dual<kAllTangents> g[5];
+  m.g(r, theta, g);
   // d_r g (tangent 0) and d_theta g (tangent 1) per entry.
   const float r00 = g[0].d[0], r11 = g[1].d[0], r22 = g[2].d[0],
               r33 = g[3].d[0], r03 = g[4].d[0];
@@ -149,6 +154,13 @@ GRT_HD GRT_INLINE void acceleration_to_precision(const float acc[4],
 template <class M>
 GRT_HD GRT_INLINE void step(const M& m, const Features& f, float f_in_x,
                             Ray& s) {
+  static_assert(M::adaptive_precision, "the step is the adaptive controller");
+  static_assert(!M::singular, "no singular terminator in the step");
+  static_assert(!M::has_cylindrical_singularity,
+                "no cylindrical terminator in the step");
+  static_assert(!M::unconditionally_nonsingular,
+                "the step always runs the blow-up test");
+  static_assert(M::polar_at_origin, "the step reads |r| from x[1]");
   const float abs_r = fabsf(s.pos[1]);
   const float new_max = f.max_precision_radius;
   const bool near = abs_r < new_max;
@@ -213,20 +225,13 @@ GRT_HD GRT_INLINE void step(const M& m, const Features& f, float f_in_x,
 }
 
 // Trial iterations until the ray leaves ACTIVE or max_steps have run (the
-// reference `while` driver's per-ray budget).
+// reference `while` loop's per-ray budget).  Returns their number.
 template <class M>
-GRT_HD GRT_INLINE void march_ray(const M& m, const Features& f, float f_in_x,
-                                 int max_steps, Ray& s) {
-  static_assert(M::adaptive_precision, "the step is the adaptive controller");
-  static_assert(!M::singular, "no singular terminator in the step");
-  static_assert(!M::has_cylindrical_singularity,
-                "no cylindrical terminator in the step");
-  static_assert(!M::unconditionally_nonsingular,
-                "the step always runs the blow-up test");
-  static_assert(M::polar_at_origin, "the step reads |r| from x[1]");
-  for (int it = 0; it < max_steps && s.status == ACTIVE; ++it) {
-    step(m, f, f_in_x, s);
-  }
+GRT_HD GRT_INLINE int march_ray(const M& m, const Features& f, float f_in_x,
+                                int max_steps, Ray& s) {
+  int it = 0;
+  for (; it < max_steps && s.status == ACTIVE; ++it) step(m, f, f_in_x, s);
+  return it;
 }
 
 }  // namespace grt

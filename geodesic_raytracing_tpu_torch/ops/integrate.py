@@ -310,13 +310,18 @@ def trace_rays_reference(metric: Metric, state: RayState, params,
 
 def trace_rays(metric: Metric, state: RayState, params,
                features: Features = Features(),
-               opts: TraceOptions = TraceOptions()) -> RayState:
+               opts: TraceOptions = TraceOptions(),
+               image_width: int | None = None) -> RayState:
     """March every ray to termination or the step limit.
 
     A state on a CUDA device runs the hand-written ray-march kernel, which
-    launches or raises; a state on the CPU runs the eager reference."""
+    launches or raises; a state on the CPU runs the eager reference.
+    ``image_width``: the rays are the pixels of a row-major image of this
+    width, which lets the kernel group them by pixel tile; it changes no
+    result."""
     if state.position.is_cuda:
         from .raymarch import trace_rays_cuda
 
-        return trace_rays_cuda(metric, state, params, features, opts)
+        return trace_rays_cuda(metric, state, params, features, opts,
+                               image_width=image_width)
     return trace_rays_reference(metric, state, params, features, opts)

@@ -72,7 +72,7 @@ class Background:
 
 
 def build_background(image: np.ndarray, image2: np.ndarray | None = None,
-                     levels: int = MIP_LEVELS, device="cpu") -> Background:
+                     levels: int = MIP_LEVELS, *, device) -> Background:
     """Mip atlas from (H, W, 3) float32 linear images."""
     image = np.asarray(image, dtype=np.float32)
     if image2 is None:
@@ -112,7 +112,7 @@ def build_background(image: np.ndarray, image2: np.ndarray | None = None,
 
 
 def checker_background(height: int = 1024, width: int = 2048,
-                       squares: int = 24, device="cpu") -> Background:
+                       squares: int = 24, *, device) -> Background:
     """Procedural latitude/longitude checker — the test/bench skysphere."""
     v, u = np.meshgrid(
         np.arange(height) / height, np.arange(width) / width, indexing="ij"

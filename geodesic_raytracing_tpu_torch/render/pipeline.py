@@ -285,6 +285,7 @@ def render_frame(metric: Metric, camera: cam.Camera, params,
     state, ku = init_camera_rays(metric, camera, params, settings, features,
                                  device=device)
     final = integrate.trace_rays(metric, state, params, features=features,
-                                 opts=settings.trace)
+                                 opts=settings.trace,
+                                 image_width=settings.width)
     rdata = compute_render_data(metric, final, ku, params, features)
     return shade(rdata, backgrounds.to(device), settings)

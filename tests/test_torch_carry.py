@@ -40,14 +40,14 @@ def test_atlas_words_equal_jax(shape):
     rng = np.random.default_rng(shape[0])
     img = rng.uniform(0.0, 1.0, shape + (3,)).astype(np.float32)
     img2 = rng.uniform(0.0, 1.0, shape + (3,)).astype(np.float32)
-    _assert_same_atlas(bg.build_background(img, img2),
+    _assert_same_atlas(bg.build_background(img, img2, device="cpu"),
                        jbg.build_background(img, img2))
 
 
 def test_checker_atlas_and_carry_equal_jax():
     theirs = jbg.checker_background()
-    _assert_same_atlas(bg.checker_background(), theirs)
-    _assert_same_atlas(carry.background_from_jax(theirs), theirs)
+    _assert_same_atlas(bg.checker_background(device="cpu"), theirs)
+    _assert_same_atlas(carry.background_from_jax(theirs, device="cpu"), theirs)
 
 
 def test_params_carry():
@@ -65,8 +65,8 @@ def test_params_carry():
 
 def test_camera_carry():
     jc = JCamera.default().rotate(pitch=-np.pi / 2)
-    tc = Camera.default().rotate(pitch=-math.pi / 2)
-    carried = carry.camera_from_jax(jc)
+    tc = Camera.default(device="cpu").rotate(pitch=-math.pi / 2)
+    carried = carry.camera_from_jax(jc, device="cpu")
     for a, b in zip(carried, tc):
         assert a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,

@@ -51,8 +51,8 @@ def test_render_frame_cuda_without_gpu_raises():
     m = metrics.get_metric("kerr_boyer")
     settings = pl.RenderSettings(width=8, height=8)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        pl.render_frame(m, Camera.default(), m.params(),
-                        bg.checker_background(64, 128), settings,
+        pl.render_frame(m, Camera.default(device="cpu"), m.params(),
+                        bg.checker_background(64, 128, device="cpu"), settings,
                         device="cuda")
 
 
@@ -101,6 +101,6 @@ def test_render_frame_refuses_adaptive_sampling():
     settings = dataclasses.replace(pl.RenderSettings(width=8, height=8),
                                    adaptive_sampling=True)
     with pytest.raises(NotImplementedError, match="adaptive"):
-        pl.render_frame(m, Camera.default(), m.params(),
-                        bg.checker_background(64, 128), settings,
+        pl.render_frame(m, Camera.default(device="cpu"), m.params(),
+                        bg.checker_background(64, 128, device="cpu"), settings,
                         device="cpu")

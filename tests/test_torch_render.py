@@ -59,8 +59,9 @@ def _gate(a, b):
 
 def _port_frame(settings):
     m = tmetrics.get_metric("kerr_boyer")
-    return render_frame(m, Camera.default().rotate(pitch=-math.pi / 2),
-                        m.params(), bg.checker_background(), settings,
+    cam = Camera.default(device="cpu").rotate(pitch=-math.pi / 2)
+    return render_frame(m, cam, m.params(),
+                        bg.checker_background(device="cpu"), settings,
                         Features.for_metric(m), device="cpu")
 
 
