@@ -5,12 +5,17 @@
 
 Builds the ray-march kernel from ``geodesic_raytracing_tpu_torch/csrc``,
 checks it against its plain eager-torch twin on the card, drives the port's
-main path (the dense 1920x1080 ``kerr_boyer`` frame through ``render_frame``,
-with that launch's own rays marched once more by the plain twin),
-counts that launch's work (steps, trial iterations, idle lanes) and holds the
-kernel's time against its bound, times the frame, and runs the CLI on the
-card.  ``--profile`` adds a ``torch.profiler`` trace of one steady frame
-(kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
+main paths through ``render_frame`` at 1920x1080 ``kerr_boyer``: the dense
+frame (one launch) and the adaptive flagship frame of ``flagship_config`` as
+it comes (prepass, quarter grid and refinement: three launches in a first
+frame, two in a steady one), each launch's own rays marched once more by the
+plain twin.  It counts each launch's work (steps, trial iterations, idle
+lanes), holds the kernel's time against its bound, holds the adaptive frame
+against the dense one and the kernel frames against the plain frames at
+480x270, checks that a steady adaptive frame never waits for the device,
+times both frames stage by stage, and runs the CLI on the card.
+``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
+kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
 Every failed check raises, so the script exits non-zero; it also refuses to
 run (exit 2, no result) without a CUDA GPU.
@@ -30,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -76,6 +82,15 @@ RAY_BYTES_RO = 4
 # contraction and the pruned inverse, 111 in the trial step, the probe and
 # the step controller.
 OPS_PER_TRIAL = 65 + 89 + 111
+
+# The adaptive 1080p frame against the dense one, as the JAX package's own
+# test of its adaptive path states it: share of pixels whose largest channel
+# difference is above 0.1, and the median of that difference.
+ADAPTIVE_MAX_OFF_FRAC = 0.06
+ADAPTIVE_MAX_MEDIAN = 0.01
+# Above this idle-lane factor of the refine launch a cost sort of its rays is
+# worth measuring (phase 13).
+SORT_IDLE_FACTOR = 1.10
 
 # --sweep: the kernel's design, step by step.  The first variant is the
 # simple kernel (unpruned duals, separate sinf and cosf, 32 rays of a row per
@@ -170,13 +185,198 @@ def launch_work(metric, state, params, feats, opts, width) -> dict:
                                    trials=trials, image_width=width)
     torch.cuda.synchronize()
     rows, tiled = idle_lane_factor(trials), idle_lane_factor(trials, width)
-    return {"state": out, "per_ray": trials,
+    return {"state": out, "per_ray": trials, "rays": n,
+            "active": int((state.status == 0).sum()),
             "trials": int(trials.sum(dtype=torch.int64)),
             "mean_steps": float(out.steps.float().mean()),
             "max_steps": int(out.steps.max()),
             "idle_factor": (rows if "-DGRT_ROW_WARPS" in raymarch.NVCC_FLAGS
                             else tiled),
             "idle_rows": rows, "idle_tiles": tiled}
+
+
+@contextlib.contextmanager
+def swapped_trace(integrate, fn):
+    """Inside the block ``integrate.trace_rays`` is ``fn(real, metric, state,
+    params, features, opts, image_width)``, ``real`` being the function it
+    replaces."""
+    real = integrate.trace_rays
+
+    def trace_rays(metric, state, params, features, opts, image_width=None):
+        return fn(real, metric, state, params, features, opts, image_width)
+
+    integrate.trace_rays = trace_rays
+    try:
+        yield
+    finally:
+        integrate.trace_rays = real
+
+
+@contextlib.contextmanager
+def recorded_launches(integrate):
+    """Yields a list that receives ``(input state, output state, image
+    width)`` of every ``integrate.trace_rays`` call made inside the block."""
+    launches = []
+
+    def record(real, metric, state, params, features, opts, image_width):
+        out = real(metric, state, params, features, opts, image_width)
+        launches.append((state, out, image_width))
+        return out
+
+    with swapped_trace(integrate, record):
+        yield launches
+
+
+def plain_marches(integrate):
+    """Inside the block every march is made by the kernel's plain twin."""
+    def plain(real, metric, state, params, features, opts, image_width):
+        return integrate.trace_rays_reference(metric, state, params, features,
+                                              opts)
+
+    return swapped_trace(integrate, plain)
+
+
+# The adaptive frame's stages, in the order a first frame runs them.
+STAGES = ("camera frame", "prepass", "quarter setup", "quarter trace",
+          "refine setup", "refine trace", "finish")
+
+
+@contextlib.contextmanager
+def stage_events(pl, integrate):
+    """CUDA events around the adaptive frame's stages, as ``render_frame``
+    itself runs them.  Yields a function that returns ``{stage: ms}`` of the
+    frames rendered inside the block so far and forgets them; ``prepass``
+    holds its own ray init and launch."""
+    import torch
+
+    spans = []
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans.append((name, *ev))
+            return out
+        return wrapper
+
+    targets = ((pl, "camera_frame", "camera frame"),
+               (pl, "_prepass_dead_map", "prepass"),
+               (pl, "_quarter_setup", "quarter setup"),
+               (pl, "_refine_setup", "refine setup"),
+               (pl, "_finish_shade", "finish"),
+               (integrate, "trace_rays", "trace"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def read():
+        torch.cuda.synchronize()
+        ms = {}
+        # The marches in launch order: the prepass's own (inside the prepass
+        # stage) when there are three, then quarter and refine.
+        marches = [s for s in spans if s[0] == "trace"]
+        for name, span in zip(("quarter trace", "refine trace"),
+                              marches[-2:]):
+            ms[name] = span[1].elapsed_time(span[2])
+        if len(marches) == 3:
+            ms["prepass launch"] = marches[0][1].elapsed_time(marches[0][2])
+        for name, a, b in spans:
+            if name != "trace":
+                ms[name] = a.elapsed_time(b)
+        spans.clear()
+        return ms
+
+    for mod, attr, name in targets:
+        setattr(mod, attr, timed(name, getattr(mod, attr)))
+    try:
+        yield read
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def born_dead_untouched(s_in, outs) -> int:
+    """The number of rays of ``s_in`` that are not ACTIVE; raises unless
+    every field of theirs is bit for bit the same in each state of
+    ``outs``."""
+    import torch
+
+    rows = s_in.status != 0
+    for out in outs:
+        for name, a, b in zip(s_in._fields, s_in, out):
+            if not torch.equal(a[rows].view(torch.int32),
+                               b[rows].view(torch.int32)):
+                raise AssertionError(f"a ray born DEAD changed its {name}")
+    return int(rows.sum())
+
+
+def cost_sorted_launch(metric, s_in, qsteps, sel, params, feats, opts,
+                       grid_hw, rounds=5):
+    """The refine launch with and without a cost sort of its rays: the key
+    is the largest step count among the block's four quarter neighbours
+    (``qsteps``, the quarter launch's), quantised to 64 buckets on a log
+    scale over its range, descending, the rays born DEAD last; the rays are
+    gathered into that order, marched and scattered back.  Returns ``{"ms":
+    unsorted launch, "sorted_ms": sort + gather + launch + scatter,
+    "sorted_launch_ms": that launch alone, "sorted_idle_factor",
+    "identical": same bits as the unsorted launch}``, ms as medians of
+    ``rounds`` in turns."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate, packing, raymarch
+
+    def sorted_launch(ev=None, trials=None):
+        g = qsteps.reshape(grid_hw)
+        cost = torch.maximum(
+            torch.maximum(g, torch.roll(g, -1, 1)),
+            torch.maximum(torch.roll(g, -1, 0),
+                          torch.roll(g, (-1, -1), (0, 1)))).reshape(-1)
+        lc = torch.log2(torch.clamp(cost[sel].float(), min=1.0)).repeat(3)
+        live = s_in.status == 0
+        hi = torch.where(live, lc, -1.0).max()
+        lo = torch.where(live, lc, 1e9).min()
+        bucket = torch.clamp(torch.floor(
+            (hi - lc) * (63 / torch.clamp(hi - lo, min=1e-3))), 0, 63)
+        bucket = torch.where(live, bucket.to(torch.int32), 64)
+        perm, dest = packing.bucket_sort_perm(bucket)
+        packed = integrate.RayState(*(t[perm] for t in s_in))
+        if ev is not None:
+            ev[0].record()
+        out = raymarch.trace_rays_cuda(metric, packed, params, feats, opts,
+                                       trials=trials)
+        if ev is not None:
+            ev[1].record()
+        return integrate.RayState(*(t_[dest] for t_ in out))
+
+    def ms_of(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        out = fn(ev[2:])
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+
+    def unsorted_launch(ev):
+        ev[0].record()
+        out = raymarch.trace_rays_cuda(metric, s_in, params, feats, opts)
+        ev[1].record()
+        return out
+
+    plain, whole, inner = [], [], []
+    for _ in range(rounds):
+        a, ms, _ = ms_of(unsorted_launch)
+        plain.append(ms)
+        b, ms, launch_ms = ms_of(sorted_launch)
+        whole.append(ms)
+        inner.append(launch_ms)
+    trials = torch.zeros_like(s_in.status)
+    sorted_launch(trials=trials)
+    torch.cuda.synchronize()
+    return {"ms": statistics.median(plain),
+            "sorted_ms": statistics.median(whole),
+            "sorted_launch_ms": statistics.median(inner),
+            "sorted_idle_factor": idle_lane_factor(trials),
+            "identical": same_bits(a, b)}
 
 
 def sass_stats(lib_path: str) -> dict:
@@ -323,10 +523,10 @@ def read_png_rgb(path: Path) -> np.ndarray:
     return raw[:, 1:].reshape(h, w, 3)
 
 
-def profile_frame(frame, frame_ms: float) -> None:
-    """``torch.profiler`` over one steady frame: device kernels, their
-    merged busy time, and the idle share against the profiled wall and
-    against the unprofiled frame time ``frame_ms``."""
+def profile_frame(frame, frame_ms: float, what: str) -> None:
+    """``torch.profiler`` over one steady frame (``what`` names it): device
+    kernels, their merged busy time, and the idle share against the profiled
+    wall and against the unprofiled frame time ``frame_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -353,7 +553,7 @@ def profile_frame(frame, frame_ms: float) -> None:
     march = [e for e in dev if "raymarch_kernel" in e.name]
     march_ms = sum(e.time_range.elapsed_us() for e in march) / 1e3
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    print(f"[6 profile] one steady frame: {len(kernels)} device kernels "
+    print(f"[6 profile] one steady {what} frame: {len(kernels)} device kernels "
           f"({len(dev) - len(kernels)} memcpy/memset), raymarch_kernel "
           f"{len(march)} launch(es) {march_ms:.3f} ms; device busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms profiled wall (idle share "
@@ -362,8 +562,26 @@ def profile_frame(frame, frame_ms: float) -> None:
     ops = [a for a in prof.key_averages() if a.device_type == DeviceType.CPU
            and a.key.startswith("aten::")]
     top = sorted(ops, key=lambda a: -a.count)[:6]
-    print("[6 profile] most-called host ops: " + ", ".join(
+    print(f"[6 profile] {what}: most-called host ops: " + ", ".join(
         f"{a.key} {a.count}" for a in top))
+
+
+def bench_protocol_mrays(frame, n_pixels: int, passes=3, frames=4) -> float:
+    """Mrays/s of ``frame`` by the protocol of the JAX package's
+    ``bench.py``: ``passes`` passes of ``frames`` frames issued back to back
+    and drained once, the best pass, host wall clock, ``n_pixels`` a
+    frame."""
+    import torch
+
+    best = float("inf")
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            frame()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / frames)
+    return n_pixels / best / 1e6
 
 
 def main(argv=None) -> int:
@@ -394,8 +612,11 @@ def main(argv=None) -> int:
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
 
-    metric, params, camera, settings, feats = flagship_config(device=dev)
-    settings = dataclasses.replace(settings, adaptive_sampling=False)
+    # The flagship settings as they come (the adaptive frame), and their
+    # dense twin for the dense path.
+    metric, params, camera, asettings, feats = flagship_config(device=dev)
+    assert asettings.adaptive_sampling and asettings.shade_traced_only
+    settings = dataclasses.replace(asettings, adaptive_sampling=False)
     if args.sweep is not None:
         print(f"[sweep] {smi} | torch {torch.__version__} cuda "
               f"{torch.version.cuda}")
@@ -458,23 +679,13 @@ def main(argv=None) -> int:
     # -- 3. the main path at 1920x1080 ---------------------------------------
     # The frame's own march is recorded (its input and the kernel's output)
     # so that the plain twin can march the same rays.
-    launch = []
-    trace_rays = integrate.trace_rays
-
-    def recording_trace_rays(metric_, state, *a, **kw):
-        out = trace_rays(metric_, state, *a, **kw)
-        launch.append((state, out))
-        return out
-
-    integrate.trace_rays = recording_trace_rays
-    try:
+    with recorded_launches(integrate) as launch:
         raymarch.LAUNCHES = 0
         img = pl.render_frame(metric, camera, params, sky, settings, feats,
                               device=dev)
         torch.cuda.synchronize()
         launches = raymarch.LAUNCHES
-    finally:
-        integrate.trace_rays = trace_rays
+    dense_img = img
     finite = bool(torch.isfinite(img).all())
     black = float((img == 0).all(dim=-1).float().mean())
     print(f"[3 frame] {settings.width}x{settings.height} kerr_boyer: "
@@ -483,7 +694,7 @@ def main(argv=None) -> int:
     assert launches == 1, launches
     assert finite and tuple(img.shape) == (settings.height, settings.width, 3)
     assert SHADOW_RANGE[0] <= black <= SHADOW_RANGE[1], black
-    (s_in, s_out), = launch
+    (s_in, s_out, _), = launch
     n_rays = settings.width * settings.height
     assert s_in.position.shape == (n_rays, 4), s_in.position.shape
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -588,8 +799,13 @@ def main(argv=None) -> int:
           f"{bound / kernel_ms:.4f}; 480x270: {small_ms:.3f} ms, bound "
           f"{small_bound:.3f} ms, share {small_bound / small_ms:.4f}")
     assert bound == bound_ops
-    if args.profile:
-        profile_frame(timed_frame, sum(totals) / len(totals))
+    dense_mrays = bench_protocol_mrays(
+        lambda: pl.render_frame(metric, camera, params, sky, settings, feats,
+                                device=dev), n_rays)
+    print(f"[5 bench] dense 1080p frame by bench.py's protocol (3 passes of "
+          f"4 frames issued back to back and drained once, best pass, host "
+          f"wall clock): {dense_mrays:.4f} Mrays/s "
+          f"({n_rays / dense_mrays / 1e3:.3f} ms a frame)")
 
     # -- 7. the CLI on the card: bench protocol, then one 1080p PNG ----------
     cli_args = ["--width", "1920", "--height", "1080", "--pitch", "-90",
@@ -612,6 +828,243 @@ def main(argv=None) -> int:
           f"{cli_black:.4f}")
     assert rc == 0 and cli_img.shape == (1080, 1920, 3), cli_img.shape
     assert SHADOW_RANGE[0] <= cli_black <= SHADOW_RANGE[1], cli_black
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--bench", "kerr_boyer", "--adaptive", "--frames", "2",
+                       *cli_args])
+    bench = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("Frametime Elapsed: ")]
+    assert rc == 0 and len(bench) == 2, buf.getvalue()
+    apng = png.with_name("kerr_cli_adaptive.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--metric", "kerr_boyer", "--adaptive", *cli_args,
+                       "--out", str(apng)])
+    cli_aimg = read_png_rgb(apng)
+    cli_black = float((cli_aimg == 0).all(axis=-1).mean())
+    cli_rmse, cli_bad = golden_gate(cli_aimg, cli_img)
+    print(f"[7 cli] --bench kerr_boyer --adaptive 1920x1080 on cuda: "
+          f"{'; '.join(bench)}; PNG {cli_aimg.shape}, shadow fraction "
+          f"{cli_black:.4f}; against the dense PNG: RMSE {cli_rmse:.4f}, "
+          f"pixels off by >32 {cli_bad:.5f}")
+    assert rc == 0 and cli_aimg.shape == (1080, 1920, 3), cli_aimg.shape
+    assert SHADOW_RANGE[0] <= cli_black <= SHADOW_RANGE[1], cli_black
+
+
+    # -- 8. the adaptive flagship frame at 1920x1080, first and steady --------
+    # flagship_config as it comes, a fresh controller, six frames; the first
+    # frame's three launches and a steady frame's two are recorded.
+    nq = n_rays // 4
+    controller = pl.RefineBudgetController()
+    demands = []
+    observe = controller.observe
+
+    def observing(demand):
+        demands.append(demand)
+        observe(demand)
+
+    controller.observe = observing
+
+    def adaptive_frame():
+        return pl.render_frame(metric, camera, params, sky, asettings, feats,
+                               controller=controller, device=dev)
+
+    recorded, path_launches, aimg = {}, [], None
+    for i in range(6):
+        with recorded_launches(integrate) as launch:
+            raymarch.LAUNCHES = 0
+            img = adaptive_frame()
+            torch.cuda.synchronize()
+            path_launches.append(raymarch.LAUNCHES)
+        if i in (0, 5):
+            recorded[i] = launch
+        aimg = img if i == 0 else aimg
+        finite = bool(torch.isfinite(img).all())
+        black = float((img == 0).all(dim=-1).float().mean())
+        k = launch[-1][0].status.numel() // 3
+        print(f"[8 adaptive] frame {i}: kernel launches {path_launches[-1]} "
+              f"({', '.join(str(s.status.numel()) for s, _, _ in launch)} "
+              f"rays), k {k} of {nq} blocks, demand "
+              f"{float(demands[-1]):.6f}, controller bucket "
+              f"{controller.fraction(1.0):.4f}; shape {tuple(img.shape)}, "
+              f"finite {finite}, shadow fraction {black:.4f}")
+        assert finite and tuple(img.shape) == (1080, 1920, 3)
+        assert SHADOW_RANGE[0] <= black <= SHADOW_RANGE[1], black
+        del launch
+    assert path_launches == [3, 2, 2, 2, 2, 2], path_launches
+    assert [w for _, _, w in recorded[0]] == [120, 960, None]
+    assert [w for _, _, w in recorded[5]] == [960, None]
+
+    # -- 9. each adaptive launch against the plain twin ----------------------
+    err_ad, first = 0.0, []
+    for what, (s_in, s_out, width) in zip(("prepass", "quarter", "refine"),
+                                          recorded[0]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        p = integrate.trace_rays_reference(metric, s_in, params, feats,
+                                           asettings.trace)
+        ev[1].record()
+        torch.cuda.synchronize()
+        n = s_in.status.numel()
+        born_dead = born_dead_untouched(s_in, (s_out, p))
+        st, sp, err, close = compare_states(s_out, p)
+        lw = launch_work(metric, s_in, params, feats, asettings.trace,
+                           width)
+        assert same_bits(lw.pop("state"), s_out)
+        del lw["per_ray"]
+        lw.update(name=what, plain_ms=ev[0].elapsed_time(ev[1]),
+                    image_width=width, born_dead=born_dead)
+        first.append(lw)
+        print(f"[9 launches] first frame, {what}: {n} rays ({born_dead} born "
+              f"DEAD, untouched by kernel and plain twin), kernel vs plain: "
+              f"status equal {st / n:.4f}, steps equal {sp / n:.4f}, max "
+              f"|dpos| {err:.3g}; plain march {lw['plain_ms']:.1f} ms")
+        assert st >= SET_B_MIN_STATUS_EQ * n, st
+        assert sp >= SET_B_MIN_STEPS_EQ * n, sp
+        assert close, err
+        err_ad = max(err_ad, err)
+        del p
+    assert first[0]["born_dead"] == 0 and first[2]["born_dead"] > 0
+
+    # -- 10. adaptive against dense at 1080p ---------------------------------
+    d = (aimg - dense_img).abs().max(dim=-1).values
+    off_frac, median = float((d > 0.1).float().mean()), float(d.median())
+    a_rmse, a_bad = golden_gate(to_srgb8(aimg), to_srgb8(dense_img))
+    print(f"[10 dense] adaptive vs dense 1080p frame: pixels with a channel "
+          f"off by >0.1 {off_frac:.5f} (limit {ADAPTIVE_MAX_OFF_FRAC}), "
+          f"median difference {median:.3g} (limit {ADAPTIVE_MAX_MEDIAN}), "
+          f"mean {float(d.mean()):.5f}; sRGB RMSE {a_rmse:.4f}, pixels off "
+          f"by >32 {a_bad:.5f}")
+    assert off_frac < ADAPTIVE_MAX_OFF_FRAC and median < ADAPTIVE_MAX_MEDIAN
+    del d, dense_img
+
+    # -- 11. adaptive kernel frame vs plain frame at 480x270 -----------------
+    asmall = dataclasses.replace(asettings, width=480, height=270)
+    raymarch.LAUNCHES = 0
+    fk = pl.render_frame(metric, camera, params, sky, asmall, feats,
+                         device=dev)
+    small_launches = raymarch.LAUNCHES
+    with plain_marches(integrate):
+        fp = pl.render_frame(metric, camera, params, sky, asmall, feats,
+                             device=dev)
+    assert small_launches == 3 and raymarch.LAUNCHES == 3
+    rmse, bad = golden_gate(to_srgb8(fk), to_srgb8(fp))
+    print(f"[11 gate] 480x270 adaptive frame, kernel vs plain marches: RMSE "
+          f"{rmse:.4f}, pixels off by >32 {bad:.5f}")
+    assert rmse < GATE_RMSE and bad < GATE_BAD_FRAC, (rmse, bad)
+
+    # -- 12. a steady adaptive frame never waits for the device --------------
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adaptive_frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[12 sync] one steady adaptive 1080p frame under "
+          "set_sync_debug_mode('error'): no host synchronisation")
+
+    # -- 13. timing and work of the adaptive frame ---------------------------
+    def timed_adaptive(frame, read):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        frame()
+        ev[1].record()
+        ms = read()
+        total = ev[0].elapsed_time(ev[1])
+        ms["other"] = total - sum(ms.get(s, 0.0) for s in STAGES)
+        return total, ms
+
+    def stage_text(ms):
+        return " + ".join(f"{s} {ms[s]:.3f}" for s in (*STAGES, "other")
+                          if s in ms)
+
+    with stage_events(pl, integrate) as read:
+        steady = [timed_adaptive(adaptive_frame, read) for _ in range(3)]
+        fresh = pl.RefineBudgetController()
+        first_total, first_ms = timed_adaptive(
+            lambda: pl.render_frame(metric, camera, params, sky, asettings,
+                                    feats, controller=fresh, device=dev),
+            read)
+    for i, (total, ms) in enumerate(steady):
+        print(f"[13 time] steady adaptive frame {i}: {total:.3f} ms "
+              f"({n_rays / total / 1e3:.4f} Mrays/s at {n_rays} pixels) = "
+              f"{stage_text(ms)} ms")
+    print(f"[13 time] first adaptive frame (fresh controller): "
+          f"{first_total:.3f} ms = {stage_text(first_ms)} ms (prepass launch "
+          f"{first_ms['prepass launch']:.3f} ms of its stage)")
+    adaptive_mrays = bench_protocol_mrays(adaptive_frame, n_rays)
+    print(f"[13 bench] adaptive 1080p frame by bench.py's protocol (3 passes "
+          f"of 4 frames issued back to back and drained once, best pass, "
+          f"host wall clock): {adaptive_mrays:.4f} Mrays/s "
+          f"({n_rays / adaptive_mrays / 1e3:.3f} ms a frame); the dense "
+          f"frame in this run: {dense_mrays:.4f} Mrays/s")
+
+    def launch_row(work, ms):
+        b, b_ops, _ = bound_ms(work["rays"], work["trials"])
+        assert b == b_ops
+        row = {"name": work["name"], "rays": work["rays"],
+               "active_rays": work["active"], "image_width":
+               work["image_width"], "trial_iterations": work["trials"],
+               "mean_steps": work["mean_steps"], "max_steps":
+               work["max_steps"], "idle_lane_factor": work["idle_factor"],
+               "ms": ms, "bound_ms": b, "share_of_bound": b / ms}
+        if "plain_ms" in work:
+            row["plain_ms"] = work["plain_ms"]
+        print(f"[13 work] {work['name']}: {row['rays']} rays "
+              f"({row['active_rays']} ACTIVE at launch), trial iterations "
+              f"{row['trial_iterations']}, committed steps mean "
+              f"{row['mean_steps']:.2f} max {row['max_steps']}, idle-lane "
+              f"factor {row['idle_lane_factor']:.4f}; kernel {ms:.3f} ms, "
+              f"bound {b:.3f} ms (by operations), share {b / ms:.4f}")
+        return row
+
+    first_rows = [launch_row(w, first_ms[t]) for w, t in zip(
+        first, ("prepass launch", "quarter trace", "refine trace"))]
+    steady_rows = []
+    for what, (s_in, s_out, width) in zip(("quarter", "refine"),
+                                          recorded[5]):
+        lw = launch_work(metric, s_in, params, feats, asettings.trace,
+                           width)
+        assert same_bits(lw.pop("state"), s_out)
+        del lw["per_ray"]
+        lw.update(name=what, image_width=width)
+        steady_rows.append(launch_row(lw, statistics.median(
+            ms[f"{what} trace"] for _, ms in steady)))
+
+    # A cost sort of the refine launch's rays is measured only where the
+    # launch leaves more than SORT_IDLE_FACTOR of its lane turns idle.
+    sort = None
+    refine_idle = steady_rows[1]["idle_lane_factor"]
+    if refine_idle > SORT_IDLE_FACTOR:
+        # The recorded steady frame's selection, from its quarter launch.
+        (_, q_out, _), (r_in, _, _) = recorded[5]
+        cam_frame = pl.camera_frame(metric, camera, params)
+        _, ku = pl.rays_for_pixels(metric, camera, *cam_frame, params,
+                                   asettings, feats,
+                                   *pl._qcoords(asettings, dev))
+        _, _, _, sel, _, r_again, _ = pl._refine_setup(
+            metric, camera, cam_frame, params, asettings, feats, q_out, ku,
+            r_in.status.numel() // 3)
+        assert same_bits(r_again, r_in)
+        sort = cost_sorted_launch(metric, r_in, q_out.steps, sel, params,
+                                  feats, asettings.trace, (540, 960))
+        print(f"[13 sort] refine launch, idle-lane factor {refine_idle:.4f} "
+              f"> {SORT_IDLE_FACTOR}: unsorted {sort['ms']:.3f} ms; cost-"
+              f"sorted {sort['sorted_ms']:.3f} ms with its sort, gather and "
+              f"scatter (launch alone {sort['sorted_launch_ms']:.3f} ms, "
+              f"idle-lane factor {sort['sorted_idle_factor']:.4f}), same "
+              f"bits {sort['identical']}; the frame marches them unsorted")
+        assert sort["identical"]
+    else:
+        print(f"[13 sort] refine launch, idle-lane factor {refine_idle:.4f} "
+              f"<= {SORT_IDLE_FACTOR}: no cost sort measured")
+    steady_total = statistics.median(t for t, _ in steady)
+    # Both traces come after every timing, so that the profiler cannot
+    # disturb one.
+    if args.profile:
+        profile_frame(timed_frame, sum(totals) / len(totals), "dense")
+        profile_frame(adaptive_frame, steady_total, "adaptive")
+    del recorded
 
     table = {"kernels": [{
         "name": "raymarch_kerr_boyer",
@@ -619,7 +1072,7 @@ def main(argv=None) -> int:
         "source": "geodesic_raytracing_tpu_torch/csrc/raymarch.cu",
         "replaces": "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488",
         "launches": launches,
-        "max_abs_err": max(err_a, err_b, err_f),
+        "max_abs_err": max(err_a, err_b, err_f, err_ad),
         # Of the main path's launch, the 1080p frame's 2,073,600 rays.
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -640,6 +1093,19 @@ def main(argv=None) -> int:
             "share_of_bound": small_bound / small_ms},
         "build_flags": " ".join(raymarch.NVCC_FLAGS),
         "ptxas": {**ptxas, **config},
+        # Launches of one frame of each path through render_frame, counted
+        # from 0 just before it; the adaptive launches one by one.
+        "paths": {
+            "dense": {"launches": launches, "frame_ms":
+                      statistics.median(totals), "bench_mrays": dense_mrays},
+            "adaptive_first": {"launches": path_launches[0], "frame_ms":
+                               first_total, "stages_ms": first_ms,
+                               "launch": first_rows},
+            "adaptive_steady": {"launches": path_launches[-1], "frame_ms":
+                                steady_total, "stages_ms": steady[-1][1],
+                                "bench_mrays": adaptive_mrays,
+                                "launch": steady_rows, "refine_sort": sort},
+        },
     }]}
     print(json.dumps(table))
     print(smi)

@@ -13,13 +13,19 @@ import math
 # top 11% of pixels by probe demand get 7 probe iterations (odd counts: an
 # even count samples only one half of the major axis).
 PRODUCTION_PROBE_SEGMENTS = ((0.11, 7),)
+# The refine shade set (traced-only shading) concentrates at terminator
+# edges, where probe demand is several times the image-wide rate: its top 38%
+# get 7 probe iterations and the next 11% get 3.
+PRODUCTION_REFINE_SEGMENTS = ((0.38, 7), (0.11, 3))
 
 
 def flagship_config(width: int = 1920, height: int = 1080, *, device):
     """``(metric, params, camera, settings, features)`` for the 1080p Kerr
-    frame.  ``settings.adaptive_sampling`` keeps the reference's True: the
-    adaptive pipeline is not ported yet, so callers of this slice pass
-    ``dataclasses.replace(settings, adaptive_sampling=False)``."""
+    frame: the adaptive frame with traced-only shading, as the reference's
+    benchmark renders it.  The settings equal the reference's field for
+    field, except for the fields the port does not have: ``planar`` (it has
+    no effect on ``kerr_boyer``), the redshift switches (all off there) and
+    the TPU trace tuning."""
     from . import metrics
     from .camera import Camera
     from .ops.integrate import Features, TraceOptions
@@ -33,6 +39,7 @@ def flagship_config(width: int = 1920, height: int = 1080, *, device):
         height=height,
         anisotropy=8,
         probe_segments=PRODUCTION_PROBE_SEGMENTS,
+        refine_probe_segments=PRODUCTION_REFINE_SEGMENTS,
         trilinear=False,
         adaptive_sampling=True,  # reference default (main.cpp:1152)
         trace=TraceOptions(max_steps=16384),

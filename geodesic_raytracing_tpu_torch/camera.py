@@ -105,9 +105,8 @@ def observer_tetrad(metric: Metric, position: Tensor, params,
             v4 = torch.cat([torch.zeros((1,), device=dev), s3])
             return metric.from_polar_velocity(polar_camera, v4, params)
 
-        gx = to_generic(_vec([1.0, 0.0, 0.0], dev))
-        gy = to_generic(_vec([0.0, 1.0, 0.0], dev))
-        gz = to_generic(_vec([0.0, 0.0, 1.0], dev))
+        # The Cartesian axes, made on the device (a frame uploads nothing).
+        gx, gy, gz = (to_generic(axis) for axis in torch.eye(3, device=dev))
 
         # Normalise with y first so camera controls work intuitively.
         tE1 = tetrad.coordinate_to_tetrad(gy, inv_es)

@@ -5,9 +5,13 @@ Usage:
         --width 1920 --height 1080 --pitch -90 --device cuda --out kerr.png
     python -m geodesic_raytracing_tpu_torch.cli --bench kerr_boyer --frames 5
 
-``--bench`` keeps the reference CLI's protocol line
-``Frametime Elapsed: <ms>`` (one warm-up frame first).  Only the dense
-(non-adaptive) frame is ported so far.
+    python -m geodesic_raytracing_tpu_torch.cli --adaptive --device cpu \
+        --width 64 --height 64 --pitch -90 --max-steps 2048 --out small.png
+
+``--adaptive`` renders the adaptive frame (prepass, quarter grid, top-k
+refinement, traced-only shading) instead of the dense one.  ``--bench`` keeps
+the reference CLI's protocol line ``Frametime Elapsed: <ms>``, after one
+warm-up frame, or four when adaptive (the refinement budget settles first).
 """
 
 from __future__ import annotations
@@ -65,6 +69,9 @@ def main(argv=None) -> int:
     ap.add_argument("--yaw", type=float, default=0.0)
     ap.add_argument("--roll", type=float, default=0.0)
     ap.add_argument("--anisotropy", type=int, default=8)
+    ap.add_argument("--adaptive", action="store_true",
+                    help="adaptive sampling: quarter-density trace + "
+                         "error-driven refinement (reference default)")
     ap.add_argument("--max-steps", type=int, default=16384)
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -79,7 +86,8 @@ def main(argv=None) -> int:
     from .ops.integrate import Features, TraceOptions
     from .render import background as bg
     from .render import colour
-    from .render.pipeline import RenderSettings, check_device, render_frame
+    from .render.pipeline import (RefineBudgetController, RenderSettings,
+                                  check_device, render_frame)
 
     device = check_device(args.device)
     name = args.bench or args.metric
@@ -96,20 +104,26 @@ def main(argv=None) -> int:
     backgrounds = bg.checker_background(device=device)
     settings = RenderSettings(
         width=args.width, height=args.height, fov_degrees=args.fov,
-        anisotropy=args.anisotropy, adaptive_sampling=False,
+        anisotropy=args.anisotropy, adaptive_sampling=args.adaptive,
         trace=TraceOptions(max_steps=args.max_steps),
     )
     features = Features.for_metric(metric)
 
+    # Demand-sized refinement and prepass reuse across the bench frames.
+    controller = RefineBudgetController() if args.bench else None
+
     def frame():
         img = render_frame(metric, cam, params, backgrounds, settings,
-                           features, device=device)
+                           features, controller=controller, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return img
 
     if args.bench:
-        frame()  # warm-up: kernel build and first launch
+        # Warm-up: kernel build and first launch; the adaptive frame's
+        # budget controller settles within four frames.
+        for _ in range(4 if settings.adaptive_sampling else 1):
+            frame()
         for _ in range(args.frames):
             t0 = time.perf_counter()
             frame()

@@ -401,7 +401,8 @@ def sample_anisotropic_flat(bgr: Background, tex: Tensor, side: Tensor,
         parts.append(total / torch.clamp(weight, min=1e-20)[:, None])
 
     multi = torch.cat(parts, dim=0)
-    out = base.clone()
-    sel = ipf > 1  # rows with one probe keep their base value
-    out[order[sel]] = multi[sel]
+    # Rows with one probe keep their base value.  ``order`` holds unique
+    # rows, so the copy is deterministic, and no mask is read by the host.
+    multi = torch.where((ipf > 1)[:, None], multi, base[order])
+    out = base.index_copy(0, order, multi)
     return torch.where(torch.isfinite(out), out, 0.0)

@@ -97,10 +97,28 @@ def test_march_refuses_unported_metric_configs(override, march):
 
 
 def test_render_frame_refuses_adaptive_sampling():
+    """Of an image with an odd side: the quarter grid takes every second
+    pixel, so the adaptive frame refuses it with a clear error."""
     m = metrics.get_metric("kerr_boyer")
-    settings = dataclasses.replace(pl.RenderSettings(width=8, height=8),
-                                   adaptive_sampling=True)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        pl.render_frame(m, Camera.default(device="cpu"), m.params(),
-                        bg.checker_background(64, 128, device="cpu"), settings,
-                        device="cpu")
+    for width, height in ((9, 8), (8, 9)):
+        settings = dataclasses.replace(
+            pl.RenderSettings(width=width, height=height),
+            adaptive_sampling=True)
+        with pytest.raises(ValueError, match="even image dimensions"):
+            pl.render_frame(m, Camera.default(device="cpu"), m.params(),
+                            bg.checker_background(64, 128, device="cpu"),
+                            settings, device="cpu")
+
+
+def test_select_refine_blocks_refuses_seam_rows():
+    """Seam rows belong to banded multi-device frames, which are not
+    ported: a non-empty value raises instead of being ignored."""
+    z = torch.zeros((4, 6))
+    qg = pl.RenderData(tex_coord=torch.zeros((4, 6, 2)), z_shift=z,
+                       side=z.int(), terminated=z.int(),
+                       angles=torch.zeros((4, 6, 2)), steps=z.int())
+    settings = pl.RenderSettings(width=12, height=8)
+    with pytest.raises(NotImplementedError, match="seam_rows"):
+        pl._select_refine_blocks(qg, settings, 8, seam_rows=(2,))
+    should, sel, dest = pl._select_refine_blocks(qg, settings, 8)
+    assert sel.shape == (8,) and dest.shape == (24,)
