@@ -3,17 +3,26 @@
     python3 chip_smoke.py [--profile] [--kernel-flags "..."]
     python3 chip_smoke.py --sweep ["flags; flags; ..."]
 
-Builds the ray-march kernel from ``geodesic_raytracing_tpu_torch/csrc``,
-checks it against its plain eager-torch twin on the card, drives the port's
-main paths through ``render_frame`` at 1920x1080 ``kerr_boyer``: the dense
-frame (one launch) and the adaptive flagship frame of ``flagship_config`` as
-it comes (prepass, quarter grid and refinement: three launches in a first
-frame, two in a steady one), each launch's own rays marched once more by the
-plain twin.  It counts each launch's work (steps, trial iterations, idle
+Builds the ray-march kernel from ``geodesic_raytracing_tpu_torch/csrc`` (one
+library per metric instance, all at once), checks it against its plain
+eager-torch twin on the card, drives the port's main paths through
+``render_frame`` at 1920x1080 ``kerr_boyer``: the dense frame (one launch,
+its rays marched once more by the plain twin) and the adaptive flagship frame
+of ``flagship_config`` as it comes (prepass, quarter grid and refinement:
+three launches in a first frame, two in a steady one; the first frame's
+prepass and refine launches and each launch of the 480x270 frame marched
+once more by the plain twin).  It counts each launch's work (steps, trial iterations, idle
 lanes), holds the kernel's time against its bound, holds the adaptive frame
 against the dense one and the kernel frames against the plain frames at
 480x270, checks that a steady adaptive frame never waits for the device,
-times both frames stage by stage, and runs the CLI on the card.
+times both frames stage by stage, and runs the CLI on the card.  Then the
+second path: every kernel instance (eight metrics, 4-D and planar) and the
+step options (Euler, reparameterisation) against the plain march; the
+``schwarzschild`` frame in planar mode at 1920x1080, adaptive and dense, its
+dense, quarter and refine launches and each launch of its 480x270 twin
+against the plain march; planar against 4-D; the 128x128 golden scenes of the
+seven new metrics and ``kerr_redshift``; and a dense 1080p frame of every
+metric through ``render_frame``, its launch against the plain march.
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
 kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
@@ -38,14 +47,11 @@ import dataclasses
 import functools
 import io
 import json
-import os
 import shlex
 import statistics
-import struct
 import subprocess
 import sys
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -82,6 +88,37 @@ RAY_BYTES_RO = 4
 # contraction and the pruned inverse, 111 in the trial step, the probe and
 # the step controller.
 OPS_PER_TRIAL = 65 + 89 + 111
+# The same count for every instance, by the same rule, as (metric with its
+# partials) + (contraction and pruned inverse) + (step, probe, controller),
+# keyed by (metric, planar).  The adaptive Verlet step is Kerr's 111; planar
+# mode drops theta's trial position and velocity (10); the scheduled step has
+# 6 operations where the controller has 36; a singular terminator adds a
+# compare; a cartesian chart's r adds 6.  PERF.md section 6 has the terms.
+OPS_BY_INSTANCE = {
+    ("kerr_boyer", False): OPS_PER_TRIAL,
+    ("schwarzschild", False): 20 + 46 + 111,
+    ("schwarzschild", True): 15 + 34 + 101,
+    ("schwarzschild_fast", False): 20 + 46 + 82,
+    ("schwarzschild_fast", True): 15 + 34 + 72,
+    ("schwarzschild_skewed", False): 18 + 46 + 111,
+    ("schwarzschild_ingoing_ef", False): 17 + 43 + 111,
+    ("schwarzschild_ingoing_ef", True): 12 + 31 + 101,
+    ("de_sitter", False): 22 + 46 + 81,
+    ("de_sitter", True): 17 + 34 + 71,
+    ("minkowski", False): 87,
+    ("minkowski_skew", False): 87,
+}
+# The planar frame against the 4-D one (tests/test_integrator.py's
+# test_planar_mode_matches_full_4d): fates equal on this share of the pixels
+# (the 4-D march has a polar-axis artifact the planar one has not), and the
+# median angle between the escape directions, in degrees.
+PLANAR_MIN_FATES_EQ = 0.95
+PLANAR_MAX_MEDIAN_DEG = 1.0
+# RMSE limits of golden scenes that differ from GATE_RMSE: de_sitter's rays
+# cross its cosmological horizon (r = 17.3, inside the universe sphere) with a
+# scheduled step and a tenth of them are flung to |r| of 1e3 to 6e4, so where
+# they end amplifies the last ulp (tests/test_torch_render_simple.py).
+GOLDEN_RMSE = {"de_sitter": 10.0}
 
 # The adaptive 1080p frame against the dense one, as the JAX package's own
 # test of its adaptive path states it: share of pixels whose largest channel
@@ -159,12 +196,31 @@ def idle_lane_factor(trials, width=None, tile=(8, 4)):
     return float(32 * t.reshape(-1, 32).max(dim=1).values.sum() / t.sum())
 
 
-def bound_ms(n_rays: int, total_trials: int):
+def bound_ms(n_rays: int, total_trials: int, ops_per_trial=OPS_PER_TRIAL):
     """(bound, operations bound, bytes bound) in ms of a launch that marches
-    ``n_rays`` rays through ``total_trials`` trial iterations."""
-    ops = total_trials * OPS_PER_TRIAL / PEAK_FP32_FLOPS * 1e3
+    ``n_rays`` rays through ``total_trials`` trial iterations of
+    ``ops_per_trial`` float32 operations each."""
+    ops = total_trials * ops_per_trial / PEAK_FP32_FLOPS * 1e3
     byt = n_rays * (2 * RAY_BYTES_RW + RAY_BYTES_RO) / PEAK_BYTES_PER_S * 1e3
     return max(ops, byt), ops, byt
+
+
+def median_launch_ms(metric, state, params, feats, opts, width, rounds=3):
+    """Median kernel time (CUDA events) of ``rounds`` launches on
+    ``state``."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+
+    ms = []
+    for _ in range(rounds):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        raymarch.trace_rays_cuda(metric, state, params, feats, opts,
+                                 image_width=width)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(ms)
 
 
 def launch_work(metric, state, params, feats, opts, width) -> dict:
@@ -213,14 +269,16 @@ def swapped_trace(integrate, fn):
 
 
 @contextlib.contextmanager
-def recorded_launches(integrate):
+def recorded_launches(integrate, with_opts=False):
     """Yields a list that receives ``(input state, output state, image
-    width)`` of every ``integrate.trace_rays`` call made inside the block."""
+    width)`` of every ``integrate.trace_rays`` call made inside the block
+    (and the call's trace options as a fourth item, ``with_opts``)."""
     launches = []
 
     def record(real, metric, state, params, features, opts, image_width):
         out = real(metric, state, params, features, opts, image_width)
-        launches.append((state, out, image_width))
+        launches.append((state, out, image_width, opts) if with_opts
+                        else (state, out, image_width))
         return out
 
     with swapped_trace(integrate, record):
@@ -380,8 +438,8 @@ def cost_sorted_launch(metric, s_in, qsteps, sel, params, feats, opts,
 
 
 def sass_stats(lib_path: str) -> dict:
-    """Static counts from ``cuobjdump -sass`` of a kernel library:
-    ``instructions`` of the kernel, ``fp32`` of them FADD, FMUL or FFMA,
+    """Static counts from ``cuobjdump -sass`` of a kernel library, for its
+    instance of the default options: ``instructions`` of the kernel, ``fp32`` of them FADD, FMUL or FFMA,
     ``loop`` (instructions from the target of its longest backward branch
     to the branch: the march loop with its slow paths) and ``reductions``
     (IMAD.WIDE.U32, one per inlined copy of the trigonometric range
@@ -393,6 +451,12 @@ def sass_stats(lib_path: str) -> dict:
     tool = Path(raymarch.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=120).stdout
+    # The kernel instance of the default options (Verlet, no
+    # reparameterisation, not planar) among the library's six.
+    default = [f for f in re.split(r"^\s*Function : ", sass, flags=re.M)[1:]
+               if "StepOptionsILb0ELb0ELb0E" in f.split("\n", 1)[0]]
+    assert len(default) == 1, len(default)
+    sass = default[0]
     lines = re.findall(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", sass, re.M)
     loops = [(int(at, 16) - int(m.group(1), 16)) // 16 + 1
              for at, text in lines
@@ -423,7 +487,8 @@ def sweep(variants, metric, params, camera, settings, feats, rounds=5):
     default_flags = raymarch.NVCC_FLAGS
     flags = [raymarch.with_flags(*shlex.split(v)) for v in variants]
     with concurrent.futures.ThreadPoolExecutor(len(flags)) as pool:
-        list(pool.map(raymarch.build, dict.fromkeys(flags)))
+        list(pool.map(lambda f: raymarch.build("kerr_boyer", f),
+                      dict.fromkeys(flags)))
     small = dataclasses.replace(settings, width=480, height=270)
     states = [(pl.init_camera_rays(metric, camera, params, s, feats,
                                    device=dev)[0], s.width)
@@ -445,10 +510,10 @@ def sweep(variants, metric, params, camera, settings, feats, rounds=5):
                   + ", ".join(f"{k} {v:.4f}" for k, v in by_tile.items()))
         st, sp, err, _ = compare_states(out, first)
         same = same_bits(out, first)
-        built = raymarch.BUILD_INFO[f]
+        built = raymarch.BUILD_INFO["kerr_boyer", f]
         infos.append({**raymarch.ptxas_summary(built["ptxas"]),
                       **sass_stats(built["path"]),
-                      **raymarch.kernel_config(), **work, "status_eq": st,
+                      **raymarch.kernel_config("kerr_boyer"), **work, "status_eq": st,
                       "steps_eq": sp, "max_dpos": err, "identical": same})
     times = [([], []) for _ in flags]
     for _ in range(rounds):
@@ -502,25 +567,6 @@ def to_srgb8(img):
 
     s = colour.lin_to_srgb(img).cpu().numpy()
     return (np.clip(s, 0, 1) * 255).astype(np.uint8)
-
-
-def read_png_rgb(path: Path) -> np.ndarray:
-    """(H, W, 3) uint8 of an 8-bit RGB PNG with filter 0 on every row (what
-    the CLI's ``write_png`` writes)."""
-    data = path.read_bytes()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
-    at, idat, w, h = 8, b"", 0, 0
-    while at < len(data):
-        (n,) = struct.unpack(">I", data[at:at + 4])
-        tag, body = data[at + 4:at + 8], data[at + 8:at + 8 + n]
-        if tag == b"IHDR":
-            w, h = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        at += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    assert (raw[:, 0] == 0).all(), "unexpected PNG row filter"
-    return raw[:, 1:].reshape(h, w, 3)
 
 
 def profile_frame(frame, frame_ms: float, what: str) -> None:
@@ -584,6 +630,500 @@ def bench_protocol_mrays(frame, n_pixels: int, passes=3, frames=4) -> float:
     return n_pixels / best / 1e6
 
 
+# ---------------------------------------------------------------------------
+# The second path: every kernel instance, planar-mode schwarzschild, goldens
+# ---------------------------------------------------------------------------
+
+def chart_rays(metric, params, feats, n, dev, tilt=0.0):
+    """The ``make_rays(n)`` set in the chart of ``metric`` as a launch
+    state; ``tilt`` is a theta velocity that takes the rays off the
+    equator."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate
+
+    pos, vel = make_rays(n)
+    vel[:, 2] = tilt
+    p, v = torch.from_numpy(pos).to(dev).T, torch.from_numpy(vel).to(dev).T
+    return integrate.init_ray_state(
+        metric, metric.from_polar(p, params).T.contiguous(),
+        metric.from_polar_velocity(p, v, params).T.contiguous(), params,
+        feats)
+
+
+def assert_equals_plain(what, k, p):
+    """Kernel state ``k`` against plain state ``p``: status and steps equal
+    on ALL rays, positions within POS_TOL.  Returns the largest position
+    difference."""
+    n = p.status.numel()
+    st, sp, err, close = compare_states(k, p)
+    print(f"{what}: {n} rays, kernel vs plain: status equal {st}/{n}, steps "
+          f"equal {sp}/{n}, max |dpos| {err:.3g}, same bits "
+          f"{same_bits(k, p)}")
+    assert st == n and sp == n and close, (what, st, sp, err)
+    return err
+
+
+def check_instances(dev) -> dict:
+    """Phase 14: each of the eight kernel instances against the plain torch
+    march on ``make_rays`` sets (64 and 4096 rays; once more off the
+    equator; the spherically symmetric metrics in planar mode too).
+    Returns ``{metric: largest position difference}``."""
+    from geodesic_raytracing_tpu_torch import metrics
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+
+    errs = {}
+    for name in sorted(raymarch.INSTANCES):
+        m = metrics.get_metric(name)
+        params, feats = m.params(), integrate.Features.for_metric(m)
+        cases = [(64, 0.0, False), (4096, 0.0, False), (4096, 0.03, False)]
+        if m.spherically_symmetric:
+            cases += [(64, 0.0, True), (4096, 0.0, True)]
+        for n, tilt, planar in cases:
+            st = chart_rays(m, params, feats, n, dev, tilt)
+            st.status[::7] = integrate.DEAD
+            opts = integrate.TraceOptions(max_steps=4096, planar=planar)
+            k = raymarch.trace_rays_cuda(m, st, params, feats, opts)
+            p = integrate.trace_rays_reference(m, st, params, feats, opts)
+            born_dead_untouched(st, (k, p))
+            err = assert_equals_plain(
+                f"[14 instances] {name} {'planar' if planar else '4-D'}"
+                f"{' off the equator' if tilt else ''}", k, p)
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def check_step_options(dev) -> float:
+    """Phase 15: the Euler integrator and Verlet with affine
+    reparameterisation on ``schwarzschild``, 4-D and planar, kernel against
+    plain."""
+    from geodesic_raytracing_tpu_torch import metrics
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+
+    m = metrics.get_metric("schwarzschild")
+    params, feats = m.params(), integrate.Features.for_metric(m)
+    st = chart_rays(m, params, feats, 4096, dev)
+    worst = 0.0
+    for kw in (dict(integrator="euler"), dict(reparameterisation=True)):
+        for planar in (False, True):
+            opts = integrate.TraceOptions(max_steps=4096, planar=planar, **kw)
+            k = raymarch.trace_rays_cuda(m, st, params, feats, opts)
+            p = integrate.trace_rays_reference(m, st, params, feats, opts)
+            worst = max(worst, assert_equals_plain(
+                f"[15 options] schwarzschild {kw} "
+                f"{'planar' if planar else '4-D'}", k, p))
+            if "reparameterisation" in kw:
+                assert bool((k.running_dlambda_dnew != 1.0).any())
+    return worst
+
+
+def launches_vs_plain(tag, metric, params, feats, launches):
+    """Each recorded launch ``(input, output, width, opts)`` against the
+    plain twin on all rays.  Returns ``(largest position difference, [plain
+    ms])``."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate
+
+    worst, plain_ms = 0.0, []
+    for i, (s_in, s_out, _, opts) in enumerate(launches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        p = integrate.trace_rays_reference(metric, s_in, params, feats, opts)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms.append(ev[0].elapsed_time(ev[1]))
+        dead = born_dead_untouched(s_in, (s_out, p))
+        worst = max(worst, assert_equals_plain(
+            f"{tag} launch {i} (planar {opts.planar}, {dead} born DEAD, "
+            f"plain march {plain_ms[-1]:.1f} ms)", s_out, p))
+    return worst, plain_ms
+
+
+def work_row(name, metric, s_in, s_out, params, feats, opts, width, ms):
+    """One launch's work and bound (by the instance's own operations per
+    trial iteration) as a dict, printed."""
+    lw = launch_work(metric, s_in, params, feats, opts, width)
+    assert same_bits(lw.pop("state"), s_out), "two launches disagree"
+    del lw["per_ray"]
+    ops = OPS_BY_INSTANCE[metric.name, bool(opts.planar)]
+    b, b_ops, b_bytes = bound_ms(lw["rays"], lw["trials"], ops)
+    row = {"name": name, "rays": lw["rays"], "active_rays": lw["active"],
+           "planar": bool(opts.planar), "image_width": width,
+           "trial_iterations": lw["trials"], "mean_steps": lw["mean_steps"],
+           "max_steps": lw["max_steps"], "idle_lane_factor":
+           lw["idle_factor"], "ops_per_trial": ops, "ms": ms, "bound_ms": b,
+           "bound_by": "operations" if b == b_ops else "bytes",
+           "share_of_bound": b / ms}
+    print(f"[work] {name}: {row['rays']} rays ({row['active_rays']} ACTIVE at "
+          f"launch), trial iterations {row['trial_iterations']}, committed "
+          f"steps mean {row['mean_steps']:.2f} max {row['max_steps']}, "
+          f"idle-lane factor {row['idle_lane_factor']:.4f}; kernel {ms:.3f} "
+          f"ms, bound {b:.3f} ms (by {row['bound_by']}: {ops} operations a "
+          f"trial iteration; bytes {b_bytes:.3f} ms), share {b / ms:.4f}")
+    return row
+
+
+def second_path(dev, sky) -> dict:
+    """Phase 16: ``schwarzschild`` in planar mode at 1920x1080 through
+    ``render_frame``, the flagship settings with the metric swapped: the
+    dense frame and four adaptive frames with a RefineBudgetController
+    (its config has ``use_prepass=False``: no prepass launch).  The dense
+    1080p launch, a steady frame's quarter and refine launches and every
+    launch of the 480x270 twins are held against the plain march on all
+    rays."""
+    import torch
+    from geodesic_raytracing_tpu_torch.bench_config import flagship_config
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    metric, params, camera, asettings, feats = flagship_config(
+        device=dev, metric="schwarzschild")
+    assert asettings.planar and pl._planar_enabled(metric, asettings)
+    assert not metric.config.use_prepass
+    settings = dataclasses.replace(asettings, adaptive_sampling=False)
+    n_rays = settings.width * settings.height
+    out = {}
+
+    def checked(img, what):
+        finite = bool(torch.isfinite(img).all())
+        black = float((img == 0).all(dim=-1).float().mean())
+        assert finite and tuple(img.shape) == (1080, 1920, 3), what
+        assert SHADOW_RANGE[0] <= black <= SHADOW_RANGE[1], (what, black)
+        return black
+
+    # Dense: one launch, in planar mode.
+    with recorded_launches(integrate, with_opts=True) as launch:
+        raymarch.reset_launch_counts()
+        dense_img = pl.render_frame(metric, camera, params, sky, settings,
+                                    feats, device=dev)
+        torch.cuda.synchronize()
+        counts = dict(raymarch.LAUNCHES_BY_METRIC)
+    black = checked(dense_img, "dense")
+    assert counts == {"schwarzschild": 1}, counts
+    (d_in, d_out, d_width, d_opts), = launch
+    assert d_opts.planar and d_width == 1920
+    assert bool((d_in.position[:, 2] == d_in.position[0, 2]).all())
+    print(f"[16 dense] 1920x1080 schwarzschild, planar: kernel launches "
+          f"{counts}, shadow fraction {black:.4f}, every ray at theta "
+          f"{float(d_in.position[0, 2]):.7f}")
+    out["dense_launches"] = 1
+
+    # Adaptive: a fresh controller, four frames, 2 launches each.
+    controller = pl.RefineBudgetController()
+
+    def adaptive_frame():
+        return pl.render_frame(metric, camera, params, sky, asettings, feats,
+                               controller=controller, device=dev)
+
+    path_launches, recorded, aimg = [], {}, None
+    for i in range(4):
+        with recorded_launches(integrate, with_opts=True) as launch:
+            raymarch.reset_launch_counts()
+            img = adaptive_frame()
+            torch.cuda.synchronize()
+            path_launches.append(raymarch.LAUNCHES_BY_METRIC.get(
+                "schwarzschild", 0))
+        black = checked(img, f"adaptive {i}")
+        if i in (0, 3):
+            recorded[i] = launch
+        aimg = img if i == 0 else aimg
+        print(f"[16 adaptive] frame {i}: kernel launches {path_launches[-1]} "
+              f"({', '.join(str(l[0].status.numel()) for l in launch)} rays, "
+              f"planar {[l[3].planar for l in launch]}), controller bucket "
+              f"{controller.fraction(1.0):.4f}, shadow fraction {black:.4f}")
+    assert path_launches == [2, 2, 2, 2], path_launches
+    assert all(l[3].planar for ls in recorded.values() for l in ls)
+    out["adaptive_launches"] = path_launches
+
+    d = (aimg - dense_img).abs().max(dim=-1).values
+    off_frac, median = float((d > 0.1).float().mean()), float(d.median())
+    print(f"[16 dense] adaptive vs dense 1080p schwarzschild frame: pixels "
+          f"with a channel off by >0.1 {off_frac:.5f} (limit "
+          f"{ADAPTIVE_MAX_OFF_FRAC}), median difference {median:.3g} (limit "
+          f"{ADAPTIVE_MAX_MEDIAN})")
+    assert off_frac < ADAPTIVE_MAX_OFF_FRAC and median < ADAPTIVE_MAX_MEDIAN
+    del d, aimg, dense_img
+
+    # A steady frame never waits for the device.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adaptive_frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[16 sync] one steady adaptive 1080p schwarzschild frame under "
+          "set_sync_debug_mode('error'): no host synchronisation")
+
+    # Stage times by CUDA events.
+    def timed_dense():
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        e[0].record()
+        s, ku, iq = pl.init_camera_rays(metric, camera, params, settings,
+                                        feats, device=dev)
+        e[1].record()
+        fin = integrate.trace_rays(metric, s, params, feats, d_opts,
+                                   image_width=settings.width)
+        e[2].record()
+        rd = pl.compute_render_data(metric, fin, ku, params, feats,
+                                    inv_quat=iq)
+        e[3].record()
+        pl.shade(rd, sky, settings)
+        e[4].record()
+        torch.cuda.synchronize()
+        return [e[i].elapsed_time(e[i + 1]) for i in range(4)]
+
+    timed_dense()
+    splits = [timed_dense() for _ in range(3)]
+    for i, sp in enumerate(splits):
+        print(f"[16 time] dense schwarzschild frame {i}: {sum(sp):.3f} ms = "
+              f"ray init (with to_planar) {sp[0]:.3f} + trace kernel "
+              f"{sp[1]:.3f} + render data (with unrotate) {sp[2]:.3f} + "
+              f"shade {sp[3]:.3f} ms")
+    out["dense_stages_ms"] = dict(zip(
+        ("ray init", "trace kernel", "render data", "shade"),
+        (statistics.median(c) for c in zip(*splits))))
+    out["dense_frame_ms"] = statistics.median(sum(sp) for sp in splits)
+
+    steady = []
+    with stage_events(pl, integrate) as read:
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            adaptive_frame()
+            ev[1].record()
+            ms = read()
+            total = ev[0].elapsed_time(ev[1])
+            ms["other"] = total - sum(ms.get(st, 0.0) for st in STAGES)
+            steady.append((total, ms))
+    for i, (total, ms) in enumerate(steady):
+        print(f"[16 time] steady adaptive schwarzschild frame {i}: "
+              f"{total:.3f} ms = " + " + ".join(
+                  f"{st} {ms[st]:.3f}" for st in (*STAGES, "other")
+                  if st in ms) + " ms")
+    out["adaptive_frame_ms"] = statistics.median(t for t, _ in steady)
+    out["adaptive_stages_ms"] = steady[-1][1]
+    mrays = bench_protocol_mrays(adaptive_frame, n_rays)
+    dense_mrays = bench_protocol_mrays(
+        lambda: pl.render_frame(metric, camera, params, sky, settings, feats,
+                                device=dev), n_rays)
+    print(f"[16 bench] by bench.py's protocol: adaptive {mrays:.4f} Mrays/s, "
+          f"dense {dense_mrays:.4f} Mrays/s")
+    out["bench_mrays"] = {"adaptive": mrays, "dense": dense_mrays}
+
+    # Work and bound of every launch.
+    rows = [work_row("dense", metric, d_in, d_out, params, feats, d_opts,
+                     d_width, out["dense_stages_ms"]["trace kernel"])]
+    for what, (s_in, s_out, width, opts) in zip(("quarter", "refine"),
+                                                recorded[3]):
+        rows.append(work_row(
+            f"steady {what}", metric, s_in, s_out, params, feats, opts, width,
+            statistics.median(ms[f"{what} trace"] for _, ms in steady)))
+    out["launch"] = rows
+
+    # The path's own launches against the plain march on all rays: the dense
+    # 1080p launch and the steady adaptive frame's quarter and refine sets.
+    worst, pms = launches_vs_plain(
+        "[16 launches] 1080p (0 dense, 1 steady quarter, 2 steady refine)", metric,
+        params, feats, [(d_in, d_out, d_width, d_opts), *recorded[3]])
+    for row, ms in zip(rows, pms):
+        row["plain_ms"] = ms
+    del recorded, d_in, d_out
+
+    # Every launch of the 480x270 twins against the plain march.
+    small = dataclasses.replace(settings, width=480, height=270)
+    asmall = dataclasses.replace(asettings, width=480, height=270)
+    plain_ms = {}
+    for what, cfg in (("dense", small), ("adaptive", asmall)):
+        with recorded_launches(integrate, with_opts=True) as launch:
+            fk = pl.render_frame(metric, camera, params, sky, cfg, feats,
+                                 device=dev)
+        with plain_marches(integrate):
+            fp = pl.render_frame(metric, camera, params, sky, cfg, feats,
+                                 device=dev)
+        assert len(launch) == (1 if what == "dense" else 2)
+        rmse, bad = golden_gate(to_srgb8(fk), to_srgb8(fp))
+        print(f"[16 gate] 480x270 {what} schwarzschild frame, kernel vs "
+              f"plain marches: RMSE {rmse:.4f}, pixels off by >32 {bad:.5f}")
+        assert rmse < GATE_RMSE and bad < GATE_BAD_FRAC, (rmse, bad)
+        err, pms = launches_vs_plain(f"[16 launches] 480x270 {what}", metric,
+                                     params, feats, launch)
+        worst, plain_ms[what] = max(worst, err), pms
+    out["max_abs_err"], out["plain_ms_480x270"] = worst, plain_ms
+    return out
+
+
+def planar_vs_4d(dev, sky) -> dict:
+    """Phase 17: the 480x270 ``schwarzschild`` frame planar and 4-D (fates,
+    escape directions, images), and the 1080p launch of both with its
+    work."""
+    import torch
+    from geodesic_raytracing_tpu_torch.bench_config import flagship_config
+    from geodesic_raytracing_tpu_torch.ops import integrate
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    metric, params, camera, asettings, feats = flagship_config(
+        device=dev, metric="schwarzschild")
+    dense = dataclasses.replace(asettings, adaptive_sampling=False)
+    out, rdata, imgs = {}, {}, {}
+    for planar in (True, False):
+        small = dataclasses.replace(dense, width=480, height=270,
+                                    planar=planar)
+        st, ku, iq = pl.init_camera_rays(metric, camera, params, small, feats,
+                                         device=dev)
+        opts = pl._trace_opts(metric, small)
+        assert opts.planar == planar and (iq is not None) == planar
+        fin = integrate.trace_rays(metric, st, params, feats, opts,
+                                   image_width=480)
+        rdata[planar] = pl.compute_render_data(metric, fin, ku, params, feats,
+                                               inv_quat=iq)
+        imgs[planar] = pl.shade(rdata[planar], sky, small)
+    t4, tp = rdata[False].terminated, rdata[True].terminated
+    fates_eq = float((t4 == tp).float().mean())
+    both = (t4 == 1) & (tp == 1)
+    v4 = pl._ang_to_vec(rdata[False].angles[both])
+    vp = pl._ang_to_vec(rdata[True].angles[both])
+    ang = torch.rad2deg(torch.acos(torch.clamp((v4 * vp).sum(-1), -1, 1)))
+    median_deg = float(ang.median())
+    rmse, bad = golden_gate(to_srgb8(imgs[True]), to_srgb8(imgs[False]))
+    print(f"[17 planar] 480x270 schwarzschild, planar vs 4-D: fates equal "
+          f"{fates_eq:.5f} (limit > {PLANAR_MIN_FATES_EQ}), median angle "
+          f"between escape directions {median_deg:.3g} deg (limit "
+          f"{PLANAR_MAX_MEDIAN_DEG}), 99th percentile "
+          f"{float(ang.quantile(0.99)):.3g} deg; images: RMSE {rmse:.4f}, "
+          f"pixels off by >32 {bad:.5f}")
+    # What the reference's test of planar mode asks.  The two images are
+    # printed as found and not held to the golden gate: the 4-D march has the
+    # reference's polar-axis artifact (a stripe of wrong directions in the
+    # image column through the sky poles), which planar mode is free of.
+    assert fates_eq > PLANAR_MIN_FATES_EQ and median_deg < \
+        PLANAR_MAX_MEDIAN_DEG
+    out["gate"] = {"fates_equal": fates_eq, "median_deg": median_deg,
+                   "rmse": rmse, "bad": bad}
+    del rdata, imgs
+
+    # The 1080p launch of both, timed in turns.
+    states = {}
+    for planar in (True, False):
+        cfg = dataclasses.replace(dense, planar=planar)
+        states[planar] = (pl.init_camera_rays(metric, camera, params, cfg,
+                                              feats, device=dev)[0],
+                          pl._trace_opts(metric, cfg))
+    ms = {True: [], False: []}
+    for _ in range(5):
+        for planar, (st, opts) in states.items():
+            ms[planar].append(median_launch_ms(metric, st, params, feats,
+                                               opts, 1920, rounds=1))
+    for planar, (st, opts) in states.items():
+        k = integrate.trace_rays(metric, st, params, feats, opts,
+                                 image_width=1920)
+        out["planar" if planar else "4d"] = work_row(
+            f"1080p dense schwarzschild {'planar' if planar else '4-D'} "
+            "(median of 5 in turns)", metric, st, k, params, feats, opts,
+            1920, statistics.median(ms[planar]))
+    ratio = out["planar"]["ms"] / out["4d"]["ms"]
+    print(f"[17 planar] 1080p launch, planar / 4-D: {ratio:.4f} in time, "
+          f"{out['planar']['trial_iterations'] / out['4d']['trial_iterations']:.4f}"
+          " in trial iterations")
+    out["time_ratio"] = ratio
+    return out
+
+
+def golden_scenes(dev) -> dict:
+    """Phase 18: the 128x128 scenes of scripts/make_goldens.py for the seven
+    new metrics and ``kerr_redshift`` through the kernel path, against
+    ``tests/golden/catalogue/*.png`` with the golden gate."""
+    import math
+
+    import torch
+    from geodesic_raytracing_tpu_torch import cli, metrics
+    from geodesic_raytracing_tpu_torch.camera import Camera
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.render import background as bg
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    sky = bg.checker_background(device=dev)
+    camera = Camera.default(device=dev).rotate(pitch=-math.pi / 2)
+    scenes = {n: (n, {}) for n in sorted(raymarch.INSTANCES)
+              if n != "kerr_boyer"}
+    scenes["kerr_redshift"] = ("kerr_boyer", dict(redshift=True))
+    out = {}
+    for key, (name, sets_over) in scenes.items():
+        m = metrics.get_metric(name)
+        settings = pl.RenderSettings(
+            width=128, height=128, anisotropy=4,
+            trace=integrate.TraceOptions(max_steps=8192), **sets_over)
+        raymarch.reset_launch_counts()
+        img = pl.render_frame(m, camera, m.params(), sky, settings,
+                              integrate.Features.for_metric(m), device=dev)
+        assert raymarch.LAUNCHES_BY_METRIC == {name: 1}
+        assert bool(torch.isfinite(img).all())
+        golden = cli.read_png(ROOT / "tests" / "golden" / "catalogue"
+                              / f"{key}.png")
+        rmse, bad = golden_gate(to_srgb8(img), golden)
+        limit = GOLDEN_RMSE.get(key, GATE_RMSE)
+        print(f"[18 goldens] {key}: RMSE {rmse:.4f} (limit {limit}), pixels "
+              f"off by >32 {bad:.5f} (limit {GATE_BAD_FRAC})")
+        assert rmse < limit and bad < GATE_BAD_FRAC, (key, rmse, bad)
+        out[key] = {"rmse": rmse, "bad": bad}
+    return out
+
+
+def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
+    """Phase 19: one dense 1920x1080 frame of every other metric through
+    ``render_frame`` (counts from 0; planar as the pipeline decides), the
+    work of its launch, and that launch and its 480x270 twin against the
+    plain march on all rays.  Returns ``{metric: row}``."""
+    import torch
+    from geodesic_raytracing_tpu_torch.bench_config import flagship_config
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    rows = {}
+    for name in sorted(raymarch.INSTANCES):
+        if name in skip:
+            continue
+        metric, params, camera, asettings, feats = flagship_config(
+            device=dev, metric=name)
+        settings = dataclasses.replace(asettings, adaptive_sampling=False)
+        with recorded_launches(integrate, with_opts=True) as launch:
+            raymarch.reset_launch_counts()
+            img = pl.render_frame(metric, camera, params, sky, settings,
+                                  feats, device=dev)
+            torch.cuda.synchronize()
+            counts = dict(raymarch.LAUNCHES_BY_METRIC)
+        assert counts == {name: 1}, counts
+        assert bool(torch.isfinite(img).all())
+        assert tuple(img.shape) == (1080, 1920, 3)
+        black = float((img == 0).all(dim=-1).float().mean())
+        (s_in, s_out, width, opts), = launch
+        assert opts.planar == bool(metric.spherically_symmetric)
+        full = work_row(
+            f"1080p dense {name}", metric, s_in, s_out, params, feats, opts,
+            width, median_launch_ms(metric, s_in, params, feats, opts, width))
+        err_full, (full["plain_ms"],) = launches_vs_plain(
+            f"[19 metrics] 1080p dense {name}", metric, params, feats, launch)
+        del launch, s_in, s_out, img
+
+        small = dataclasses.replace(settings, width=480, height=270)
+        st, _, _ = pl.init_camera_rays(metric, camera, params, small, feats,
+                                       device=dev)
+        k = raymarch.trace_rays_cuda(metric, st, params, feats, opts,
+                                     image_width=480)
+        ms = median_launch_ms(metric, st, params, feats, opts, 480)
+        err, (plain_ms,) = launches_vs_plain(
+            f"[19 metrics] 480x270 dense {name}", metric, params, feats,
+            [(st, k, 480, opts)])
+        row = work_row(f"480x270 dense {name}", metric, st, k, params, feats,
+                       opts, 480, ms)
+        row["plain_ms"] = plain_ms
+        print(f"[19 metrics] {name}: 1080p frame finite, black fraction "
+              f"{black:.4f}, kernel launches {counts}")
+        rows[name] = {"launches": counts[name],
+                      "max_abs_err": max(err, err_full),
+                      "black_fraction": black, "small": row, "full": full}
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one GPU.")
@@ -625,19 +1165,40 @@ def main(argv=None) -> int:
         return 0
 
     # -- 1. device and build ------------------------------------------------
+    # Every metric's library at once, one nvcc each.
     raymarch.NVCC_FLAGS = raymarch.with_flags(*shlex.split(args.kernel_flags))
+    build_all_s = raymarch.build_all()
     t0 = time.perf_counter()
-    raymarch.get_lib()
+    raymarch.get_lib("kerr_boyer")
     build_s = time.perf_counter() - t0
-    built = raymarch.BUILD_INFO[raymarch.NVCC_FLAGS]
+    built = raymarch.BUILD_INFO["kerr_boyer", raymarch.NVCC_FLAGS]
     ptxas = raymarch.ptxas_summary(built["ptxas"])
-    config = raymarch.kernel_config()
+    config = raymarch.kernel_config("kerr_boyer")
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {name} | nvcc build "
-          f"{built['seconds']} s (load {build_s:.2f} s)")
+          f"{torch.version.cuda} | {name} | nvcc build of "
+          f"{len(raymarch.INSTANCES)} libraries at once {build_all_s:.2f} s, "
+          f"kerr_boyer's {built['seconds']} s (load {build_s:.2f} s)")
     print(f"[1 device] nvcc {' '.join(raymarch.NVCC_FLAGS)} | ptxas {ptxas} "
           f"| {config}")
     assert ptxas["spill_store_bytes"] == 0 and ptxas["spill_load_bytes"] == 0
+    ptxas_by_metric = {}
+    for mname in sorted(raymarch.INSTANCES):
+        info = raymarch.BUILD_INFO[mname, raymarch.NVCC_FLAGS]
+        inst = raymarch.ptxas_instances(info["ptxas"])
+        assert len(inst) == 6, (mname, sorted(inst))
+        ptxas_by_metric[mname] = {"build_s": info["seconds"], "instances": {
+            "".join(c for c, on in zip("PER", opt) if on) or "default": v
+            for opt, v in sorted(inst.items())}}
+        print(f"[1 build] {mname}: nvcc {info['seconds']} s; registers / "
+              "stack / spill bytes by options (P planar, E Euler, R "
+              "reparameterisation): " + ", ".join(
+                  f"{k} {v['registers']}/{v['stack_bytes']}/"
+                  f"{v['spill_store_bytes'] + v['spill_load_bytes']}"
+                  for k, v in ptxas_by_metric[mname]["instances"].items()))
+    spilling = [(m, k) for m, d in ptxas_by_metric.items()
+                for k, v in d["instances"].items()
+                if v["spill_store_bytes"] or v["spill_load_bytes"]]
+    print(f"[1 build] instances that spill: {spilling or 'none'}")
 
     sky = bg.checker_background(device=dev)
 
@@ -664,9 +1225,10 @@ def main(argv=None) -> int:
     cx = rng.integers(0, settings.width, 4096).astype(np.float32)
     cy = rng.integers(0, settings.height, 4096).astype(np.float32)
     position, es = pl.camera_frame(metric, camera, params)
-    sb, _ = pl.rays_for_pixels(metric, camera, position, es, params,
-                               settings, feats, torch.from_numpy(cx).to(dev),
-                               torch.from_numpy(cy).to(dev))
+    sb, _, _ = pl.rays_for_pixels(metric, camera, position, es, params,
+                                  settings, feats,
+                                  torch.from_numpy(cx).to(dev),
+                                  torch.from_numpy(cy).to(dev))
     k, p = kernel_and_plain(sb, 16384)
     st, sp, err_b, close = compare_states(k, p)
     print(f"[2b rays] 4096 flagship pixels, max_steps 16384: status equal "
@@ -680,11 +1242,11 @@ def main(argv=None) -> int:
     # The frame's own march is recorded (its input and the kernel's output)
     # so that the plain twin can march the same rays.
     with recorded_launches(integrate) as launch:
-        raymarch.LAUNCHES = 0
+        raymarch.reset_launch_counts()
         img = pl.render_frame(metric, camera, params, sky, settings, feats,
                               device=dev)
         torch.cuda.synchronize()
-        launches = raymarch.LAUNCHES
+        launches = raymarch.launches()
     dense_img = img
     finite = bool(torch.isfinite(img).all())
     black = float((img == 0).all(dim=-1).float().mean())
@@ -740,8 +1302,8 @@ def main(argv=None) -> int:
     # -- 4. kernel frame vs plain frame at 480x270 ---------------------------
     small = dataclasses.replace(settings, width=480, height=270)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    state, ku = pl.init_camera_rays(metric, camera, params, small, feats,
-                                    device=dev)
+    state, ku, _ = pl.init_camera_rays(metric, camera, params, small, feats,
+                                       device=dev)
     torch.cuda.synchronize()
     ev[0].record()
     fk = raymarch.trace_rays_cuda(metric, state, params, feats, small.trace,
@@ -769,8 +1331,8 @@ def main(argv=None) -> int:
     def timed_frame():
         e = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         e[0].record()
-        s, ku_ = pl.init_camera_rays(metric, camera, params, settings, feats,
-                                     device=dev)
+        s, ku_, _ = pl.init_camera_rays(metric, camera, params, settings,
+                                        feats, device=dev)
         e[1].record()
         fin = integrate.trace_rays(metric, s, params, feats, settings.trace,
                                    image_width=settings.width)
@@ -821,7 +1383,7 @@ def main(argv=None) -> int:
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["--metric", "kerr_boyer", *cli_args, "--out",
                        str(png)])
-    cli_img = read_png_rgb(png)
+    cli_img = cli.read_png(png)
     cli_black = float((cli_img == 0).all(axis=-1).mean())
     print(f"[7 cli] --bench kerr_boyer 1920x1080 on cuda: "
           f"{'; '.join(bench)}; PNG {cli_img.shape}, shadow fraction "
@@ -839,7 +1401,7 @@ def main(argv=None) -> int:
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["--metric", "kerr_boyer", "--adaptive", *cli_args,
                        "--out", str(apng)])
-    cli_aimg = read_png_rgb(apng)
+    cli_aimg = cli.read_png(apng)
     cli_black = float((cli_aimg == 0).all(axis=-1).mean())
     cli_rmse, cli_bad = golden_gate(cli_aimg, cli_img)
     print(f"[7 cli] --bench kerr_boyer --adaptive 1920x1080 on cuda: "
@@ -871,10 +1433,10 @@ def main(argv=None) -> int:
     recorded, path_launches, aimg = {}, [], None
     for i in range(6):
         with recorded_launches(integrate) as launch:
-            raymarch.LAUNCHES = 0
+            raymarch.reset_launch_counts()
             img = adaptive_frame()
             torch.cuda.synchronize()
-            path_launches.append(raymarch.LAUNCHES)
+            path_launches.append(raymarch.launches())
         if i in (0, 5):
             recorded[i] = launch
         aimg = img if i == 0 else aimg
@@ -894,35 +1456,46 @@ def main(argv=None) -> int:
     assert [w for _, _, w in recorded[0]] == [120, 960, None]
     assert [w for _, _, w in recorded[5]] == [960, None]
 
-    # -- 9. each adaptive launch against the plain twin ----------------------
+    # -- 9. the adaptive launches at 1080p: work, and the plain twin ----------
+    # The prepass and the refine set (the launch that is no image and holds
+    # rays born DEAD) are marched once more by the plain twin; the quarter
+    # grid is an image launch like the dense frame's, which phase 3 held, and
+    # is held at 480x270 in phase 11 with the other two.
     err_ad, first = 0.0, []
     for what, (s_in, s_out, width) in zip(("prepass", "quarter", "refine"),
                                           recorded[0]):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        p = integrate.trace_rays_reference(metric, s_in, params, feats,
-                                           asettings.trace)
-        ev[1].record()
-        torch.cuda.synchronize()
         n = s_in.status.numel()
-        born_dead = born_dead_untouched(s_in, (s_out, p))
-        st, sp, err, close = compare_states(s_out, p)
         lw = launch_work(metric, s_in, params, feats, asettings.trace,
                            width)
         assert same_bits(lw.pop("state"), s_out)
         del lw["per_ray"]
-        lw.update(name=what, plain_ms=ev[0].elapsed_time(ev[1]),
-                    image_width=width, born_dead=born_dead)
+        if what == "quarter":
+            born_dead = born_dead_untouched(s_in, (s_out,))
+            print(f"[9 launches] first frame, {what}: {n} rays ({born_dead} "
+                  "born DEAD, untouched by the kernel), a second launch on "
+                  "the same input gives the same bits")
+        else:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            p = integrate.trace_rays_reference(metric, s_in, params, feats,
+                                               asettings.trace)
+            ev[1].record()
+            torch.cuda.synchronize()
+            lw["plain_ms"] = ev[0].elapsed_time(ev[1])
+            born_dead = born_dead_untouched(s_in, (s_out, p))
+            st, sp, err, close = compare_states(s_out, p)
+            print(f"[9 launches] first frame, {what}: {n} rays ({born_dead} "
+                  f"born DEAD, untouched by kernel and plain twin), kernel "
+                  f"vs plain: status equal {st / n:.4f}, steps equal "
+                  f"{sp / n:.4f}, max |dpos| {err:.3g}; plain march "
+                  f"{lw['plain_ms']:.1f} ms")
+            assert st >= SET_B_MIN_STATUS_EQ * n, st
+            assert sp >= SET_B_MIN_STEPS_EQ * n, sp
+            assert close, err
+            err_ad = max(err_ad, err)
+            del p
+        lw.update(name=what, image_width=width, born_dead=born_dead)
         first.append(lw)
-        print(f"[9 launches] first frame, {what}: {n} rays ({born_dead} born "
-              f"DEAD, untouched by kernel and plain twin), kernel vs plain: "
-              f"status equal {st / n:.4f}, steps equal {sp / n:.4f}, max "
-              f"|dpos| {err:.3g}; plain march {lw['plain_ms']:.1f} ms")
-        assert st >= SET_B_MIN_STATUS_EQ * n, st
-        assert sp >= SET_B_MIN_STEPS_EQ * n, sp
-        assert close, err
-        err_ad = max(err_ad, err)
-        del p
     assert first[0]["born_dead"] == 0 and first[2]["born_dead"] > 0
 
     # -- 10. adaptive against dense at 1080p ---------------------------------
@@ -939,18 +1512,35 @@ def main(argv=None) -> int:
 
     # -- 11. adaptive kernel frame vs plain frame at 480x270 -----------------
     asmall = dataclasses.replace(asettings, width=480, height=270)
-    raymarch.LAUNCHES = 0
-    fk = pl.render_frame(metric, camera, params, sky, asmall, feats,
-                         device=dev)
-    small_launches = raymarch.LAUNCHES
+    with recorded_launches(integrate) as launch:
+        raymarch.reset_launch_counts()
+        fk = pl.render_frame(metric, camera, params, sky, asmall, feats,
+                             device=dev)
+        small_launches = raymarch.launches()
     with plain_marches(integrate):
         fp = pl.render_frame(metric, camera, params, sky, asmall, feats,
                              device=dev)
-    assert small_launches == 3 and raymarch.LAUNCHES == 3
+    assert small_launches == 3 and raymarch.launches() == 3
     rmse, bad = golden_gate(to_srgb8(fk), to_srgb8(fp))
     print(f"[11 gate] 480x270 adaptive frame, kernel vs plain marches: RMSE "
           f"{rmse:.4f}, pixels off by >32 {bad:.5f}")
     assert rmse < GATE_RMSE and bad < GATE_BAD_FRAC, (rmse, bad)
+    for what, (s_in, s_out, _) in zip(("prepass", "quarter", "refine"),
+                                      launch):
+        p = integrate.trace_rays_reference(metric, s_in, params, feats,
+                                           asmall.trace)
+        n = s_in.status.numel()
+        born_dead = born_dead_untouched(s_in, (s_out, p))
+        st, sp, err, close = compare_states(s_out, p)
+        print(f"[11 launches] 480x270 adaptive frame, {what}: {n} rays "
+              f"({born_dead} born DEAD, untouched by kernel and plain twin), "
+              f"kernel vs plain: status equal {st / n:.4f}, steps equal "
+              f"{sp / n:.4f}, max |dpos| {err:.3g}")
+        assert st >= SET_B_MIN_STATUS_EQ * n, st
+        assert sp >= SET_B_MIN_STEPS_EQ * n, sp
+        assert close, err
+        err_ad = max(err_ad, err)
+    del launch, p
 
     # -- 12. a steady adaptive frame never waits for the device --------------
     torch.cuda.synchronize()
@@ -1039,12 +1629,12 @@ def main(argv=None) -> int:
         # The recorded steady frame's selection, from its quarter launch.
         (_, q_out, _), (r_in, _, _) = recorded[5]
         cam_frame = pl.camera_frame(metric, camera, params)
-        _, ku = pl.rays_for_pixels(metric, camera, *cam_frame, params,
-                                   asettings, feats,
-                                   *pl._qcoords(asettings, dev))
-        _, _, _, sel, _, r_again, _ = pl._refine_setup(
+        _, ku, _ = pl.rays_for_pixels(metric, camera, *cam_frame, params,
+                                      asettings, feats,
+                                      *pl._qcoords(asettings, dev))
+        _, _, _, sel, _, r_again, _, _ = pl._refine_setup(
             metric, camera, cam_frame, params, asettings, feats, q_out, ku,
-            r_in.status.numel() // 3)
+            None, r_in.status.numel() // 3)
         assert same_bits(r_again, r_in)
         sort = cost_sorted_launch(metric, r_in, q_out.steps, sel, params,
                                   feats, asettings.trace, (540, 960))
@@ -1066,13 +1656,59 @@ def main(argv=None) -> int:
         profile_frame(adaptive_frame, steady_total, "adaptive")
     del recorded
 
+    # -- 14-19. the second path ------------------------------------------------
+    instance_err = check_instances(dev)
+    options_err = check_step_options(dev)
+    schw = second_path(dev, sky)
+    planar = planar_vs_4d(dev, sky)
+    goldens = golden_scenes(dev)
+    per_metric = every_metric_dense(dev, sky)
+
+    def instance_row(mname):
+        """The row of one of the seven new instances: ms, plain_ms and
+        bound_ms of its dense 1080p launch through ``render_frame`` (the
+        same rays for all three), as ``kerr_boyer``'s row; its 480x270
+        launch under ``small``."""
+        r = per_metric[mname]
+        row = {
+            "name": f"raymarch_{mname}",
+            "route": "cuda",
+            "source": "geodesic_raytracing_tpu_torch/csrc/raymarch.cu",
+            "replaces": "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488",
+            "launches": r["launches"],
+            "max_abs_err": max(r["max_abs_err"], instance_err[mname]),
+            "ms": r["full"]["ms"],
+            "plain_ms": r["full"]["plain_ms"],
+            "bound_ms": r["full"]["bound_ms"],
+            "bound_by": r["full"]["bound_by"],
+            "share_of_bound": r["full"]["share_of_bound"],
+            "library_ms": None,  # no PyTorch call computes a geodesic march
+            "rays": r["full"]["rays"],
+            "planar": r["full"]["planar"],
+            "trial_iterations": r["full"]["trial_iterations"],
+            "mean_steps": r["full"]["mean_steps"],
+            "max_steps": r["full"]["max_steps"],
+            "idle_lane_factor": r["full"]["idle_lane_factor"],
+            "ops_per_trial": r["full"]["ops_per_trial"],
+            "small": r["small"],
+            "ptxas": ptxas_by_metric[mname],
+            "golden": goldens[mname],
+        }
+        if mname == "schwarzschild":
+            row["max_abs_err"] = max(row["max_abs_err"], options_err,
+                                     schw["max_abs_err"])
+            row["paths"] = schw
+            row["planar_vs_4d"] = planar
+        return row
+
     table = {"kernels": [{
         "name": "raymarch_kerr_boyer",
         "route": "cuda",
         "source": "geodesic_raytracing_tpu_torch/csrc/raymarch.cu",
         "replaces": "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488",
         "launches": launches,
-        "max_abs_err": max(err_a, err_b, err_f, err_ad),
+        "max_abs_err": max(err_a, err_b, err_f, err_ad,
+                           instance_err["kerr_boyer"]),
         # Of the main path's launch, the 1080p frame's 2,073,600 rays.
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1092,7 +1728,8 @@ def main(argv=None) -> int:
             "plain_ms": small_plain_ms, "bound_ms": small_bound,
             "share_of_bound": small_bound / small_ms},
         "build_flags": " ".join(raymarch.NVCC_FLAGS),
-        "ptxas": {**ptxas, **config},
+        "ptxas": {**ptxas, **config, **ptxas_by_metric["kerr_boyer"]},
+        "golden_kerr_redshift": goldens["kerr_redshift"],
         # Launches of one frame of each path through render_frame, counted
         # from 0 just before it; the adaptive launches one by one.
         "paths": {
@@ -1106,7 +1743,7 @@ def main(argv=None) -> int:
                                 "bench_mrays": adaptive_mrays,
                                 "launch": steady_rows, "refine_sort": sort},
         },
-    }]}
+    }, *(instance_row(m) for m in sorted(per_metric))]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

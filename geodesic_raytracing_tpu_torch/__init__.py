@@ -19,7 +19,10 @@ nvcc at first use, see ``ops/raymarch.py``) for tensors on a GPU, and as its
 plain eager-torch twin (``ops/integrate.trace_rays_reference``) for tensors
 on the CPU.
 
-Slice ported so far: the non-adaptive ``render_frame`` for ``kerr_boyer``.
+Slices ported so far: the dense and the adaptive ``render_frame`` for
+``kerr_boyer`` and for the seven metrics of ``metrics/catalogue_simple.py``
+(planar mode for the spherically symmetric ones), every branch of the
+integrator step, and redshift colour.
 """
 
 __version__ = "0.1.0"

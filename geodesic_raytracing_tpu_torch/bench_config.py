@@ -19,19 +19,20 @@ PRODUCTION_PROBE_SEGMENTS = ((0.11, 7),)
 PRODUCTION_REFINE_SEGMENTS = ((0.38, 7), (0.11, 3))
 
 
-def flagship_config(width: int = 1920, height: int = 1080, *, device):
+def flagship_config(width: int = 1920, height: int = 1080, *, device,
+                    metric: str = "kerr_boyer"):
     """``(metric, params, camera, settings, features)`` for the 1080p Kerr
     frame: the adaptive frame with traced-only shading, as the reference's
     benchmark renders it.  The settings equal the reference's field for
-    field, except for the fields the port does not have: ``planar`` (it has
-    no effect on ``kerr_boyer``), the redshift switches (all off there) and
-    the TPU trace tuning."""
+    field, except for the TPU trace tuning, which the port does not have.
+    ``metric`` swaps the metric and keeps everything else (the planar
+    ``schwarzschild`` frame of ``chip_smoke.py``)."""
     from . import metrics
     from .camera import Camera
     from .ops.integrate import Features, TraceOptions
     from .render.pipeline import RenderSettings
 
-    metric = metrics.get_metric("kerr_boyer")
+    metric = metrics.get_metric(metric)
     params = metric.params()
     camera = Camera.default(device=device).rotate(pitch=-math.pi / 2)
     settings = RenderSettings(

@@ -1,7 +1,8 @@
 """Carry state from the JAX reference's objects into the port's, as numpy.
 
 Used to hand a scene set up on the reference side (metric parameters, a
-camera, a sky atlas) to the port unchanged.  The objects are read through
+camera, a sky atlas, render settings, a ray state with its planar
+quaternions) to the port unchanged.  The objects are read through
 ``numpy.asarray``; nothing here imports JAX.
 """
 
@@ -11,7 +12,9 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .ops.integrate import RayState, TraceOptions
 from .render.background import Background
+from .render.pipeline import RenderSettings
 
 
 def params_from_jax(params) -> dict:
@@ -47,3 +50,32 @@ def background_from_jax(bgr, *, device) -> Background:
         level_h=tuple(int(v) for v in bgr.level_h),
         level_x=tuple(int(v) for v in bgr.level_x),
     )
+
+
+def settings_from_jax(settings) -> RenderSettings:
+    """The reference's ``RenderSettings`` -> the port's: every field the
+    port has, by name (the redshift switches and ``planar`` included); the
+    reference's trace tuning for its own kernel has no counterpart and is
+    dropped, as is ``trace.planar``, which the pipeline sets itself."""
+    import dataclasses
+
+    t = settings.trace
+    trace = TraceOptions(max_steps=int(t.max_steps),
+                         reparameterisation=bool(t.reparameterisation),
+                         integrator=str(t.integrator))
+    names = {f.name for f in dataclasses.fields(RenderSettings)} - {"trace"}
+    return RenderSettings(trace=trace,
+                          **{n: getattr(settings, n) for n in names})
+
+
+def ray_state_from_jax(state, inv_quat=None, *, device):
+    """The reference's ``RayState`` -> the port's, with the planar rays'
+    inverse quaternions (4, N) beside it (None unless the rays were rotated
+    into the equator).  Returns ``(state, inv_quat)``."""
+    def conv(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+
+    out = RayState(*(conv(getattr(state, n), np.int32 if n in
+                          ("status", "steps") else np.float32)
+                     for n in RayState._fields))
+    return out, None if inv_quat is None else conv(inv_quat, np.float32)

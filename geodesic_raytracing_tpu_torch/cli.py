@@ -3,7 +3,10 @@
 Usage:
     python -m geodesic_raytracing_tpu_torch.cli --metric kerr_boyer \
         --width 1920 --height 1080 --pitch -90 --device cuda --out kerr.png
+    python -m geodesic_raytracing_tpu_torch.cli --metric schwarzschild \
+        --adaptive --redshift --pitch -90 --device cuda --out schw.png
     python -m geodesic_raytracing_tpu_torch.cli --bench kerr_boyer --frames 5
+    python -m geodesic_raytracing_tpu_torch.cli --list
 
     python -m geodesic_raytracing_tpu_torch.cli --adaptive --device cpu \
         --width 64 --height 64 --pitch -90 --max-steps 2048 --out small.png
@@ -12,6 +15,8 @@ Usage:
 refinement, traced-only shading) instead of the dense one.  ``--bench`` keeps
 the reference CLI's protocol line ``Frametime Elapsed: <ms>``, after one
 warm-up frame, or four when adaptive (the refinement budget settles first).
+A spherically symmetric metric is traced in planar mode (every ray rotated
+into the equator, theta pinned) unless ``--no-planar`` is given.
 """
 
 from __future__ import annotations
@@ -48,6 +53,59 @@ def write_png(path: str, arr: np.ndarray) -> None:
         f.write(png)
 
 
+def _unfilter(filt: int, row: np.ndarray, prev: np.ndarray, bpp: int):
+    """One PNG scanline with its filter undone (``prev``: the row above)."""
+    row = row.astype(np.int32)
+    if filt == 0:
+        return row
+    if filt == 2:
+        return (row + prev) & 0xFF
+    out = np.zeros_like(row)
+    for i in range(len(row)):
+        a = out[i - bpp] if i >= bpp else 0
+        b, c = prev[i], (prev[i - bpp] if i >= bpp else 0)
+        if filt == 1:
+            pred = a
+        elif filt == 3:
+            pred = (a + b) // 2
+        elif filt == 4:
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+        else:
+            raise ValueError(f"unknown PNG filter {filt}")
+        out[i] = (row[i] + pred) & 0xFF
+    return out
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, 3) uint8 of an 8-bit, non-interlaced RGB or RGBA PNG (standard
+    library only; the alpha channel is dropped)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    at, idat, head = 8, b"", None
+    while at < len(data):
+        (n,) = struct.unpack(">I", data[at:at + 4])
+        tag, body = data[at + 4:at + 8], data[at + 8:at + 8 + n]
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        at += 12 + n
+    w, h, depth, ctype, _, _, interlace = head
+    if depth != 8 or ctype not in (2, 6) or interlace:
+        raise ValueError(f"{path}: only 8-bit non-interlaced RGB(A) PNGs")
+    bpp = 3 if ctype == 2 else 4
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + bpp * w)
+    out = np.zeros((h, bpp * w), np.int32)
+    prev = np.zeros(bpp * w, np.int32)
+    for y in range(h):
+        prev = out[y] = _unfilter(int(raw[y, 0]), raw[y, 1:], prev, bpp)
+    return out.astype(np.uint8).reshape(h, w, bpp)[..., :3]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--metric", default="kerr_boyer")
@@ -69,6 +127,25 @@ def main(argv=None) -> int:
     ap.add_argument("--yaw", type=float, default=0.0)
     ap.add_argument("--roll", type=float, default=0.0)
     ap.add_argument("--anisotropy", type=int, default=8)
+    ap.add_argument("--list", action="store_true",
+                    help="list the ported metrics and exit")
+    ap.add_argument("--param", action="append", default=[],
+                    metavar="NAME=VALUE", help="metric parameter override")
+    ap.add_argument("--speed", type=float, nargs=3, default=[0.0, 0.0, 0.0],
+                    metavar=("VX", "VY", "VZ"),
+                    help="observer 3-velocity in the tetrad frame (|v| < 1)")
+    ap.add_argument("--redshift", action="store_true")
+    ap.add_argument("--old-redshift", action="store_true",
+                    help="reference use_old_redshift feature: no blueshift "
+                         "energy redistribution")
+    ap.add_argument("--dominant-colour", action="store_true",
+                    help="per-pixel dominant-wavelength redshift variant")
+    ap.add_argument("--spectral-redshift", action="store_true",
+                    help="experimental: shift each pixel's CIE dominant "
+                         "wavelength along the 1931 horseshoe")
+    ap.add_argument("--no-planar", action="store_true",
+                    help="trace a spherically symmetric metric in all four "
+                         "coordinates instead of in its rays' planes")
     ap.add_argument("--adaptive", action="store_true",
                     help="adaptive sampling: quarter-density trace + "
                          "error-driven refinement (reference default)")
@@ -89,14 +166,20 @@ def main(argv=None) -> int:
     from .render.pipeline import (RefineBudgetController, RenderSettings,
                                   check_device, render_frame)
 
+    if args.list:
+        print("\n".join(metrics.list_metrics()))
+        return 0
     device = check_device(args.device)
     name = args.bench or args.metric
     metric = metrics.get_metric(name)
-    params = metric.params()
+    params = metric.params(**{k: float(v) for k, v in
+                              (kv.split("=", 1) for kv in args.param)})
 
     cam = Camera.default(device=device)._replace(
         polar_position=torch.tensor(args.camera, dtype=torch.float32,
-                                    device=device))
+                                    device=device),
+        basis_speed=torch.tensor(args.speed, dtype=torch.float32,
+                                 device=device))
     d2r = math.pi / 180.0
     if args.pitch or args.yaw or args.roll:
         cam = cam.rotate(yaw=args.yaw * d2r, pitch=args.pitch * d2r,
@@ -105,6 +188,10 @@ def main(argv=None) -> int:
     settings = RenderSettings(
         width=args.width, height=args.height, fov_degrees=args.fov,
         anisotropy=args.anisotropy, adaptive_sampling=args.adaptive,
+        redshift=args.redshift, old_redshift=args.old_redshift,
+        dominant_colour=args.dominant_colour,
+        spectral_redshift=args.spectral_redshift,
+        planar=not args.no_planar,
         trace=TraceOptions(max_steps=args.max_steps),
     )
     features = Features.for_metric(metric)

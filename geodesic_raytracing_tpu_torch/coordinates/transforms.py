@@ -1,6 +1,7 @@
 """Coordinate transforms with autodiff Jacobians (port of
-``geodesic_raytracing_tpu.coordinates.transforms``; the charts the ported
-slice uses).
+``geodesic_raytracing_tpu.coordinates.transforms``; the charts of the
+ported metrics: polar, cartesian, skewed cartesian, ingoing
+Eddington-Finkelstein and skewed polar).
 
 A transform is ``f(x: (4, ...), params) -> (4, ...)``; velocity transforms
 are one ``torch.func.jvp``.  Canonical polar coordinates are
@@ -44,8 +45,78 @@ def polar_to_polar(x, params):
     return x
 
 
+def _cartesian_polar(t, xx, y, z):
+    r = torch.sqrt(xx * xx + y * y + z * z)
+    theta = arctan2(torch.sqrt(xx * xx + y * y), z)
+    phi = arctan2(y, xx)
+    return torch.stack([t, r, theta, phi])
+
+
+def cartesian_to_polar(x, params):
+    """scripts/coordinates/cartesian_to_polar.js.  Componentwise."""
+    return _cartesian_polar(x[0], x[1], x[2], x[3])
+
+
+def polar_to_cartesian(x, params):
+    """scripts/coordinates/polar_to_cartesian.js.  Componentwise."""
+    t, r, theta, phi = x[0], x[1], x[2], x[3]
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack(
+        [t, r * st * torch.cos(phi), r * st * torch.sin(phi), r * ct])
+
+
+def cartesian_skew_to_polar(x, params):
+    """scripts/coordinates/cartesian_skew_to_polar.js — args are
+    (x, t, y, z)."""
+    return _cartesian_polar(x[1], x[0], x[2], x[3])
+
+
+def polar_to_cartesian_skew(x, params):
+    """scripts/coordinates/polar_to_cartesian_skew.js — returns
+    (x, t, y, z)."""
+    t, r, theta, phi = x[0], x[1], x[2], x[3]
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack(
+        [r * st * torch.cos(phi), t, r * st * torch.sin(phi), r * ct])
+
+
+def ingoing_ef_to_polar(x, params):
+    """scripts/coordinates/ingoing_ef_to_polar.js —
+    v = t + r + rs log|r - rs|."""
+    rs = params["rs"]
+    v, r, theta, phi = x[0], x[1], x[2], x[3]
+    t = v - (r + rs * torch.log(torch.abs(r - rs)))
+    return torch.stack([t, r, theta, phi])
+
+
+def polar_to_ingoing_ef(x, params):
+    """scripts/coordinates/polar_to_ingoing_ef.js."""
+    rs = params["rs"]
+    t, r, theta, phi = x[0], x[1], x[2], x[3]
+    v = t + r + rs * torch.log(torch.abs(r - rs))
+    return torch.stack([v, r, theta, phi])
+
+
+def skewed_polar_to_polar(x, params):
+    """scripts/coordinates/skewed_polar_to_polar.js — args are (r, t, ...)."""
+    return torch.stack([x[1], x[0], x[2], x[3]])
+
+
+def polar_to_skewed_polar(x, params):
+    """scripts/coordinates/polar_to_skewed_polar.js."""
+    return torch.stack([x[1], x[0], x[2], x[3]])
+
+
 TRANSFORMS = {
     "polar_to_polar": polar_to_polar,
+    "cartesian_to_polar": cartesian_to_polar,
+    "polar_to_cartesian": polar_to_cartesian,
+    "cartesian_skew_to_polar": cartesian_skew_to_polar,
+    "polar_to_cartesian_skew": polar_to_cartesian_skew,
+    "ingoing_ef_to_polar": ingoing_ef_to_polar,
+    "polar_to_ingoing_ef": polar_to_ingoing_ef,
+    "skewed_polar_to_polar": skewed_polar_to_polar,
+    "polar_to_skewed_polar": polar_to_skewed_polar,
 }
 
 

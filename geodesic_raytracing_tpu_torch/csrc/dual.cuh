@@ -40,6 +40,7 @@ constexpr unsigned kAllTangents = (1u << kTangents) - 1u;
 template <unsigned MASK>
 struct Dual {
   static_assert(MASK <= kAllTangents, "a mask bit beyond kTangents");
+  static constexpr unsigned mask = MASK;
   float v = 0.0f;
   float d[kTangents] = {};  // d[k] stays 0 where bit k of MASK is clear
 };
@@ -54,6 +55,21 @@ GRT_HD GRT_INLINE Dual<(1u << K)> dual_seed(float v) {
   r.d[K] = 1.0f;
   return r;
 }
+
+// A coordinate that seeds every tangent of MASK (none: a constant, which the
+// metric is not differentiated by).  Tangents are named by seed order, not by
+// coordinate index: tangent k belongs to the k-th coordinate the metric
+// depends on.
+template <unsigned MASK>
+GRT_HD GRT_INLINE Dual<MASK> dual_seeded(float v) {
+  Dual<MASK> r;
+  r.v = v;
+  for (int k = 0; k < kTangents; ++k)
+    if (live(MASK, k)) r.d[k] = 1.0f;
+  return r;
+}
+
+GRT_HD GRT_INLINE Dual<0u> dual_constant(float v) { return dual_seeded<0u>(v); }
 
 // The same value with more tangents declared live (the added ones hold 0):
 // widening every operand to kAllTangents gives the unpruned computation.
@@ -210,6 +226,19 @@ GRT_HD GRT_INLINE void grt_sincos(const Dual<A>& x, Dual<A>& s, Dual<A>& c) {
   s.d[1] = scale_tangent<1>(x, c.v);
   c.d[0] = scale_tangent<0>(x, ns);
   c.d[1] = scale_tangent<1>(x, ns);
+}
+
+// sin alone (a metric that needs cos only for the tangent): without a live
+// tangent no cosine is computed at all.
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_sin(const Dual<A>& x) {
+  if constexpr (A == 0u) {
+    return dual_constant(sinf(x.v));
+  } else {
+    Dual<A> s, c;
+    grt_sincos(x, s, c);
+    return s;
+  }
 }
 
 // 1/x with the division-free tangent -y*y*dx (the reference's recip).

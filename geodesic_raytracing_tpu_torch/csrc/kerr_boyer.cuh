@@ -4,7 +4,7 @@
 // a change there must be made here too.
 #pragma once
 
-#include "dual.cuh"
+#include "sym.cuh"
 
 namespace grt {
 
@@ -37,22 +37,36 @@ GRT_HD GRT_INLINE void kerr_boyer_g(const R& r, const Th& theta, float rs,
 struct KerrBoyer {
   float rs;
   float a;
-  // MetricConfig of kerr_boyer (polar_base).  The step branches on
-  // detect_singularities and static_asserts the rest, which it assumes
-  // (the Python side refuses other configs in
-  // integrate.check_ported_metric).
-  static constexpr bool detect_singularities = true;
-  static constexpr bool adaptive_precision = true;
-  static constexpr bool singular = false;
-  static constexpr bool has_cylindrical_singularity = false;
-  static constexpr bool unconditionally_nonsingular = false;
-  // Polar chart (to_polar = polar_to_polar) with the at_origin distance:
-  // the step reads |r| straight from x[1].
-  static constexpr bool polar_at_origin = true;
+  static constexpr const char* name = "kerr_boyer";
+  static constexpr int n_params = 2;  // rs, a
+  GRT_HD static KerrBoyer from_params(const float* p) { return {p[0], p[1]}; }
 
-  template <class R, class Th, class G>
-  GRT_HD GRT_INLINE void g(const R& r, const Th& theta, G out[5]) const {
-    kerr_boyer_g(r, theta, rs, a, out);
+  // MetricConfig of kerr_boyer (polar_base).
+  static constexpr bool adaptive_precision = true;
+  static constexpr bool detect_singularities = true;
+  static constexpr bool singular = false;
+  static constexpr float singular_terminator = 1.0f;
+  static constexpr bool has_cylindrical_singularity = false;
+  static constexpr float cylindrical_terminator = 0.005f;
+  static constexpr bool unconditionally_nonsingular = false;
+  // Precision weights of a polar chart that is not spherically symmetric.
+  GRT_HD static constexpr float weight(int i) {
+    return i == 2 ? 8.0f : i == 3 ? 32.0f : 1.0f;
+  }
+  static constexpr double udiv = 32.0;
+  // g depends on x[1] (tangent 0) and x[2] (tangent 1).
+  static constexpr int n_deps = 2;
+  GRT_HD static constexpr int dep(int k) { return k == 0 ? 1 : 2; }
+  // Polar chart with the at_origin distance: polar r is x[1].
+  GRT_HD GRT_INLINE float polar_r(const float x[4]) const { return x[1]; }
+
+  template <class X0, class R, class Th, class X3>
+  GRT_HD GRT_INLINE auto g(const X0&, const R& r, const Th& theta,
+                           const X3&) const {
+    Dual<(R::mask | Th::mask)> e[5];
+    kerr_boyer_g(r, theta, rs, a, e);
+    return sym(entry<0, 0>(e[0]), entry<1, 1>(e[1]), entry<2, 2>(e[2]),
+               entry<3, 3>(e[3]), entry<0, 3>(e[4]));
   }
 };
 

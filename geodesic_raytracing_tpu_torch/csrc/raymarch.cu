@@ -28,13 +28,24 @@
 // the width, and GRT_FULL_TANGENTS (march.cuh) and GRT_SEPARATE_TRIG
 // (dual.cuh) restore the unpruned duals and the separate sinf and cosf calls.
 //
+// One library is built per metric: -DGRT_METRIC names the metric struct of
+// metrics.cuh (default KerrBoyer).  A library holds one kernel instance per
+// value of the trace options that the step branches on at compile time
+// (march.cuh's StepOptions: planar mode, the Euler integrator, affine
+// reparameterisation: six instances), and its entry point picks the instance
+// from its arguments.
+//
 // The kernel allocates nothing and does not synchronise; the wrapper
 // (ops/raymarch.py) launches it on the current stream and checks the launch.
-// The C entry points are plain C (loaded with ctypes, no PyTorch headers),
-// one per metric instance; metric parameters are kernel arguments.
+// The C entry points are plain C (loaded with ctypes, no PyTorch headers);
+// metric parameters are kernel arguments.
 #include <cuda_runtime.h>
 
 #include "march.cuh"
+
+#ifndef GRT_METRIC
+#define GRT_METRIC KerrBoyer
+#endif
 
 #ifndef GRT_THREADS
 #define GRT_THREADS 256
@@ -110,7 +121,7 @@ __device__ __forceinline__ int ray_of_thread(int t, int n, int width) {
   return (x < width && y < n / width) ? y * width + x : -1;
 }
 
-template <class M>
+template <class M, class Opt>
 __global__ void __launch_bounds__(GRT_THREADS, GRT_MIN_BLOCKS)
     raymarch_kernel(M m, grt::Features f, int n, int width, int max_steps,
                     RayArrays r) {
@@ -118,18 +129,13 @@ __global__ void __launch_bounds__(GRT_THREADS, GRT_MIN_BLOCKS)
   grt::Ray s;
   float f_in_x;
   if (i < 0 || !load_ray(r, i, s, f_in_x)) return;
-  const int trials = grt::march_ray(m, f, f_in_x, max_steps, s);
+  const int trials = grt::march_ray<Opt>(m, f, f_in_x, max_steps, s);
   store_ray(r, i, s, trials);
 }
 
-template <class M>
-int launch(const M& m, const float* feats, int n, int width, int max_steps,
-           const RayArrays& r, void* stream) {
-  if (n <= 0 || max_steps <= 0) return 0;
-  if (width < 0 || (width > 0 && n % width != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const grt::Features f{feats[0], feats[1], feats[2],
-                        feats[3], feats[4], feats[5]};
+template <class M, class Opt>
+int launch(const M& m, const grt::Features& f, int n, int width,
+           int max_steps, const RayArrays& r, void* stream) {
   long long threads = n;
   if (width > 0) {
     const long long tiles_x = (width + kTileW - 1) / kTileW;
@@ -137,40 +143,66 @@ int launch(const M& m, const float* feats, int n, int width, int max_steps,
     threads = tiles_x * tiles_y * 32;
   }
   const int blocks = static_cast<int>((threads + GRT_THREADS - 1) / GRT_THREADS);
-  raymarch_kernel<M><<<blocks, GRT_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  raymarch_kernel<M, Opt><<<blocks, GRT_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       m, f, n, width, max_steps, r);
   return static_cast<int>(cudaGetLastError());
 }
 
+using Metric = grt::GRT_METRIC;
+
 }  // namespace
 
-// Marches every ACTIVE ray of an (N,)-ray state in place.  `feats` is a
-// host array of the 6 Features fields; `width` the width of the row-major
-// image whose pixels the rays are (a divisor of n), or 0; `trials` (N,) ints
-// or null (see RayArrays).  Returns the CUDA error of the launch (0 =
-// launched).
-extern "C" int grt_raymarch_kerr_boyer(float rs, float a, const float* feats,
-                                       int n, int width, int max_steps,
-                                       void* pos, void* vel, void* acc,
-                                       void* next_ds, void* rdl, void* status,
-                                       void* steps, const void* f_in_x,
-                                       void* trials, void* stream) {
+// Marches every ACTIVE ray of an (N,)-ray state in place.  `mparams` is a
+// host array of the metric's parameters in the order of its struct, `feats`
+// one of the 8 floats of grt::Features; `planar`, `euler` and
+// `reparameterisation` are the trace options (0 or 1); `width` is the width
+// of the row-major image whose pixels the rays are (a divisor of n), or 0;
+// `trials` (N,) ints or null (see RayArrays).  Returns the CUDA error of the
+// launch (0 = launched).
+extern "C" int grt_raymarch(const float* mparams, const float* feats,
+                            int planar, int euler, int reparameterisation,
+                            int n, int width, int max_steps, void* pos,
+                            void* vel, void* acc, void* next_ds, void* rdl,
+                            void* status, void* steps, const void* f_in_x,
+                            void* trials, void* stream) {
+  if (n <= 0 || max_steps <= 0) return 0;
+  if (width < 0 || (width > 0 && n % width != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const RayArrays r{static_cast<float4*>(pos),    static_cast<float4*>(vel),
                     static_cast<float4*>(acc),    static_cast<float*>(next_ds),
                     static_cast<float*>(rdl),     static_cast<int*>(status),
                     static_cast<int*>(steps),
                     static_cast<const float*>(f_in_x),
                     static_cast<int*>(trials)};
-  return launch(grt::KerrBoyer{rs, a}, feats, n, width, max_steps, r, stream);
+  const Metric m = Metric::from_params(mparams);
+  const grt::Features f = grt::features_from(feats);
+#define GRT_LAUNCH(P, E, R) \
+  launch<Metric, grt::StepOptions<P, E, R>>(m, f, n, width, max_steps, r, stream)
+  // The Euler step ignores reparameterisation (its K is 1).
+  if (euler) return planar ? GRT_LAUNCH(true, true, false)
+                           : GRT_LAUNCH(false, true, false);
+  if (reparameterisation)
+    return planar ? GRT_LAUNCH(true, false, true)
+                  : GRT_LAUNCH(false, false, true);
+  return planar ? GRT_LAUNCH(true, false, false)
+                : GRT_LAUNCH(false, false, false);
+#undef GRT_LAUNCH
+}
+
+// The metric this library was built for and the number of its parameters.
+extern "C" const char* grt_metric_name(int* n_params) {
+  *n_params = Metric::n_params;
+  return Metric::name;
 }
 
 // Threads per block and the resident blocks per SM that the occupancy
-// calculator gives the kernel.
+// calculator gives the kernel (the instance of the default options).
 extern "C" int grt_raymarch_config(int* threads, int* blocks_per_sm) {
   *threads = GRT_THREADS;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, raymarch_kernel<grt::KerrBoyer>, GRT_THREADS, 0));
+      blocks_per_sm, raymarch_kernel<Metric, grt::DefaultOptions>,
+      GRT_THREADS, 0));
 }
 
 extern "C" const char* grt_error_string(int code) {

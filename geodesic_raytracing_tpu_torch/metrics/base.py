@@ -50,7 +50,8 @@ class MetricConfig:
     unconditionally_nonsingular: bool = False
 
 
-# The base preset the ported metric inherits (scripts/polar_base.json).
+# Base presets the ported metrics inherit (scripts/{polar,cartesian,
+# cartesian_skew,ingoing_ef,skewed_polar}_base.json).
 BASE_CONFIGS: dict[str, dict] = {
     "polar_base": dict(
         coordinate_system="X_Y_THETA_PHI",
@@ -59,6 +60,45 @@ BASE_CONFIGS: dict[str, dict] = {
         max_acceleration_change=1e-4,
         to_polar="polar_to_polar",
         from_polar="polar_to_polar",
+        coordinate_periodicity="polar_periodicity",
+        origin_distance="at_origin",
+    ),
+    "cartesian_base": dict(
+        coordinate_system="CARTESIAN",
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-4,
+        to_polar="cartesian_to_polar",
+        from_polar="polar_to_cartesian",
+        origin_distance="at_origin",
+    ),
+    "cartesian_skew_base": dict(
+        coordinate_system="CARTESIAN",
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-4,
+        to_polar="cartesian_skew_to_polar",
+        from_polar="polar_to_cartesian_skew",
+        origin_distance="at_origin",
+    ),
+    "ingoing_ef_base": dict(
+        coordinate_system="X_Y_THETA_PHI",
+        traversable_event_horizon=True,
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-6,
+        to_polar="ingoing_ef_to_polar",
+        from_polar="polar_to_ingoing_ef",
+        coordinate_periodicity="polar_periodicity",
+        origin_distance="at_origin",
+    ),
+    "skewed_polar_base": dict(
+        coordinate_system="X_Y_THETA_PHI",
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-4,
+        to_polar="skewed_polar_to_polar",
+        from_polar="polar_to_skewed_polar",
         coordinate_periodicity="polar_periodicity",
         origin_distance="at_origin",
     ),
@@ -171,12 +211,30 @@ def list_metrics() -> list[str]:
     return sorted(REGISTRY)
 
 
-def sym_metric(entries: Mapping[tuple[int, int], Tensor]) -> Tensor:
+def diag_metric(d0, d1, d2, d3, *, device=None) -> Tensor:
+    """Assemble a diagonal 4x4 metric from its components (see
+    :func:`sym_metric`)."""
+    return sym_metric({(0, 0): d0, (1, 1): d1, (2, 2): d2, (3, 3): d3},
+                      device=device)
+
+
+def sym_metric(entries: Mapping[tuple[int, int], Tensor], *,
+               device=None) -> Tensor:
     """Assemble a symmetric 4x4 metric from an upper-triangle entry dict.
 
     Scalar components give (4, 4); components of shape ``B`` give
-    (4, 4, *B) (component-first)."""
-    vals = torch.broadcast_tensors(*entries.values())
+    (4, 4, *B) (component-first).  A component may be a Python float: it
+    becomes a float32 constant on the device of the tensor components, or
+    on ``device`` when there is none (a constant metric), made by a fill on
+    that device and not by an upload."""
+    ref = next((v for v in entries.values() if isinstance(v, torch.Tensor)),
+               None)
+    if ref is None:
+        ref = torch.zeros((), dtype=torch.float32, device=device)
+    vals = torch.broadcast_tensors(*(
+        v if isinstance(v, torch.Tensor)
+        else torch.full((), float(v), dtype=ref.dtype, device=ref.device)
+        for v in entries.values()))
     z = torch.zeros_like(vals[0])
     grid = [[z] * 4 for _ in range(4)]
     for (i, j), v in zip(entries.keys(), vals):

@@ -56,15 +56,20 @@ class Features(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TraceOptions:
-    """Trace options.  Only ``max_steps`` varies in the ported slice; the
-    reference's other values of the remaining fields (the "euler"
-    integrator, affine reparameterisation, constant-theta planar mode) are
-    refused by ``check_ported`` until they are ported."""
+    """Trace options: the iteration budget, the integrator ("verlet" or
+    "euler"), affine reparameterisation (K = 1/max|v'| after every Verlet
+    step) and constant-theta planar mode (set by the render pipeline for a
+    spherically symmetric metric, whose rays it first rotates into the
+    equator)."""
 
     max_steps: int = MAX_STEPS_DEFAULT
     reparameterisation: bool = False
     integrator: str = "verlet"
     planar: bool = False
+
+    def __post_init__(self):
+        if self.integrator not in ("verlet", "euler"):
+            raise ValueError(f"unknown integrator {self.integrator!r}")
 
 
 class RayState(NamedTuple):
@@ -110,56 +115,64 @@ def acceleration_to_precision(acc: Tensor, max_acceleration, w_v, udiv
     return diff, next_ds
 
 
-def metric_acceleration(metric: Metric, pos, vel, params):
-    """Sparsity-pruned geodesic acceleration of a component-first batch."""
+# The near end of the scheduled step's radius ramp (cl.cl:4059-4086).
+_SCHEDULE_MIN_RADIUS = 3.0
+
+
+def schedule_constants(features: Features) -> tuple[float, float]:
+    """``(inv_span, slope)`` of the scheduled step ``linear_val(|r|, 3,
+    max_precision_radius, ambient, subambient)`` as float32 values: the
+    reciprocal of the radius span and the step's rise over it.  The plain
+    march and the kernel's wrapper both take them from here, so that both
+    use the same two constants."""
+    inv_span = np.float32(1.0) / (np.float32(features.max_precision_radius)
+                                  - np.float32(_SCHEDULE_MIN_RADIUS))
+    slope = np.float32(features.subambient_precision
+                       - features.ambient_precision)
+    return float(inv_span), float(slope)
+
+
+def metric_acceleration(metric: Metric, pos, vel, params, deps=None):
+    """Sparsity-pruned geodesic acceleration of a component-first batch
+    (``deps``: the coordinates to differentiate, default the metric's)."""
+    if deps is None:
+        deps = metric.depends_on
     return geometry.acceleration_batched(metric.fn, pos, vel, params,
-                                         deps=metric.depends_on,
-                                         nz=metric.nonzeros())
+                                         deps=deps, nz=metric.nonzeros())
 
 
-def verlet_step(metric: Metric, position, velocity, acceleration, ds, params):
-    """cl.cl:3273-3346 — velocity Verlet (no affine reparameterisation:
-    K = 1).  All vectors component-first (4, N)."""
+def verlet_step(metric: Metric, position, velocity, acceleration, ds, params,
+                reparameterisation: bool = False, deps=None):
+    """cl.cl:3273-3346 — velocity Verlet with optional affine
+    reparameterisation (K = 1/max|v'|).  All vectors component-first
+    (4, N).  Returns ``(position, velocity, acceleration, K)``."""
     ds_ = ds[None, :]
     next_position = position + velocity * ds_ + 0.5 * acceleration * ds_ * ds_
     intermediate_velocity = velocity + acceleration * ds_
     next_acceleration = metric_acceleration(
-        metric, next_position, intermediate_velocity, params)
+        metric, next_position, intermediate_velocity, params, deps=deps)
     next_velocity = velocity + 0.5 * (acceleration + next_acceleration) * ds_
-    return next_position, next_velocity, next_acceleration
-
-
-def check_ported(opts: TraceOptions) -> None:
-    """Raise for the trace options the port does not implement yet (the
-    Euler integrator, affine reparameterisation, planar mode)."""
-    if opts.integrator != "verlet" or opts.reparameterisation or opts.planar:
-        raise NotImplementedError(
-            "only the Verlet march without reparameterisation or planar "
-            "mode is ported")
-
-
-def check_ported_metric(metric: Metric) -> None:
-    """Raise for the metric configs whose step branches are not ported yet.
-
-    The ported step (and the kernel's, ``csrc/march.cuh``) is the adaptive
-    controller with the blow-up test and no singular or cylindrical
-    terminator: the config of ``kerr_boyer``, the one registered metric."""
-    cfg = metric.config
-    if (not cfg.adaptive_precision or cfg.singular
-            or cfg.has_cylindrical_singularity
-            or cfg.unconditionally_nonsingular):
-        raise NotImplementedError(
-            f"metric {metric.name!r}: only the adaptive step without "
-            "singular or cylindrical terminators is ported")
+    if reparameterisation:
+        a = torch.abs(next_velocity)
+        max_divisor = torch.maximum(torch.maximum(a[0], a[1]),
+                                    torch.maximum(a[2], a[3]))
+        K = 1.0 / max_divisor
+        return (next_position, next_velocity * K[None, :],
+                next_acceleration * (K * K)[None, :], K)
+    return (next_position, next_velocity, next_acceleration,
+            torch.ones_like(ds))
 
 
 def initial_next_ds(metric: Metric, features: Features, acc: Tensor) -> Tensor:
-    """Seed the adaptive step size from the launch acceleration (4, N)."""
-    check_ported_metric(metric)
-    w = metric.precision_weights()
-    _, next_ds = acceleration_to_precision(
-        acc, features.max_acceleration_change, w, udiv=float(max(w)))
-    return next_ds
+    """Seed the step size from the launch acceleration (4, N): the adaptive
+    controller's ideal step, or 1e-5 for a metric without adaptive
+    precision (whose step comes from the schedule)."""
+    if metric.config.adaptive_precision:
+        w = metric.precision_weights()
+        _, next_ds = acceleration_to_precision(
+            acc, features.max_acceleration_change, w, udiv=float(max(w)))
+        return next_ds
+    return torch.full(acc.shape[1:], 1e-5, dtype=acc.dtype, device=acc.device)
 
 
 def init_ray_state(metric: Metric, position: Tensor, velocity: Tensor, params,
@@ -169,7 +182,10 @@ def init_ray_state(metric: Metric, position: Tensor, velocity: Tensor, params,
     pos = position.T.contiguous()
     vel = velocity.T.contiguous()
     n = pos.shape[1]
-    vel = geometry.fix_null_batched(metric.fn(pos, params), vel)
+    gab = metric.fn(pos, params)
+    if gab.ndim == 2:  # constant metric: add a broadcast batch axis
+        gab = gab[..., None]
+    vel = geometry.fix_null_batched(gab, vel)
     acc = metric_acceleration(metric, pos, vel, params)
     next_ds = initial_next_ds(metric, features, acc)
     dev = pos.device
@@ -186,14 +202,21 @@ def init_ray_state(metric: Metric, position: Tensor, velocity: Tensor, params,
 
 def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
     """One masked integrator iteration over a component-first ray batch,
-    term for term the reference's ``make_step_fn`` (Verlet, adaptive
-    precision).  ``f_in_x`` is the launch-time |v^t| of each ray (the
-    blow-up test's baseline)."""
-    check_ported(opts)
-    check_ported_metric(metric)
+    term for term the reference's ``make_step_fn``, every branch of it.
+    ``f_in_x`` is the launch-time |v^t| of each ray (the blow-up test's
+    baseline)."""
     cfg = metric.config
     w_v = metric.precision_weights()
     udiv = float(max(w_v))
+    deps = metric.depends_on
+    if opts.planar:
+        # theta is pinned; only the theta acceleration component uses
+        # d_theta and it is identically zero on the equator of a symmetric
+        # metric.
+        deps = tuple(d for d in deps if d != 2)
+    adaptive = cfg.adaptive_precision and opts.integrator == "verlet"
+    inv_span, slope = schedule_constants(features)
+    half_pi = float(np.float32(np.pi / 2))
 
     def step(state: _StateT, f_in_x: Tensor, params) -> _StateT:
         pos, vel, acc = state.position, state.velocity, state.acceleration
@@ -203,25 +226,59 @@ def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
         abs_r = torch.abs(metric.origin_distance(polar, params))
 
         new_max = features.max_precision_radius
+        if adaptive:
+            ds = state.next_ds
+        else:
+            # Step schedule (cl.cl:4059-4086): linear in |r| between 3 and
+            # the precision radius, from the ambient to the subambient step.
+            mixd = torch.clamp((abs_r - _SCHEDULE_MIN_RADIUS) * inv_span,
+                               0.0, 1.0)
+            ds = features.ambient_precision + slope * mixd
         near = abs_r < new_max
         ds = torch.where(
             near,
-            torch.clamp(state.next_ds, max=features.ambient_precision),
+            torch.clamp(ds, max=features.ambient_precision),
             0.1 * (abs_r - new_max) + features.ambient_precision,
         )
         ds = torch.where(active, ds, torch.zeros_like(ds))
 
+        # Termination tests on the current position (cl.cl:4088-4130).
         newly_escaped = torch.abs(polar[1]) >= features.universe_size
+        if cfg.singular:
+            newly_escaped = newly_escaped | (
+                torch.abs(polar[1]) < cfg.singular_terminator)
+        dead = torch.zeros_like(newly_escaped)
+        if cfg.has_cylindrical_singularity:
+            dead = dead | (pos[1] < cfg.cylindrical_terminator)
         rd = state.running_dlambda_dnew
-        dead = (torch.abs(vel[0]) > (1000.0 + f_in_x) * rd) & (
-            torch.abs(acc[0]) > 100.0 * rd)
+        if not cfg.unconditionally_nonsingular:
+            # |v/rd| > t  <=>  |v| > t*rd  (rd > 0).
+            dead = dead | ((torch.abs(vel[0]) > (1000.0 + f_in_x) * rd) & (
+                torch.abs(acc[0]) > 100.0 * rd))
 
         status = state.status
         status = torch.where(active & newly_escaped, ESCAPED, status)
         status = torch.where(active & dead & ~newly_escaped, DEAD, status)
         active = status == ACTIVE
 
-        npos, nvel, nacc = verlet_step(metric, pos, vel, acc, ds, params)
+        if opts.integrator == "euler":
+            # step_euler (cl.cl:3352-3377): acceleration at the current
+            # event, then a semi-implicit update.
+            nacc = metric_acceleration(metric, pos, vel, params, deps=deps)
+            nvel = vel + nacc * ds[None, :]
+            npos = pos + nvel * ds[None, :]
+            K = torch.ones_like(ds)
+        else:
+            npos, nvel, nacc, K = verlet_step(
+                metric, pos, vel, acc, ds, params, opts.reparameterisation,
+                deps=deps)
+        if opts.planar:
+            # IS_CONSTANT_THETA pins (cl.cl:3990-3995).
+            npos = torch.stack([npos[0], npos[1],
+                                torch.full_like(npos[2], half_pi), npos[3]])
+            zero = torch.zeros_like(nvel[2])
+            nvel = torch.stack([nvel[0], nvel[1], zero, nvel[3]])
+            nacc = torch.stack([nacc[0], nacc[1], zero, nacc[3]])
 
         # Finiteness probe on the TRIAL state's component sum, before the
         # commit (an overflow of the sum itself counts as non-finite).
@@ -232,23 +289,27 @@ def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
         status = torch.where(active & bad, DEAD, status)
         active = status == ACTIVE
 
-        err = features.max_acceleration_change
-        diff, ideal_ds = acceleration_to_precision(nacc, err, w_v, udiv)
-        # Division-free forms of calculate_ds_error (cl.cl:3431-3456).
-        cand = 0.99 * torch.minimum(torch.maximum(ideal_ds, 0.3 * ds),
-                                    2.0 * ds)
-        cand = torch.clamp(cand, min=features.min_step)
-        skip = 1.95 * cand < ds
-        kill = torch.zeros_like(skip)
-        if cfg.detect_singularities:
-            kill_at = np.float32(err) * np.float32(10000.0 * _PRECISION_SCALE)
-            kill = (cand <= features.min_step) & (diff > float(kill_at))
-        # Error control applies only in the near zone.
-        skip = skip & near
-        kill = kill & near
-        status = torch.where(active & kill, DEAD, status)
-        commit = active & ~kill & ~skip
-        next_ds = torch.where(active, cand, state.next_ds)
+        commit = active
+        next_ds = state.next_ds
+        if adaptive:
+            err = features.max_acceleration_change
+            diff, ideal_ds = acceleration_to_precision(nacc, err, w_v, udiv)
+            # Division-free forms of calculate_ds_error (cl.cl:3431-3456).
+            cand = 0.99 * torch.minimum(torch.maximum(ideal_ds, 0.3 * ds),
+                                        2.0 * ds)
+            cand = torch.clamp(cand, min=features.min_step)
+            skip = 1.95 * cand < ds
+            kill = torch.zeros_like(skip)
+            if cfg.detect_singularities:
+                kill_at = np.float32(err) * np.float32(
+                    10000.0 * _PRECISION_SCALE)
+                kill = (cand <= features.min_step) & (diff > float(kill_at))
+            # Error control applies only in the near zone.
+            skip = skip & near
+            kill = kill & near
+            status = torch.where(active & kill, DEAD, status)
+            commit = active & ~kill & ~skip
+            next_ds = torch.where(active, cand, next_ds)
 
         cm = commit[None, :]
         return _StateT(
@@ -256,7 +317,7 @@ def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
             velocity=torch.where(cm, nvel, vel),
             acceleration=torch.where(cm, nacc, acc),
             next_ds=next_ds,
-            running_dlambda_dnew=state.running_dlambda_dnew,  # K = 1
+            running_dlambda_dnew=torch.where(commit, rd * K, rd),
             status=status,
             steps=state.steps + commit.to(torch.int32),
         )

@@ -11,20 +11,31 @@ are the pixels of an image, a warp takes an 8x4 pixel tile of it
 pixels of a row.  No tile packing is needed: the kernel reads the (N, 4)
 ``RayState`` rows directly.
 
+The kernel is a C++ template over the metric and over the trace options the
+step branches on (planar mode, the Euler integrator, affine
+reparameterisation).  One library is built per metric (``INSTANCES``), each
+holding the six option instances; the options travel as launch arguments
+and the library's entry point picks the instance.
+
 Build: ``nvcc`` into a shared library with a plain C interface, loaded with
-ctypes (no PyTorch headers, so the build takes seconds), at first use, into
+ctypes (no PyTorch headers, so the build takes seconds), at a metric's first
+use (``build_all`` builds every metric's at once, one ``nvcc`` each), into
 ``build/grt_torch/`` keyed on a hash of the sources in ``csrc/`` and of the
 flags.  ``NVCC_FLAGS`` are the flags of the next build: no
 ``--use_fast_math`` (its sin and cos are too coarse for photon-ring rays),
 and ``-fmad=false``, with which the kernel follows the eager torch march op
 for op in float32.  ``with_flags`` derives a variant for measurement.
 
-The wrapper launches on CUDA tensors or raises: there is no fallback.  Its
-plain twin is ``integrate.trace_rays_reference``.
+The wrapper launches on CUDA tensors or raises: there is no fallback, and a
+metric without a kernel instance, or one that differs from the registered
+metric its instance was written from (``check_compiled_metric``), raises
+``NotImplementedError``.  Its plain
+twin is ``integrate.trace_rays_reference``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -39,8 +50,7 @@ import numpy as np
 import torch
 
 from ..metrics.base import Metric
-from .integrate import (Features, RayState, TraceOptions, check_ported,
-                        check_ported_metric)
+from .integrate import Features, RayState, TraceOptions, schedule_constants
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grt_torch"
@@ -49,18 +59,47 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# One C entry point per metric instance of the kernel.
-_ENTRY = {"kerr_boyer": "grt_raymarch_kerr_boyer"}
+# The kernel's metric instances: metric name -> (the metric struct of
+# csrc/metrics.cuh, the metric's parameters in the order of that struct).
+INSTANCES = {
+    "kerr_boyer": ("KerrBoyer", ("rs", "a")),
+    "schwarzschild": ("Schwarzschild", ("rs",)),
+    "schwarzschild_fast": ("SchwarzschildFast", ("rs",)),
+    "schwarzschild_skewed": ("SchwarzschildSkewed", ()),
+    "schwarzschild_ingoing_ef": ("SchwarzschildIngoingEF", ("rs",)),
+    "de_sitter": ("DeSitter", ("cosmological_constant",)),
+    "minkowski": ("Minkowski", ()),
+    "minkowski_skew": ("MinkowskiSkew", ()),
+}
 
-# Kernel launches made by trace_rays_cuda (one per call).
-LAUNCHES = 0
+# What a metric struct of csrc/ has compiled in besides the metric function:
+# the MetricConfig fields the step branches on and the chart.  (The config's
+# max_acceleration_change travels in Features, at run time.)
+COMPILED_CONFIG = ("adaptive_precision", "detect_singularities", "singular",
+                   "singular_terminator", "has_cylindrical_singularity",
+                   "cylindrical_terminator", "unconditionally_nonsingular",
+                   "coordinate_system", "to_polar", "from_polar",
+                   "origin_distance")
+
+# Kernel launches made by trace_rays_cuda (one per call), by metric.
+LAUNCHES_BY_METRIC: dict = {}
 
 _lock = threading.Lock()
-_libs: dict = {}  # flags -> loaded library
-# flags -> {"seconds": nvcc wall time (None when the library was cached),
-#           "ptxas": nvcc's -Xptxas -v report (kept beside the library),
-#           "path": library path}
+_libs: dict = {}  # (metric name, flags) -> loaded library
+# (metric name, flags) -> {"seconds": nvcc wall time (None when the library
+#           was cached), "ptxas": nvcc's -Xptxas -v report (kept beside the
+#           library), "path": library path}
 BUILD_INFO: dict = {}
+
+
+def reset_launch_counts() -> None:
+    """Set the launch counts to 0."""
+    LAUNCHES_BY_METRIC.clear()
+
+
+def launches() -> int:
+    """Kernel launches since the counts were last set to 0, of all metrics."""
+    return sum(LAUNCHES_BY_METRIC.values())
 
 
 def with_flags(*extra: str) -> tuple:
@@ -84,18 +123,35 @@ def source_hash(flags=None) -> str:
     return h.hexdigest()[:16]
 
 
-def ptxas_summary(report: str) -> dict:
-    """``{"registers", "stack_bytes", "spill_store_bytes",
-    "spill_load_bytes"}`` of the ray-march kernel from a ``-Xptxas -v``
-    report."""
-    regs = re.search(r"Used (\d+) registers", report)
-    mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                    r"(\d+) bytes spill loads", report)
-    if not (regs and mem):
-        raise ValueError(f"no ptxas report of a kernel in:\n{report}")
-    return {"registers": int(regs.group(1)), "stack_bytes": int(mem.group(1)),
+def ptxas_instances(report: str) -> dict:
+    """``{(planar, euler, reparameterisation): {"registers", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}}`` of every ray-march kernel
+    instance in a ``-Xptxas -v`` report (the options are read from the
+    mangled name's ``StepOptions<...>``)."""
+    out = {}
+    for block in re.split(r"Compiling entry function '", report)[1:]:
+        opt = re.match(r"[^']*StepOptionsILb(\d)ELb(\d)ELb(\d)E", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", block)
+        if not (opt and regs and mem):
+            continue
+        out[tuple(bool(int(g)) for g in opt.groups())] = {
+            "registers": int(regs.group(1)),
+            "stack_bytes": int(mem.group(1)),
             "spill_store_bytes": int(mem.group(2)),
             "spill_load_bytes": int(mem.group(3))}
+    if not out:
+        raise ValueError(f"no ptxas report of a kernel in:\n{report}")
+    return out
+
+
+def ptxas_summary(report: str) -> dict:
+    """``{"registers", "stack_bytes", "spill_store_bytes",
+    "spill_load_bytes"}`` of the ray-march kernel's instance of the default
+    options (Verlet, no reparameterisation, not planar) from a
+    ``-Xptxas -v`` report."""
+    return ptxas_instances(report)[(False, False, False)]
 
 
 def nvcc_path() -> str:
@@ -110,57 +166,106 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
-def build(flags=None) -> Path:
-    """Compile ``csrc/raymarch.cu`` with ``flags`` (default: ``NVCC_FLAGS``)
-    unless a library for the current sources and these flags exists.
-    Prints the ptxas register/spill report once."""
+def _instance(name: str) -> tuple:
+    try:
+        return INSTANCES[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"no ray-march kernel instance for metric {name!r} (instances: "
+            f"{sorted(INSTANCES)})") from None
+
+
+def check_compiled_metric(metric: Metric) -> None:
+    """Raise NotImplementedError unless ``metric`` is what the kernel
+    instance of its name was written from: the registered metric's function,
+    ``depends_on``, symmetry flag (it sets the precision weights) and every
+    ``COMPILED_CONFIG`` field.  A metric whose config was replaced has no
+    instance, whatever its name."""
+    from ..metrics import REGISTRY
+
+    _instance(metric.name)
+    known = REGISTRY.get(metric.name)
+    differs = ["(not registered)"] if known is None else [
+        f for f in ("fn", "depends_on", "spherically_symmetric")
+        if getattr(metric, f) != getattr(known, f)] + [
+        f"config.{f}" for f in COMPILED_CONFIG
+        if getattr(metric.config, f) != getattr(known.config, f)]
+    if differs:
+        raise NotImplementedError(
+            f"the ray-march kernel instance {metric.name!r} has the "
+            f"registered metric compiled in; this one differs in "
+            f"{', '.join(differs)}")
+
+
+def build(name: str, flags=None) -> Path:
+    """Compile ``csrc/raymarch.cu`` for the metric ``name`` with ``flags``
+    (default: ``NVCC_FLAGS``) unless a library for the current sources and
+    these flags exists.  Prints the ptxas register/spill report once."""
+    struct, _ = _instance(name)
     flags = tuple(NVCC_FLAGS if flags is None else flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libgrt_raymarch_{source_hash(flags)}.so"
+    lib_path = BUILD_DIR / f"libgrt_raymarch_{name}_{source_hash(flags)}.so"
     report_path = lib_path.with_suffix(".ptxas.txt")
+    key = (name, flags)
     if lib_path.exists() and report_path.exists():
-        BUILD_INFO[flags] = dict(seconds=None, ptxas=report_path.read_text(),
-                                 path=str(lib_path))
+        BUILD_INFO.setdefault(key, dict(seconds=None,
+                                        ptxas=report_path.read_text(),
+                                        path=str(lib_path)))
         return lib_path
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(CSRC / "raymarch.cu")]
+    cmd = [nvcc_path(), *flags, f"-DGRT_METRIC={struct}", "-o", str(tmp),
+           str(CSRC / "raymarch.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     report = proc.stderr.strip()
     report_path.write_text(report)
     os.replace(tmp, lib_path)
-    BUILD_INFO[flags] = dict(seconds=seconds, ptxas=report,
-                             path=str(lib_path))
-    print(f"[grt_torch] built {lib_path.name} in {seconds:.1f} s\n{report}",
-          flush=True)
+    BUILD_INFO[key] = dict(seconds=seconds, ptxas=report, path=str(lib_path))
+    print(f"[grt_torch] built {lib_path.name} in {seconds:.1f} s\n"
+          + "\n".join(f"  {opt}: {v}" for opt, v in
+                      sorted(ptxas_instances(report).items())), flush=True)
     return lib_path
 
 
-def get_lib():
-    """The kernel library of the current ``NVCC_FLAGS``, loaded (and built
-    at first use)."""
-    flags = tuple(NVCC_FLAGS)
+def build_all(names=None, flags=None) -> float:
+    """Build the libraries of ``names`` (default: every metric instance) at
+    once, one ``nvcc`` process each.  Returns the wall seconds."""
+    names = sorted(INSTANCES) if names is None else list(names)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(lambda n: build(n, flags), names))
+    return time.perf_counter() - t0
+
+
+def get_lib(name: str):
+    """The kernel library of metric ``name`` for the current ``NVCC_FLAGS``,
+    loaded (and built at first use)."""
+    key = (name, tuple(NVCC_FLAGS))
     with _lock:
-        if flags not in _libs:
-            lib = ctypes.CDLL(str(build(flags)))
-            vp = ctypes.c_void_p
-            for name in _ENTRY.values():
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [ctypes.c_float, ctypes.c_float,
-                               ctypes.POINTER(ctypes.c_float),
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               *[vp] * 10]
+        if key not in _libs:
+            lib = ctypes.CDLL(str(build(*key)))
+            vp, fp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)
+            lib.grt_raymarch.restype = ctypes.c_int
+            lib.grt_raymarch.argtypes = [fp, fp, *[ctypes.c_int] * 6,
+                                         *[vp] * 10]
+            lib.grt_metric_name.restype = ctypes.c_char_p
+            lib.grt_metric_name.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.grt_raymarch_config.restype = ctypes.c_int
             lib.grt_raymarch_config.argtypes = [
                 ctypes.POINTER(ctypes.c_int)] * 2
             lib.grt_error_string.restype = ctypes.c_char_p
             lib.grt_error_string.argtypes = [ctypes.c_int]
-            _libs[flags] = lib
-        return _libs[flags]
+            n_params = ctypes.c_int()
+            built_for = lib.grt_metric_name(ctypes.byref(n_params)).decode()
+            if (built_for, n_params.value) != (name, len(INSTANCES[name][1])):
+                raise RuntimeError(
+                    f"{BUILD_INFO[key]['path']} was built for {built_for!r} "
+                    f"with {n_params.value} parameters, not for {name!r}")
+            _libs[key] = lib
+        return _libs[key]
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -169,10 +274,11 @@ def _raise_on(lib, rc: int, what: str) -> None:
                            f"{lib.grt_error_string(rc).decode()} ({rc})")
 
 
-def kernel_config() -> dict:
-    """``{"threads", "blocks_per_sm"}`` of the built kernel: its block size
-    and the blocks of it that one SM holds at once."""
-    lib = get_lib()
+def kernel_config(name: str) -> dict:
+    """``{"threads", "blocks_per_sm"}`` of metric ``name``'s kernel (the
+    instance of the default options): its block size and the blocks of it
+    that one SM holds at once."""
+    lib = get_lib(name)
     out = [ctypes.c_int() for _ in range(2)]
     _raise_on(lib, lib.grt_raymarch_config(*(ctypes.byref(c) for c in out)),
               "occupancy query")
@@ -223,12 +329,8 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     ``image_width``: the rays are the pixels of a row-major image of this
     width, and each warp takes an 8x4 pixel tile of it (default: 32
     consecutive rays); the result is the same either way."""
-    global LAUNCHES
-    if metric.name not in _ENTRY:
-        raise NotImplementedError(f"no ray-march kernel instance for metric "
-                                  f"{metric.name!r}")
-    check_ported(opts)
-    check_ported_metric(metric)
+    check_compiled_metric(metric)
+    _, param_names = INSTANCES[metric.name]
 
     n = state.position.shape[0]
     width = 0 if image_width is None else int(image_width)
@@ -250,13 +352,19 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
         _check("trials", trials, (n,), i32)
 
     out = RayState(*(t.clone() for t in state))
-    feats = (ctypes.c_float * 6)(*(float(v) for v in features))
-    lib = get_lib()
-    entry = getattr(lib, _ENTRY[metric.name])
+    # The 8 floats of csrc/march.cuh's Features.
+    feats = (ctypes.c_float * 8)(*(float(v) for v in features),
+                                 *schedule_constants(features))
+    mparams = (ctypes.c_float * max(len(param_names), 1))(
+        *(float(params[k]) for k in param_names))
+    lib = get_lib(metric.name)
     dev = state.position.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(float(params["rs"]), float(params["a"]), feats, n, width,
+        rc = lib.grt_raymarch(
+                   mparams, feats, int(opts.planar),
+                   int(opts.integrator == "euler"),
+                   int(opts.reparameterisation), n, width,
                    int(opts.max_steps), out.position.data_ptr(),
                    out.velocity.data_ptr(), out.acceleration.data_ptr(),
                    out.next_ds.data_ptr(), out.running_dlambda_dnew.data_ptr(),
@@ -265,5 +373,6 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
                    None if trials is None else trials.data_ptr(),
                    stream)
     _raise_on(lib, rc, "ray-march kernel launch")
-    LAUNCHES += 1
+    LAUNCHES_BY_METRIC[metric.name] = LAUNCHES_BY_METRIC.get(metric.name,
+                                                             0) + 1
     return out

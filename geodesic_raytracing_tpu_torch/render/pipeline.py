@@ -4,7 +4,10 @@
 Stages, each a plain function on tensors of one device: ``init_camera_rays``
 (observer tetrad, pixel directions, null rays), ``integrate.trace_rays`` (the
 CUDA ray-march kernel on a GPU), ``compute_render_data`` (snap to the
-universe sphere, texture coordinates) and ``shade`` (EWA sky sampling).
+universe or the terminator sphere, texture coordinates, redshift factor) and
+``shade`` (EWA sky sampling, redshift colour).  For a spherically symmetric
+metric the rays are first rotated into the equator (``ops/planar.py``), the
+march pins theta, and ``compute_render_data`` rotates the endpoints back.
 
 The adaptive frame (``adaptive_sampling=True``) marches a 16x coarser
 prepass image, the quarter grid (every even pixel, minus the rays the
@@ -26,9 +29,10 @@ import torch
 
 from .. import camera as cam
 from ..metrics.base import Metric
-from ..ops import geometry, integrate, packing, tetrad
+from ..ops import geometry, integrate, packing, planar as pl_planar, tetrad
 from ..ops.integrate import Features, RayState, TraceOptions
 from . import background as bg
+from . import colour
 
 Tensor = torch.Tensor
 
@@ -46,12 +50,22 @@ class RenderData(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
-    """Render settings the ported slice reads (graphics_settings.hpp)."""
+    """Render settings the ported slices read (graphics_settings.hpp).
+    ``trace.planar`` is set by the pipeline (``_planar_enabled``), never by
+    the caller."""
 
     width: int = 1920
     height: int = 1080
     fov_degrees: float = 90.0
     anisotropy: int = 16
+    redshift: bool = False
+    # use_old_redshift feature (main.cpp:1139): skip the blueshift
+    # energy-overflow redistribution (cl.cl:5397-5406).
+    old_redshift: bool = False
+    # DOMINANT_COLOUR variant (cl.cl:5724-5792): per-pixel test wavelength.
+    dominant_colour: bool = False
+    # Spectral-shift experiment on the CIE 1931 horseshoe.
+    spectral_redshift: bool = False
     trace: TraceOptions = TraceOptions()
     # Quarter-density trace + error-driven refinement (main.cpp:1152), with
     # the angular-error threshold in pixels of angle (main.cpp:1155) and the
@@ -76,6 +90,9 @@ class RenderSettings:
     # Probe schedule of the refine-ray shade set under shade_traced_only;
     # empty derives one from probe_segments with 4x the fractions.
     refine_probe_segments: tuple = ()
+    # Constant-theta planar tracing for spherically symmetric metrics
+    # (exact by symmetry; GENERIC_CONSTANT_THETA).
+    planar: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +140,12 @@ def _grid_coords(w: int, h: int, step: float, device):
 
 def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
                     settings: RenderSettings, features: Features,
-                    cx: Tensor, cy: Tensor):
+                    cx: Tensor, cy: Tensor, planar: bool = False):
     """Null rays for flat pixel coordinate arrays ``cx``/``cy`` of the
-    W x H image (``init_rays_generic`` cl.cl:3143-3251).  Returns
-    ``(state, ku_uobsu)``."""
+    W x H image (``init_rays_generic`` cl.cl:3143-3251).  With ``planar``
+    every ray is rotated into the equatorial plane (``correct_lightray``).
+    Returns ``(state, ku_uobsu, inv_quat)`` (inv_quat None unless
+    planar)."""
     W, H = settings.width, settings.height
     f_stop = _f_stop(W, settings.fov_degrees, cx.device)
     dx = cx - W / 2.0
@@ -145,8 +164,22 @@ def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
     )
     n = velocity.shape[0]
     positions = position.expand(n, 4)
+
+    inv_quat = None
+    if planar:
+        # (The expanded positions share their memory: a jvp needs a copy.)
+        p_t, v_t, inv_quat = pl_planar.to_planar(
+            metric, positions.T.contiguous(), velocity.T.contiguous(), params)
+        positions, velocity = p_t.T, v_t.T
+
     state = integrate.init_ray_state(metric, positions, velocity, params,
                                      features)
+    if planar:
+        # Pin residual theta dynamics from the rotation's fp noise.
+        vel_p, acc_p = state.velocity.clone(), state.acceleration.clone()
+        vel_p[:, 2] = 0.0
+        acc_p[:, 2] = 0.0
+        state = state._replace(velocity=vel_p, acceleration=acc_p)
 
     # ku_uobsu: observer-frame energy at emission (cl.cl:3047-3060), as
     # elementwise sums (no matmul, so no TF32 path on the card).
@@ -155,19 +188,34 @@ def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
     v = state.velocity
     ku_uobsu = (v[:, 0] * uobs_low[0] + v[:, 1] * uobs_low[1]
                 + v[:, 2] * uobs_low[2] + v[:, 3] * uobs_low[3])
-    return state, ku_uobsu
+    return state, ku_uobsu, inv_quat
+
+
+def _planar_enabled(metric: Metric, settings: RenderSettings) -> bool:
+    """Constant-theta planar tracing applies to spherically symmetric
+    metrics (the reference's is_polar_spherically_symmetric gate,
+    metric.hpp:557-622 -> GENERIC_CONSTANT_THETA)."""
+    return bool(metric.spherically_symmetric) and settings.planar
+
+
+def _trace_opts(metric: Metric, settings: RenderSettings) -> TraceOptions:
+    """The frame's trace options with ``planar`` as the metric and the
+    settings decide it."""
+    return dataclasses.replace(settings.trace,
+                               planar=_planar_enabled(metric, settings))
 
 
 def init_camera_rays(metric: Metric, camera: cam.Camera, params,
                      settings: RenderSettings,
                      features: Features = Features(), *, device):
     """Full-image ray batch on ``device``, flattened to N = W*H
-    (row-major).  Returns ``(state, ku_uobsu)``."""
+    (row-major).  Returns ``(state, ku_uobsu, inv_quat)``."""
     W, H = settings.width, settings.height
     camera = camera.to(device)
     position, es = camera_frame(metric, camera, params)
     return rays_for_pixels(metric, camera, position, es, params, settings,
-                           features, *_grid_coords(W, H, 1.0, device))
+                           features, *_grid_coords(W, H, 1.0, device),
+                           planar=_planar_enabled(metric, settings))
 
 
 # ---------------------------------------------------------------------------
@@ -227,12 +275,15 @@ def _fix_ray_position_batched(p3, v3, sphere_radius):
 
 
 def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
-                        params, features: Features = Features()
-                        ) -> RenderData:
-    """``calculate_render_data`` (cl.cl:5135-5220): escaped rays snapped to
-    the universe sphere, textured by final (theta, phi), with the
-    observed/emitted energy ratio z_shift."""
+                        params, features: Features = Features(),
+                        inv_quat: Tensor | None = None) -> RenderData:
+    """``calculate_render_data`` (cl.cl:5135-5220): terminated rays snapped
+    to the universe sphere (or a singular metric's terminator sphere),
+    textured by final (theta, phi), with the observed/emitted energy ratio
+    z_shift.  ``inv_quat``: the planar rays' inverse quaternions, which
+    rotate the equatorial endpoints back to each ray's true plane."""
     cfg = metric.config
+    n = state.position.shape[0]
     pos = state.position.T
     vel = state.velocity.T
     rdl = state.running_dlambda_dnew
@@ -244,15 +295,33 @@ def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
     snapped_far = _fix_ray_position_batched(polar[1:], polar_vel[1:],
                                             features.universe_size)
     if cfg.singular:
-        raise NotImplementedError(
-            "singular metrics' terminator snap is not ported yet")
-    snapped = snapped_far
+        is_far = torch.abs(polar[1]) >= 0.5 * (
+            features.universe_size + cfg.singular_terminator)
+        if cfg.traversable_event_horizon:
+            # Terminator-sphere snap only for traversable horizons
+            # (cl.cl:5041-5045).
+            near = _fix_ray_position_batched(polar[1:], polar_vel[1:],
+                                             cfg.singular_terminator)
+        else:
+            # The raw endpoint, so that the |r| <= 1 black test below can
+            # fire.
+            near = polar[1:]
+        snapped = torch.where(is_far[None, :], snapped_far, near)
+    else:
+        snapped = snapped_far
+
+    if inv_quat is not None:
+        # Planar mode: rotate the equatorial endpoint back to the ray's true
+        # plane (get_intersection_position cl.cl:5056-5064).
+        snapped = pl_planar.unrotate_angles(snapped, inv_quat)
 
     side = torch.where(polar[1] < 0, 0, 1).to(torch.int32)
 
     # Fresh (unoriented, unboosted) tetrad at every endpoint for the
     # observed frequency (cl.cl:5185-5208).
     gab = metric.fn(pos, params)
+    if gab.ndim == 2:  # constant metric
+        gab = gab[..., None].expand(4, 4, n)
     es, _ = tetrad.frame_basis_batched(gab)
     e0 = es[0]
     obs_low = [
@@ -283,8 +352,9 @@ def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
 
 def shade(rdata: RenderData, backgrounds: bg.Background,
           settings: RenderSettings) -> Tensor:
-    """Anisotropic background sampling; rays that did not escape paint
-    black.  Returns (H, W, 3) linear-light RGB in [0, 1]."""
+    """Anisotropic background sampling and relativistic redshift; rays
+    that did not escape paint black.  Returns (H, W, 3) linear-light RGB in
+    [0, 1]."""
     W, H = settings.width, settings.height
     tex = rdata.tex_coord.reshape(H, W, 2)
     side = rdata.side.reshape(H, W)
@@ -292,9 +362,22 @@ def shade(rdata: RenderData, backgrounds: bg.Background,
     live = terminated == integrate.ESCAPED
     rgb = bg.sample_anisotropic(
         backgrounds, tex, side, max_probes=settings.anisotropy,
-        trilinear=settings.trilinear, live=live, probe_segments=settings.probe_segments,
+        trilinear=settings.trilinear, live=live,
+        probe_segments=settings.probe_segments,
     )
+    rgb = _redshifted(rgb, rdata.z_shift.reshape(H, W), settings)
     return torch.where(live[..., None], rgb, 0.0)
+
+
+def _redshifted(rgb: Tensor, z_shift: Tensor,
+                settings: RenderSettings) -> Tensor:
+    """``rgb`` with the settings' redshift model applied (or as it is)."""
+    if not settings.redshift:
+        return rgb
+    return colour.apply_redshift(rgb, z_shift,
+                                 dominant_colour=settings.dominant_colour,
+                                 old=settings.old_redshift,
+                                 spectral=settings.spectral_redshift)
 
 
 def check_device(device) -> torch.device:
@@ -401,12 +484,13 @@ def _init_rays(metric: Metric, camera: cam.Camera, frame, params,
     """Rays of the pixels ``cx``/``cy`` from the camera's ``frame`` (the
     ``(position, es)`` of ``camera_frame``, computed once per rendered
     frame); rays under ``kill`` are born DEAD and are never marched."""
-    state, ku = rays_for_pixels(metric, camera, *frame, params, settings,
-                                features, cx, cy)
+    state, ku, iquat = rays_for_pixels(
+        metric, camera, *frame, params, settings, features, cx, cy,
+        planar=_planar_enabled(metric, settings))
     if kill is not None:
         state = state._replace(
             status=torch.where(kill, integrate.DEAD, state.status))
-    return state, ku
+    return state, ku, iquat
 
 
 def _prepass_dead_map(metric: Metric, camera: cam.Camera, frame, params,
@@ -415,10 +499,11 @@ def _prepass_dead_map(metric: Metric, camera: cam.Camera, frame, params,
     dead map and step counts."""
     W, H = settings.width, settings.height
     cx, cy = _grid_coords(W, H, 1.0, frame[0].device)
-    pstate, _ = _init_rays(metric, camera, frame, params, settings, features,
-                           cx, cy, None)
+    pstate, _, _ = _init_rays(metric, camera, frame, params, settings,
+                              features, cx, cy, None)
     pfin = integrate.trace_rays(metric, pstate, params, features=features,
-                                opts=settings.trace, image_width=W)
+                                opts=_trace_opts(metric, settings),
+                                image_width=W)
     dead = (pfin.status == integrate.DEAD).reshape(H, W)
     return dead, pfin.steps.reshape(H, W)
 
@@ -531,8 +616,8 @@ def _adaptive_trace(metric: Metric, camera: cam.Camera, params,
     """The adaptive pipeline's trace half: prepass + quarter trace +
     budgeted refinement selection + refine trace.
 
-    Returns ``(qr, should, sel, dest, rstate, rku, k)``: the operands of a
-    finish stage (:func:`_finish` for full-res render data,
+    Returns ``(qr, should, sel, dest, rstate, rku, riquat, k)``: the
+    operands of a finish stage (:func:`_finish` for full-res render data,
     :func:`_finish_shade` for traced-only RGB).
     """
     W, H = settings.width, settings.height
@@ -563,18 +648,20 @@ def _adaptive_trace(metric: Metric, camera: cam.Camera, params,
         dead, _ = _prepass_dead_map(metric, camera, frame, params, psettings,
                                     features)
 
-    state, ku = _quarter_setup(metric, camera, frame, params, settings,
-                               features, dead,
-                               controller.qterm if reuse else None)
+    topts = _trace_opts(metric, settings)
+    state, ku, iquat = _quarter_setup(metric, camera, frame, params, settings,
+                                      features, dead,
+                                      controller.qterm if reuse else None)
     state = integrate.trace_rays(metric, state, params, features=features,
-                                 opts=settings.trace, image_width=W // 2)
+                                 opts=topts, image_width=W // 2)
 
     frac = settings.refine_budget
     if controller is not None:
         frac = controller.fraction(settings.refine_budget)
     k = _refine_k(nq, frac)
-    qr, should, demand, sel, dest, rstate, rku = _refine_setup(
-        metric, camera, frame, params, settings, features, state, ku, k)
+    qr, should, demand, sel, dest, rstate, rku, riquat = _refine_setup(
+        metric, camera, frame, params, settings, features, state, ku, iquat,
+        k)
     if controller is not None:
         controller.observe(demand)
         controller.qsteps = qr.steps
@@ -583,8 +670,8 @@ def _adaptive_trace(metric: Metric, camera: cam.Camera, params,
         controller.stream_objects = stream_objects
     # No image: ``sel`` order, the three offsets one after another.
     rstate = integrate.trace_rays(metric, rstate, params, features=features,
-                                  opts=settings.trace)
-    return qr, should, sel, dest, rstate, rku, k
+                                  opts=topts)
+    return qr, should, sel, dest, rstate, rku, riquat, k
 
 
 def render_data_adaptive(metric: Metric, camera: cam.Camera, params,
@@ -598,10 +685,10 @@ def render_data_adaptive(metric: Metric, camera: cam.Camera, params,
     (cl.cl:5294) becomes a budgeted top-k block batch (``refine_budget``;
     1.0 = every block, masked), optionally demand-sized across frames by a
     :class:`RefineBudgetController`."""
-    qr, should, sel, dest, rstate, rku, k = _adaptive_trace(
+    qr, should, sel, dest, rstate, rku, riquat, k = _adaptive_trace(
         metric, camera, params, settings, features, controller, device=device)
-    rdata, rsteps = _finish(metric, rstate, rku, params, features, qr, should,
-                            sel, dest, settings, k)
+    rdata, rsteps = _finish(metric, rstate, rku, riquat, params, features, qr,
+                            should, sel, dest, settings, k)
     if controller is not None:
         controller.rsteps = rsteps
     return rdata
@@ -617,10 +704,10 @@ def render_frame_adaptive(metric: Metric, camera: cam.Camera, params,
     that passed the angular-error test get bilinear RGB interpolation from
     the quarter corners instead of per-pixel background gathers (about
     nq + 3k shaded pixels instead of 4nq)."""
-    qr, should, sel, dest, rstate, rku, k = _adaptive_trace(
+    qr, should, sel, dest, rstate, rku, riquat, k = _adaptive_trace(
         metric, camera, params, settings, features, controller, device=device)
-    img, rsteps = _finish_shade(metric, rstate, rku, params, features, qr,
-                                should, sel, dest, backgrounds.to(device),
+    img, rsteps = _finish_shade(metric, rstate, rku, riquat, params, features,
+                                qr, should, sel, dest, backgrounds.to(device),
                                 settings, k)
     if controller is not None:
         controller.rsteps = rsteps
@@ -657,13 +744,15 @@ _REFINE_OFFSETS = ((1, 0), (0, 1), (1, 1))
 
 def _refine_setup(metric: Metric, camera: cam.Camera, frame, params,
                   settings: RenderSettings, features: Features,
-                  qstate: RayState, qku: Tensor, k: int):
+                  qstate: RayState, qku: Tensor, qiquat: Tensor | None,
+                  k: int):
     """Quarter render data + top-k block selection + refine-ray init
     (handle_adaptive_sampling's decision half, cl.cl:5240-5294).  Returns
-    ``(qr, should, demand, sel, dest, rstate, rku)``; ``demand`` is the
-    fraction of blocks that want refinement, a 0-d tensor."""
+    ``(qr, should, demand, sel, dest, rstate, rku, riquat)``; ``demand`` is
+    the fraction of blocks that want refinement, a 0-d tensor."""
     Wh, Hh = settings.width // 2, settings.height // 2
-    qr = compute_render_data(metric, qstate, qku, params, features)
+    qr = compute_render_data(metric, qstate, qku, params, features,
+                             inv_quat=qiquat)
     qg = RenderData(*(f.reshape((Hh, Wh) + f.shape[1:]) for f in qr))
 
     should, sel, dest = _select_refine_blocks(qg, settings, k)
@@ -675,18 +764,19 @@ def _refine_setup(metric: Metric, camera: cam.Camera, frame, params,
     rcy = torch.cat([scy + oy for ox, oy in _REFINE_OFFSETS])
     rkill = ~torch.cat([sflat] * 3)
 
-    rstate, rku = _init_rays(metric, camera, frame, params, settings,
-                             features, rcx, rcy, rkill)
-    return qr, should, demand, sel, dest, rstate, rku
+    rstate, rku, riquat = _init_rays(metric, camera, frame, params, settings,
+                                     features, rcx, rcy, rkill)
+    return qr, should, demand, sel, dest, rstate, rku, riquat
 
 
 def _grid(x: Tensor, Hh: int, Wh: int) -> Tensor:
     return x.reshape((Hh, Wh) + x.shape[1:])
 
 
-def _finish(metric: Metric, rstate: RayState, rku: Tensor, params,
-            features: Features, qr: RenderData, should: Tensor, sel: Tensor,
-            dest: Tensor, settings: RenderSettings, k: int):
+def _finish(metric: Metric, rstate: RayState, rku: Tensor,
+            riquat: Tensor | None, params, features: Features,
+            qr: RenderData, should: Tensor, sel: Tensor, dest: Tensor,
+            settings: RenderSettings, k: int):
     """Refine render data + scatter-back + assembly to full-resolution
     render data.  Returns ``(rdata, rsteps)``.
 
@@ -696,7 +786,8 @@ def _finish(metric: Metric, rstate: RayState, rku: Tensor, params,
     block ids."""
     Wh, Hh = settings.width // 2, settings.height // 2
     nq = Wh * Hh
-    rr = compute_render_data(metric, rstate, rku, params, features)
+    rr = compute_render_data(metric, rstate, rku, params, features,
+                             inv_quat=riquat)
 
     f32 = torch.float32
     packed = torch.cat([
@@ -735,10 +826,10 @@ def _finish(metric: Metric, rstate: RayState, rku: Tensor, params,
                               settings), rsteps
 
 
-def _shade_set(rdata_tex, rdata_side, rdata_term, dx, dy,
+def _shade_set(rdata_tex, rdata_side, rdata_z, rdata_term, dx, dy,
                backgrounds: bg.Background, settings: RenderSettings,
                segments: tuple) -> Tensor:
-    """Shade one flat traced-ray set: EWA sample + black mask.  ``dx``/``dy``:
+    """Shade one flat traced-ray set: EWA sample + redshift + black mask.  ``dx``/``dy``:
     (N, 2) screen-space uv derivatives in FULL-RES pixel units (already
     bias-scaled)."""
     live = rdata_term == integrate.ESCAPED
@@ -747,6 +838,7 @@ def _shade_set(rdata_tex, rdata_side, rdata_term, dx, dy,
         max_probes=settings.anisotropy, trilinear=settings.trilinear,
         live=live, probe_segments=segments,
     )
+    rgb = _redshifted(rgb, rdata_z, settings)
     return torch.where(live[:, None], rgb, 0.0)
 
 
@@ -771,10 +863,11 @@ def _refine_segments(settings: RenderSettings) -> tuple:
 _BIAS_FRAC = 1.3  # sample_anisotropic's default derivative bias
 
 
-def _finish_shade(metric: Metric, rstate: RayState, rku: Tensor, params,
-                  features: Features, qr: RenderData, should: Tensor,
-                  sel: Tensor, dest: Tensor, backgrounds: bg.Background,
-                  settings: RenderSettings, k: int):
+def _finish_shade(metric: Metric, rstate: RayState, rku: Tensor,
+                  riquat: Tensor | None, params, features: Features,
+                  qr: RenderData, should: Tensor, sel: Tensor, dest: Tensor,
+                  backgrounds: bg.Background, settings: RenderSettings,
+                  k: int):
     """Traced-only finish: refine render data + quarter/refine shading + RGB
     scatter-back + full-res RGB assembly.  Returns ``(img, rsteps)``.
 
@@ -787,7 +880,8 @@ def _finish_shade(metric: Metric, rstate: RayState, rku: Tensor, params,
     """
     Wh, Hh = settings.width // 2, settings.height // 2
     nq = Wh * Hh
-    rr = compute_render_data(metric, rstate, rku, params, features)
+    rr = compute_render_data(metric, rstate, rku, params, features,
+                             inv_quat=riquat)
     cd = bg._circular_diff
 
     # --- quarter shade ---
@@ -797,8 +891,9 @@ def _finish_shade(metric: Metric, rstate: RayState, rku: Tensor, params,
     scale = 0.5 / _BIAS_FRAC
     dxq = (cd(qtex, nbr_r) * scale).reshape(nq, 2)
     dyq = (cd(qtex, nbr_d) * scale).reshape(nq, 2)
-    rgb_q = _shade_set(qr.tex_coord, qr.side, qr.terminated, dxq, dyq,
-                       backgrounds, settings, settings.probe_segments)
+    rgb_q = _shade_set(qr.tex_coord, qr.side, qr.z_shift, qr.terminated,
+                       dxq, dyq, backgrounds, settings,
+                       settings.probe_segments)
 
     # --- refine shade (3k rays: offsets (1,0), (0,1), (1,1)) ---
     tq = qr.tex_coord[sel]                       # (k, 2) block corners
@@ -806,8 +901,9 @@ def _finish_shade(metric: Metric, rstate: RayState, rku: Tensor, params,
                   rr.tex_coord[2 * k:3 * k])
     dxr = torch.cat([cd(tq, t0), cd(t1, t2), cd(t1, t2)]) / _BIAS_FRAC
     dyr = torch.cat([cd(t0, t2), cd(tq, t1), cd(t0, t2)]) / _BIAS_FRAC
-    rgb_r = _shade_set(rr.tex_coord, rr.side, rr.terminated, dxr, dyr,
-                       backgrounds, settings, _refine_segments(settings))
+    rgb_r = _shade_set(rr.tex_coord, rr.side, rr.z_shift, rr.terminated,
+                       dxr, dyr, backgrounds, settings,
+                       _refine_segments(settings))
 
     # --- scatter the k traced blocks' RGB back to the quarter grid ---
     # ONE (k, 12) row scatter (cf. _finish): 3 offsets x RGB + the three
@@ -971,10 +1067,11 @@ def render_frame(metric: Metric, camera: cam.Camera, params,
                                      features, controller=controller,
                                      device=device)
         return shade(rdata, backgrounds.to(device), settings)
-    state, ku = init_camera_rays(metric, camera, params, settings, features,
-                                 device=device)
+    state, ku, iquat = init_camera_rays(metric, camera, params, settings,
+                                        features, device=device)
     final = integrate.trace_rays(metric, state, params, features=features,
-                                 opts=settings.trace,
+                                 opts=_trace_opts(metric, settings),
                                  image_width=settings.width)
-    rdata = compute_render_data(metric, final, ku, params, features)
+    rdata = compute_render_data(metric, final, ku, params, features,
+                                inv_quat=iquat)
     return shade(rdata, backgrounds.to(device), settings)

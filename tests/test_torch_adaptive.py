@@ -1,15 +1,15 @@
-"""Port parity, the adaptive frame as a whole: 64x64 ``kerr_boyer`` frames
-through ``render_frame`` of the port against the JAX package's and against
-the port's own dense frame, the budget controller over a frame stream, and
-the CLI (CPU).
+"""Port parity, the adaptive frame as a whole: 64x64 ``kerr_boyer`` frames,
+and ``schwarzschild`` frames in planar mode, through ``render_frame`` of the
+port against the JAX package's and against the port's own dense frame, the
+budget controller over a frame stream, and the CLI (CPU).
 
 Against JAX (``method="while"``), both finish paths: sRGB uint8 RMSE under
 1.0 of 255 and under 0.5% of pixels off by more than 32 (float32 differences
 move single texels at checker edges and photon-ring rays).  Against the dense
 frame: the thresholds of the JAX package's own tests of its adaptive path
-(``tests/test_adaptive.py``), unchanged; where those tests render
-``schwarzschild`` (traced in planar mode, which is not ported) these render
-``kerr_boyer``.
+(``tests/test_adaptive.py``), unchanged, on ``kerr_boyer`` and, as cases
+of their own, on the scene those tests render where they do not render
+Kerr: ``schwarzschild``, traced in planar mode.
 
 The eager march is slow on a CPU, so every march is made once: a module
 fixture keeps the marched states by the bytes of their launch state, and the
@@ -74,8 +74,8 @@ def marches():
         integrate.trace_rays = trace_rays
 
 
-def _scene():
-    m = tmetrics.get_metric("kerr_boyer")
+def _scene(name="kerr_boyer"):
+    m = tmetrics.get_metric(name)
     cam = Camera.default(device="cpu").rotate(pitch=-math.pi / 2)
     return m, cam, m.params(), bg.checker_background(128, 256, device="cpu")
 
@@ -85,18 +85,18 @@ def _settings(anisotropy=2, **kw):
                              trace=TraceOptions(max_steps=STEPS), **kw)
 
 
-def _frame(settings, controller=None):
-    m, cam, params, sky = _scene()
+def _frame(settings, controller=None, name="kerr_boyer"):
+    m, cam, params, sky = _scene(name)
     return pl.render_frame(m, cam, params, sky, settings,
                            controller=controller, device="cpu").numpy()
 
 
-def _frames(anisotropy=2, **adaptive_kw):
+def _frames(anisotropy=2, name="kerr_boyer", **adaptive_kw):
     """(dense, adaptive) frames, as ``_frames`` of tests/test_adaptive.py."""
     adaptive_kw.setdefault("shade_traced_only", False)
-    return (_frame(_settings(anisotropy)),
+    return (_frame(_settings(anisotropy), name=name),
             _frame(_settings(anisotropy, adaptive_sampling=True,
-                             **adaptive_kw)))
+                             **adaptive_kw), name=name))
 
 
 def _u8(srgb):
@@ -108,8 +108,22 @@ def _u8(srgb):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shade_traced_only", [True, False])
+def test_adaptive_frame_matches_jax_schwarzschild_planar(shade_traced_only):
+    """The reference's own adaptive scene: ``schwarzschild``, every march in
+    planar mode (both packages' default for a spherically symmetric
+    metric), both finish paths.  sRGB RMSE under 0.5 of 255."""
+    assert pl._planar_enabled(tmetrics.get_metric("schwarzschild"),
+                              _settings())
+    _assert_adaptive_matches_jax("schwarzschild", shade_traced_only, 0.5)
+
+
+@pytest.mark.parametrize("shade_traced_only", [True, False])
 def test_adaptive_frame_matches_jax(shade_traced_only):
-    jm = jmetrics.get_metric("kerr_boyer")
+    _assert_adaptive_matches_jax("kerr_boyer", shade_traced_only, 1.0)
+
+
+def _assert_adaptive_matches_jax(name, shade_traced_only, rmse_max):
+    jm = jmetrics.get_metric(name)
     jimg = jpl.render_frame(
         jm, JCamera.default().rotate(pitch=-np.pi / 2), jm.params(),
         jbg.checker_background(128, 256),
@@ -118,7 +132,7 @@ def test_adaptive_frame_matches_jax(shade_traced_only):
                            shade_traced_only=shade_traced_only,
                            trace=JTrace(max_steps=STEPS, method="while")))
     img = _frame(_settings(adaptive_sampling=True,
-                           shade_traced_only=shade_traced_only))
+                           shade_traced_only=shade_traced_only), name=name)
     assert img.shape == (64, 64, 3) and np.isfinite(img).all()
     ours = _u8(colour.lin_to_srgb(torch.from_numpy(img)))
     theirs = _u8(jcolour.lin_to_srgb(jimg))
@@ -126,10 +140,11 @@ def test_adaptive_frame_matches_jax(shade_traced_only):
     d = np.abs(ours.astype(int) - theirs.astype(int))
     rmse, bad = float(np.sqrt((d.astype(float) ** 2).mean())), float(
         (d > 32).mean())
-    print(f"shade_traced_only={shade_traced_only}: sRGB RMSE {rmse:.4f}, "
+    print(f"{name} shade_traced_only={shade_traced_only}: sRGB RMSE "
+          f"{rmse:.4f}, "
           f"pixels off by >32 {bad:.5f}, max linear difference "
           f"{np.abs(img - np.asarray(jimg)).max():.3g}")
-    assert rmse < 1.0, rmse
+    assert rmse < rmse_max, rmse
     assert bad < 0.005, bad
 
 
@@ -148,9 +163,25 @@ def test_adaptive_matches_dense_kerr():
     assert np.median(d) < 1e-3
 
 
+def test_adaptive_matches_dense_schwarzschild():
+    dense, adap = _frames(name="schwarzschild")
+    assert np.isfinite(adap).all()
+    d = np.abs(dense - adap).max(axis=-1)
+    assert (d > 0.1).mean() < 0.06, (d > 0.1).mean()
+    assert np.median(d) < 1e-3
+
+
+def test_adaptive_full_budget_schwarzschild():
+    """``test_adaptive_full_budget_schwarzschild`` of tests/test_adaptive.py,
+    on its own scene (planar mode)."""
+    dense, adap = _frames(name="schwarzschild", refine_budget=1.0)
+    d = np.abs(dense - adap).max(axis=-1)
+    assert (d > 0.1).mean() < 0.05, (d > 0.1).mean()
+
+
 def test_adaptive_full_budget_kerr():
-    """The reference's test renders ``schwarzschild`` (planar mode, not
-    ported); ``kerr_boyer`` here."""
+    """The same on ``kerr_boyer`` (the reference's test renders
+    ``schwarzschild``: the case above)."""
     dense, adap = _frames(refine_budget=1.0)
     d = np.abs(dense - adap).max(axis=-1)
     # Full budget: every block refines -> odd/even-offset pixels traced
@@ -182,7 +213,8 @@ def test_traced_only_shading_corners_exact():
 def test_traced_only_black_mask_semantics():
     """Interpolated pixels take the block centre's terminated flag
     (cl.cl:5111-5133): inside the shadow every pixel must be black in both
-    paths.  (``kerr_boyer`` for the reference test's ``schwarzschild``.)"""
+    paths.  (``kerr_boyer``; the reference test's ``schwarzschild`` is the
+    next case.)"""
     dense, adap = _frames(anisotropy=1, shade_traced_only=True)
     black_d = (dense.max(axis=-1) == 0.0)
     black_a = (adap.max(axis=-1) == 0.0)
@@ -192,22 +224,41 @@ def test_traced_only_black_mask_semantics():
     assert disagree.mean() < 0.02, disagree.mean()
 
 
-def test_refine_budget_controller_render_stream():
-    """A controlled frame stream renders identically to the fixed budget
-    when the settled bucket covers the frame's demand.
-    (``kerr_boyer`` for the reference test's ``schwarzschild``.)"""
+def test_traced_only_black_mask_semantics_schwarzschild():
+    """The same on the reference test's own scene (planar mode)."""
+    dense, adap = _frames(anisotropy=1, name="schwarzschild",
+                          shade_traced_only=True)
+    black_d = (dense.max(axis=-1) == 0.0)
+    black_a = (adap.max(axis=-1) == 0.0)
+    assert 0.05 < black_d.mean() < 0.6
+    disagree = black_d != black_a
+    assert disagree.mean() < 0.02, disagree.mean()
+
+
+def _controller_stream(name):
     settings = _settings(adaptive_sampling=True)
-    ref = _frame(settings)
+    ref = _frame(settings, name=name)
 
     c = pl.RefineBudgetController(latency=0)
     last = None
     for _ in range(3):
-        last = _frame(settings, controller=c)
+        last = _frame(settings, controller=c, name=name)
     assert c.fraction(1.0) in c.BUCKETS
     # The settled render must stay finite and close to the full-budget one
     # (identical when demand fits the bucket; interpolated otherwise).
     assert np.isfinite(last).all()
     assert np.abs(last - ref).mean() < 0.01
+
+
+def test_refine_budget_controller_render_stream():
+    """A controlled frame stream renders identically to the fixed budget
+    when the settled bucket covers the frame's demand (``kerr_boyer``)."""
+    _controller_stream("kerr_boyer")
+
+
+def test_refine_budget_controller_render_stream_schwarzschild():
+    """The same on the reference test's own scene (planar mode)."""
+    _controller_stream("schwarzschild")
 
 
 # ---------------------------------------------------------------------------

@@ -328,9 +328,10 @@ def test_quarter_setup_matches_jax(jax_frame, port_scene, dead_map):
         want, want_ku, *_ = jpl._quarter_setup_jit(
             j["m"], j["cam"], j["params"], j["settings"], j["feats"], dead,
             jnp.zeros((4, 4), jnp.int32), None, None)
-    state, ku = pl._quarter_setup(p["m"], p["camera"], p["frame"],
-                                  p["params"], p["settings"], p["feats"],
-                                  _t(dead))
+    state, ku, iquat = pl._quarter_setup(p["m"], p["camera"], p["frame"],
+                                         p["params"], p["settings"],
+                                         p["feats"], _t(dead))
+    assert iquat is None  # kerr_boyer is not traced in planar mode
     _assert_launch_state(state, want)
     np.testing.assert_allclose(ku.numpy(), np.asarray(want_ku), rtol=1e-4)
     born_dead = state.status.numpy() == 2
@@ -349,8 +350,9 @@ def test_quarter_setup_reuse_erodes_the_last_dead_map(jax_frame, port_scene):
     want, *_ = jpl._quarter_setup_jit(
         jax_frame["m"], jax_frame["cam"], jax_frame["params"],
         jax_frame["settings"], jax_frame["feats"], None, None, None, qterm)
-    state, _ = pl._quarter_setup(p["m"], p["camera"], p["frame"], p["params"],
-                                 p["settings"], p["feats"], None, _t(qterm))
+    state, _, _ = pl._quarter_setup(p["m"], p["camera"], p["frame"],
+                                    p["params"], p["settings"], p["feats"],
+                                    None, _t(qterm))
     np.testing.assert_array_equal(state.status.numpy(),
                                   np.asarray(want.status))
     dead = np.asarray(qterm) == 2
@@ -373,10 +375,11 @@ def test_refine_setup_matches_jax(jax_frame, port_scene, k):
     selection, the demand and the refine rays (those of blocks that do not
     want refinement born DEAD)."""
     p, ref = port_scene, jax_frame["refine"][k]
-    qr, should, demand, sel, dest, rstate, rku = pl._refine_setup(
+    qr, should, demand, sel, dest, rstate, rku, riquat = pl._refine_setup(
         p["m"], p["camera"], p["frame"], p["params"], p["settings"],
         p["feats"], _tuple_t(RayState, jax_frame["qstate"]),
-        _t(jax_frame["ku"]), k)
+        _t(jax_frame["ku"]), None, k)
+    assert riquat is None
     _assert_rdata(qr, ref["qr"])
     np.testing.assert_array_equal(should.numpy(), np.asarray(ref["should"]))
     np.testing.assert_array_equal(sel.numpy(), np.asarray(ref["sel"]))
@@ -405,8 +408,9 @@ def test_finish_matches_jax(jax_frame, port_scene, k):
         jax_frame["feats"], ref["qr"], ref["should"], ref["sel"], ref["dest"],
         jax_frame["settings"], k)
     rstate, rku, qr, should, sel, dest = _finish_operands(jax_frame, k)
-    got, rsteps = pl._finish(p["m"], rstate, rku, p["params"], p["feats"], qr,
-                             should, sel, dest, p["settings"], k)
+    got, rsteps = pl._finish(p["m"], rstate, rku, None, p["params"],
+                             p["feats"], qr, should, sel, dest, p["settings"],
+                             k)
     assert got.tex_coord.shape == (W * H, 2)
     _assert_rdata(got, want)
     np.testing.assert_array_equal(rsteps.numpy(), np.asarray(want_rsteps))
@@ -424,7 +428,7 @@ def test_finish_shade_matches_jax(jax_frame, port_scene, k):
         jax_frame["feats"], ref["qr"], ref["should"], ref["sel"], ref["dest"],
         jax_frame["sky"], jax_frame["settings"], k)
     rstate, rku, qr, should, sel, dest = _finish_operands(jax_frame, k)
-    got, rsteps = pl._finish_shade(p["m"], rstate, rku, p["params"],
+    got, rsteps = pl._finish_shade(p["m"], rstate, rku, None, p["params"],
                                    p["feats"], qr, should, sel, dest,
                                    p["sky"], p["settings"], k)
     assert got.shape == (H, W, 3) and bool(torch.isfinite(got).all())

@@ -1,6 +1,6 @@
 """Carrying state from the JAX reference into the PyTorch port: the sky
-atlas words are bit-identical, parameters and cameras carry unchanged
-(CPU).  Exact comparisons: these are copies and integer packing, not
+atlas words are bit-identical, parameters, cameras, render settings and ray
+states (with their planar quaternions) carry unchanged (CPU).  Exact comparisons: these are copies and integer packing, not
 arithmetic, except the camera quaternion (a few float32 trig ops, rtol
 1e-6)."""
 
@@ -12,11 +12,15 @@ import torch
 
 from geodesic_raytracing_tpu import metrics as jmetrics
 from geodesic_raytracing_tpu.camera import Camera as JCamera
+from geodesic_raytracing_tpu.ops import integrate as jint
+from geodesic_raytracing_tpu.render import pipeline as jpl
 from geodesic_raytracing_tpu.render import background as jbg
 from geodesic_raytracing_tpu_torch import carry
 from geodesic_raytracing_tpu_torch import metrics as tmetrics
 from geodesic_raytracing_tpu_torch.camera import Camera
+from geodesic_raytracing_tpu_torch.ops import integrate as tint
 from geodesic_raytracing_tpu_torch.render import background as bg
+from geodesic_raytracing_tpu_torch.render import pipeline as pl
 
 torch.set_num_threads(1)
 
@@ -60,7 +64,7 @@ def test_params_carry():
     with pytest.raises(KeyError):
         tm.params(q=1.0)
     with pytest.raises(KeyError):
-        tmetrics.get_metric("schwarzschild")
+        tmetrics.get_metric("alcubierre")
 
 
 def test_camera_carry():
@@ -72,3 +76,67 @@ def test_camera_carry():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
                                    atol=1e-7)
     np.testing.assert_array_equal(carried.quat.numpy(), np.asarray(jc.quat))
+
+
+@pytest.mark.parametrize("name", sorted(tmetrics.REGISTRY))
+def test_params_carry_every_ported_metric(name):
+    """Parameters by name, for each ported metric."""
+    jm, tm = jmetrics.get_metric(name), tmetrics.get_metric(name)
+    assert carry.params_from_jax(jm.params()) == tm.params()
+    assert set(tm.params()) == set(jm.defaults)
+
+
+def test_settings_carry():
+    js = jpl.RenderSettings(width=64, height=48, anisotropy=4, redshift=True,
+                            old_redshift=True, spectral_redshift=False,
+                            dominant_colour=True, planar=False,
+                            adaptive_sampling=True, refine_budget=0.5,
+                            probe_segments=((0.11, 7),),
+                            trace=jint.TraceOptions(
+                                max_steps=512, integrator="euler",
+                                reparameterisation=True, method="pallas",
+                                planar=True))
+    ts = carry.settings_from_jax(js)
+    assert ts == pl.RenderSettings(
+        width=64, height=48, anisotropy=4, redshift=True, old_redshift=True,
+        dominant_colour=True, planar=False, adaptive_sampling=True,
+        refine_budget=0.5, probe_segments=((0.11, 7),),
+        trace=tint.TraceOptions(max_steps=512, integrator="euler",
+                                reparameterisation=True))
+    # The defaults agree field for field, planar mode on.
+    assert carry.settings_from_jax(jpl.RenderSettings()) == pl.RenderSettings()
+    assert pl.RenderSettings().planar
+
+
+def test_ray_state_carry_with_planar_quaternions():
+    """JAX's planar rays of a small schwarzschild frame, handed to the
+    port's march: same bits in, and the port's planar march on them ends
+    as JAX's own does."""
+    jm, tm = (g("schwarzschild") for g in (jmetrics.get_metric,
+                                           tmetrics.get_metric))
+    jf = jint.Features.for_metric(jm)
+    settings = jpl.RenderSettings(width=8, height=8,
+                                  trace=jint.TraceOptions(max_steps=1024))
+    jst, jku, jq = jpl.init_camera_rays(
+        jm, JCamera.default().rotate(pitch=-np.pi / 2), jm.params(), settings,
+        jf)
+    assert jq is not None and jq.shape == (4, 64)
+    tst, tq = carry.ray_state_from_jax(jst, jq, device="cpu")
+    for name in tint.RayState._fields:
+        a, b = getattr(tst, name), np.asarray(getattr(jst, name))
+        assert a.dtype in (torch.float32, torch.int32)
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert carry.ray_state_from_jax(jst, device="cpu")[1] is None
+    jfin = jint.trace_rays(jm, jst, jm.params(), features=jf,
+                           opts=jint.TraceOptions(max_steps=1024,
+                                                  planar=True))
+    tfin = tint.trace_rays(tm, tst, tm.params(),
+                           tint.Features.for_metric(tm),
+                           tint.TraceOptions(max_steps=1024, planar=True))
+    np.testing.assert_array_equal(tfin.status.numpy(),
+                                  np.asarray(jfin.status))
+    np.testing.assert_array_equal(tfin.steps.numpy(), np.asarray(jfin.steps))
+    np.testing.assert_allclose(tfin.position.numpy(),
+                               np.asarray(jfin.position), rtol=1e-4,
+                               atol=1e-4)

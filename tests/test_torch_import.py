@@ -24,7 +24,9 @@ torch.set_num_threads(1)
 def test_port_imports_without_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         pkg.__path__, pkg.__name__ + "."))
-    assert "geodesic_raytracing_tpu_torch.cli" in mods
+    for new in ("cli", "ops.planar", "metrics.catalogue_simple",
+                "render.colour", "render.cie1931_data", "carry"):
+        assert f"geodesic_raytracing_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -58,12 +60,12 @@ def test_render_frame_cuda_without_gpu_raises():
 
 def test_trace_rays_cuda_refuses_cpu_tensors():
     m, st = _small_state()
-    before = raymarch.LAUNCHES
+    before = raymarch.launches()
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         raymarch.trace_rays_cuda(m, st, m.params(),
                                  integrate.Features.for_metric(m),
                                  integrate.TraceOptions(max_steps=8))
-    assert raymarch.LAUNCHES == before
+    assert raymarch.launches() == before
 
 
 @pytest.mark.parametrize("opts", [
@@ -72,10 +74,20 @@ def test_trace_rays_cuda_refuses_cpu_tensors():
     integrate.TraceOptions(planar=True),
 ])
 def test_trace_rays_cuda_refuses_unported_options(opts):
+    """Every trace option is ported now, so what the wrapper still refuses
+    under each is a state that is not on the card: it raises, launches
+    nothing, and never marches the rays with the plain twin instead."""
     m, st = _small_state()
-    with pytest.raises(NotImplementedError):
+    before = raymarch.launches()
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
         raymarch.trace_rays_cuda(m, st, m.params(),
                                  integrate.Features.for_metric(m), opts)
+    assert raymarch.launches() == before
+    # The plain twin takes the same options.
+    fin = integrate.trace_rays_reference(
+        m, st, m.params(), integrate.Features.for_metric(m),
+        dataclasses.replace(opts, max_steps=8))
+    assert int(fin.steps.max()) <= 8
 
 
 @pytest.mark.parametrize("override", [
@@ -86,14 +98,65 @@ def test_trace_rays_cuda_refuses_unported_options(opts):
 ])
 @pytest.mark.parametrize("march", ["plain", "kernel"])
 def test_march_refuses_unported_metric_configs(override, march):
+    """The plain march refuses no metric config any more (the step has all
+    the reference's branches).  A kernel instance has its registered
+    metric's config compiled in, so the wrapper refuses a metric whose
+    config was replaced, on any device, before it looks at the tensors: it
+    never marches such rays with the catalogue struct's branches."""
     m, st = _small_state()
     m = dataclasses.replace(m, config=dataclasses.replace(m.config,
                                                           **override))
-    fn = (integrate.trace_rays_reference if march == "plain"
-          else raymarch.trace_rays_cuda)
-    with pytest.raises(NotImplementedError, match="is ported"):
-        fn(m, st, m.params(), integrate.Features.for_metric(m),
-           integrate.TraceOptions(max_steps=8))
+    feats = integrate.Features.for_metric(m)
+    opts = integrate.TraceOptions(max_steps=8)
+    if march == "plain":
+        fin = integrate.trace_rays_reference(m, st, m.params(), feats, opts)
+        assert int(fin.steps.max()) <= 8
+        assert bool(torch.isfinite(fin.position).all())
+    else:
+        before = raymarch.launches()
+        with pytest.raises(NotImplementedError,
+                           match=f"differs in config.{next(iter(override))}"):
+            raymarch.trace_rays_cuda(m, st, m.params(), feats, opts)
+        assert raymarch.launches() == before
+
+
+@pytest.mark.parametrize("field,value", [
+    ("fn", lambda x, p: metrics.get_metric("kerr_boyer").fn(x, p)),
+    ("depends_on", (0, 1, 2, 3)),
+    ("spherically_symmetric", True),
+])
+def test_kernel_refuses_a_metric_that_is_not_the_registered_one(field, value):
+    """Function, ``depends_on`` and the symmetry flag are compiled into the
+    instance as the config is; ``max_acceleration_change`` is not (it
+    travels in Features), so replacing it gets as far as the tensors."""
+    m, st = _small_state()
+    feats = integrate.Features.for_metric(m)
+    opts = integrate.TraceOptions(max_steps=8)
+    other = dataclasses.replace(m, **{field: value})
+    with pytest.raises(NotImplementedError, match=f"differs in {field}"):
+        raymarch.trace_rays_cuda(other, st, m.params(), feats, opts)
+    raymarch.check_compiled_metric(m)
+    loose = dataclasses.replace(m, config=dataclasses.replace(
+        m.config, max_acceleration_change=1e-4))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        raymarch.trace_rays_cuda(loose, st, m.params(), feats, opts)
+
+
+def test_metric_without_kernel_instance_raises():
+    """A metric the kernel has no instance for raises NotImplementedError
+    from the wrapper, before anything is built or launched: it is never
+    marched by the plain twin in the kernel's place."""
+    m, st = _small_state()
+    other = dataclasses.replace(m, name="kerr_boyer_variant")
+    before = raymarch.launches()
+    with pytest.raises(NotImplementedError, match="no ray-march kernel"):
+        raymarch.trace_rays_cuda(other, st, m.params(),
+                                 integrate.Features.for_metric(m),
+                                 integrate.TraceOptions(max_steps=8))
+    with pytest.raises(NotImplementedError, match="no ray-march kernel"):
+        raymarch.build("kerr_boyer_variant")
+    assert raymarch.launches() == before
+    assert set(raymarch.INSTANCES) == set(metrics.list_metrics())
 
 
 def test_render_frame_refuses_adaptive_sampling():

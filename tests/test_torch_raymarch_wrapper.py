@@ -90,6 +90,9 @@ def test_with_flags_replaces_fmad_and_keys_the_build():
 
 def test_ptxas_summary_reads_the_kernel_report():
     report = ("ptxas info    : 24 bytes gmem\n"
+              "ptxas info    : Compiling entry function '_ZN3grt15raymarch_"
+              "kernelINS_9KerrBoyerENS_11StepOptionsILb0ELb0ELb0EEEEEvT_' "
+              "for 'sm_90a'\n"
               "ptxas info    : Function properties for raymarch_kernel\n"
               "    32 bytes stack frame, 0 bytes spill stores, 8 bytes spill "
               "loads\n"
@@ -136,4 +139,32 @@ def test_bound_is_operations_over_peak_for_a_marching_frame():
 
 
 def test_metric_of_the_kernel_is_registered():
-    assert set(raymarch._ENTRY) <= set(metrics.REGISTRY)
+    """Every kernel instance belongs to a registered metric and takes that
+    metric's parameters, all of them, in the order of its C++ struct."""
+    assert set(raymarch.INSTANCES) == set(metrics.REGISTRY)
+    for name, (struct, param_names) in raymarch.INSTANCES.items():
+        assert set(param_names) == set(metrics.get_metric(name).defaults)
+        assert struct.isidentifier()
+
+
+def test_ptxas_instances_reads_every_option_instance():
+    """A library's report holds one block per option instance, keyed by the
+    mangled name's StepOptions<planar, euler, reparameterisation>."""
+    def block(opts, regs, spill):
+        return ("ptxas info    : Compiling entry function '_ZN3grt15raymarch"
+                f"_kernelINS_9KerrBoyerENS_11StepOptionsILb{opts[0]}ELb"
+                f"{opts[1]}ELb{opts[2]}EEEEEvT_' for 'sm_90a'\n"
+                "ptxas info    : Function properties for _ZN3grt\n"
+                f"    32 bytes stack frame, {spill} bytes spill stores, 0 "
+                "bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 0 barriers\n")
+
+    report = "ptxas info    : 0 bytes gmem\n" + block("000", 61, 0) \
+        + block("100", 56, 0) + block("101", 50, 4)
+    inst = raymarch.ptxas_instances(report)
+    assert sorted(inst) == [(False, False, False), (True, False, False),
+                            (True, False, True)]
+    assert inst[True, False, True] == {
+        "registers": 50, "stack_bytes": 32, "spill_store_bytes": 4,
+        "spill_load_bytes": 0}
+    assert raymarch.ptxas_summary(report)["registers"] == 61
