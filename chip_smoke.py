@@ -10,19 +10,27 @@ eager-torch twin on the card, drives the port's main paths through
 its rays marched once more by the plain twin) and the adaptive flagship frame
 of ``flagship_config`` as it comes (prepass, quarter grid and refinement:
 three launches in a first frame, two in a steady one; the first frame's
-prepass and refine launches and each launch of the 480x270 frame marched
-once more by the plain twin).  It counts each launch's work (steps, trial iterations, idle
+prepass launch and each launch of the 480x270 frame marched once more by the
+plain twin).  It counts each launch's work (steps, trial iterations, idle
 lanes), holds the kernel's time against its bound, holds the adaptive frame
 against the dense one and the kernel frames against the plain frames at
 480x270, checks that a steady adaptive frame never waits for the device,
 times both frames stage by stage, and runs the CLI on the card.  Then the
-second path: every kernel instance (eight metrics, 4-D and planar) and the
+second path: the seven other kernel instances (4-D and planar) and the
 step options (Euler, reparameterisation) against the plain march; the
 ``schwarzschild`` frame in planar mode at 1920x1080, adaptive and dense, its
 dense, quarter and refine launches and each launch of its 480x270 twin
 against the plain march; planar against 4-D; the 128x128 golden scenes of the
 seven new metrics and ``kerr_redshift``; and a dense 1080p frame of every
-metric through ``render_frame``, its launch against the plain march.
+metric through ``render_frame``, its launch against the plain march.  Then
+the third path: the differentiable fit at ``scripts/fit_bench.py``'s size
+(``kerr_boyer`` 256x256, a 2048-step budget, an 896-iteration scan in windows
+of 128): its target, the train step's probe launch against the plain march
+and its scan against the probe, its gradient against the central difference,
+three timed train steps and the ``fit`` CLI; and the geodesic camera: a
+4096-step recording on the card against the CPU's, the tetrad's transport,
+and the adaptive 1080p frame from that camera, its 480x270 twin's launches
+against the plain march.
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
 kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
@@ -285,11 +293,15 @@ def recorded_launches(integrate, with_opts=False):
         yield launches
 
 
-def plain_marches(integrate):
-    """Inside the block every march is made by the kernel's plain twin."""
+def plain_marches(integrate, record=None):
+    """Inside the block every march is made by the kernel's plain twin;
+    ``record``, a list, receives ``(input state, output state)`` of each."""
     def plain(real, metric, state, params, features, opts, image_width):
-        return integrate.trace_rays_reference(metric, state, params, features,
-                                              opts)
+        out = integrate.trace_rays_reference(metric, state, params, features,
+                                             opts)
+        if record is not None:
+            record.append((state, out))
+        return out
 
     return swapped_trace(integrate, plain)
 
@@ -663,16 +675,19 @@ def assert_equals_plain(what, k, p):
     return err
 
 
-def check_instances(dev) -> dict:
-    """Phase 14: each of the eight kernel instances against the plain torch
+def check_instances(dev, skip=("kerr_boyer",)) -> dict:
+    """Phase 14: each kernel instance but ``skip`` against the plain torch
     march on ``make_rays`` sets (64 and 4096 rays; once more off the
     equator; the spherically symmetric metrics in planar mode too).
-    Returns ``{metric: largest position difference}``."""
+    ``kerr_boyer`` is held at its paths' own shapes instead: the same
+    64-ray set in phase 2, every ray of the 1080p frame (on and off the
+    equator) in phase 3, the adaptive and fit launches in phases 9, 11, 20
+    and 25.  Returns ``{metric: largest position difference}``."""
     from geodesic_raytracing_tpu_torch import metrics
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
 
     errs = {}
-    for name in sorted(raymarch.INSTANCES):
+    for name in sorted(set(raymarch.INSTANCES) - set(skip)):
         m = metrics.get_metric(name)
         params, feats = m.params(), integrate.Features.for_metric(m)
         cases = [(64, 0.0, False), (4096, 0.0, False), (4096, 0.03, False)]
@@ -1124,6 +1139,346 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The third path: the differentiable fit, then the geodesic camera
+# ---------------------------------------------------------------------------
+
+# scripts/fit_bench.py's production train step: kerr_boyer at 256^2, a 2048
+# step budget, recomputation windows of 128, soft step cap 512, target rs 1.1,
+# start rs 0.95, learning rate 0.02.
+FIT_SIZE, FIT_MAX_STEPS, FIT_REMAT, FIT_CAP = 256, 2048, 128, 512
+FIT_TRUE_RS, FIT_START_RS, FIT_LR = 1.1, 0.95, 0.02
+FIT_SCAN_STEPS = 896  # 1.25 x the hard cap 661, in whole windows of 128
+# The gradient against the central difference of the same weighted loss with
+# the probe frozen (tests/test_gradients.py's protocol and tolerance).
+FIT_FD_EPS, FIT_FD_RTOL = 2e-3, 0.2
+# The geodesic camera: the flagship camera falling in at 0.3 c, recorded for
+# 4096 steps (cli --geodesic-camera), ridden at proper time 2; the card's
+# recording against the CPU's: positions within this (rtol and atol).
+GEO_SPEED, GEO_STEPS, GEO_TAU, GEO_POS_TOL = (-0.3, 0.0, 0.0), 4096, 2.0, 1e-4
+GEO_SMALL = (480, 270)  # the twin frame's width and height
+
+
+@contextlib.contextmanager
+def train_step_events(integrate, mesh):
+    """Inside the block every ``integrate.trace_rays`` call and every
+    backward pass of the train step (``mesh._gradients``) is bracketed by
+    CUDA events; yields a list that receives ``(what, start, end)`` with
+    ``what`` "probe launch" (the ``while`` driver), "scan forward" or
+    "backward"."""
+    import torch
+
+    marks = []
+
+    def timed(what, fn, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a, **kw)
+        ev[1].record()
+        marks.append((what, *ev))
+        return out
+
+    def trace(real, metric, state, params, features, opts, image_width):
+        what = "probe launch" if opts.method == "while" else "scan forward"
+        return timed(what, real, metric, state, params, features, opts,
+                     image_width)
+
+    real_grad = mesh._gradients
+    mesh._gradients = lambda loss, leaves: timed("backward", real_grad, loss,
+                                                 leaves)
+    try:
+        with swapped_trace(integrate, trace):
+            yield marks
+    finally:
+        mesh._gradients = real_grad
+
+
+def fit_path(dev) -> dict:
+    """Phases 20-24: the differentiable fit at ``scripts/fit_bench.py``'s
+    production size on the card.  20: the target render (the scan driver
+    under ``no_grad``) and the train step's probe launch held to the plain
+    march on all 65,536 rays; 21: the differentiable scan's forward against
+    the probe on every kept lane; 22: the train step's gradient against the
+    central difference of the same loss; 23: timed train steps, split into
+    probe launch, scan forward and backward; 24: the ``fit`` CLI on
+    ``cuda``, twice, the second run resuming from the first's checkpoint
+    and taking one more step.
+    Returns the row's ``paths.fit`` and the largest position difference."""
+    import tempfile
+
+    import torch
+    from geodesic_raytracing_tpu_torch import fit, metrics
+    from geodesic_raytracing_tpu_torch.camera import Camera
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.parallel import (
+        make_train_step, mesh, train_step_schedule)
+    from geodesic_raytracing_tpu_torch.render import background as bg
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    metric = metrics.get_metric("kerr_boyer")
+    feats = integrate.Features.for_metric(metric)
+    settings = pl.RenderSettings(
+        width=FIT_SIZE, height=FIT_SIZE, trace=integrate.TraceOptions(
+            max_steps=FIT_MAX_STEPS, method="scan", remat_every=FIT_REMAT))
+    camera = Camera.default(device=dev).rotate(pitch=-np.pi / 2)
+    sky = bg.checker_background(256, 512, device=dev)
+    n = FIT_SIZE * FIT_SIZE
+    hard_cap, scan_opts, probe_opts = train_step_schedule(settings, FIT_CAP)
+    assert scan_opts.max_steps == FIT_SCAN_STEPS, scan_opts
+
+    # -- 20. target and probe -------------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raymarch.reset_launch_counts()
+    target = fit._render_target(metric, camera, metric.params(rs=FIT_TRUE_RS),
+                                sky, settings, feats, grad_step_cap=FIT_CAP,
+                                device=dev)
+    torch.cuda.synchronize()
+    target_s = time.perf_counter() - t0
+    assert raymarch.launches() == 0  # the scan driver: eager torch
+    assert tuple(target.shape) == (FIT_SIZE, FIT_SIZE, 3)
+    assert bool(torch.isfinite(target).all())
+    sky_frac = float((target.sum(-1) > 0).float().mean())
+    assert 0.3 < sky_frac < 0.95, sky_frac
+    step = make_train_step(metric, settings, feats, grad_step_cap=FIT_CAP,
+                           device=dev)
+    start = metric.params(rs=FIT_START_RS)
+    # The first train step (phase 23's untimed one), its two marches
+    # recorded: the probe launch and the differentiable scan.
+    with recorded_launches(integrate, with_opts=True) as calls:
+        raymarch.reset_launch_counts()
+        first, loss0 = step(start, camera, target, sky, FIT_LR)
+        loss0 = float(loss0)
+        launches = raymarch.launches()
+    assert launches == 1, launches  # the probe; the scan launches nothing
+    (p_in, p_out, width, popts), (s_in, s_out, _, sopts) = calls
+    s_out = integrate.RayState(*(t.detach() for t in s_out))
+    assert (popts.method, popts.max_steps, width) == ("while", FIT_MAX_STEPS,
+                                                      FIT_SIZE)
+    assert (sopts.method, sopts.max_steps) == ("scan", FIT_SCAN_STEPS)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    plain = integrate.trace_rays_reference(metric, p_in, start, feats, popts)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    err = assert_equals_plain(
+        f"[20 fit] probe launch at rs {FIT_START_RS}, {FIT_SIZE}^2, "
+        f"{FIT_MAX_STEPS} steps (plain march {plain_ms:.1f} ms)", p_out, plain)
+    del plain
+    probe = launch_work(metric, p_in, start, feats, popts, FIT_SIZE)
+    assert same_bits(probe.pop("state"), p_out)
+    del probe["per_ray"]
+    probe_bound, b_ops, b_bytes = bound_ms(n, probe["trials"])
+    print(f"[20 fit] target at rs {FIT_TRUE_RS}: {target_s:.3f} s (scan "
+          f"driver, {FIT_MAX_STEPS} iterations, no launch), sky fraction "
+          f"{sky_frac:.4f}; probe: trial iterations {probe['trials']}, steps "
+          f"mean {probe['mean_steps']:.2f} max {probe['max_steps']}, bound "
+          f"{probe_bound:.3f} ms (operations {b_ops:.3f}, bytes "
+          f"{b_bytes:.3f}); loss at rs {FIT_START_RS} {loss0:.6g}")
+
+    # -- 21. the differentiable scan against the kernel on kept lanes ---------
+    polar_r = torch.abs(metric.to_polar(p_out.position.T, start)[1])
+    keep = ((p_out.status == integrate.ESCAPED)
+            & (polar_r >= 0.5 * feats.universe_size)
+            & (p_out.steps <= hard_cap))
+    assert torch.equal(s_in.status == integrate.ACTIVE, keep)
+    kept = int(keep.sum())
+    k = integrate.RayState(*(t[keep] for t in p_out))
+    s = integrate.RayState(*(t[keep] for t in s_out))
+    st_eq, sp_eq, scan_err, close = compare_states(s, k)
+    print(f"[21 scan] {FIT_SCAN_STEPS}-iteration scan forward vs the probe "
+          f"launch on the {kept} kept lanes of {n}: status equal "
+          f"{st_eq}/{kept}, steps equal {sp_eq}/{kept}, max |dpos| "
+          f"{scan_err:.3g}, same bits {same_bits(s, k)}")
+    assert kept > n // 4 and st_eq == kept and sp_eq == kept and close
+    del calls, p_in, s_in, s_out, s, k
+
+    # -- 22. the gradient against the central difference ---------------------
+    t0 = time.perf_counter()
+    at = metric.params(rs=1.0)
+    loss1, grads = step.loss_and_grad(at, camera, target, sky)
+    g = float(grads["rs"])
+    lo, hi = (float(step.loss(metric.params(rs=1.0 + d), camera, target, sky,
+                              probe_params=at))
+              for d in (-FIT_FD_EPS, FIT_FD_EPS))
+    fd = (hi - lo) / (2 * FIT_FD_EPS)
+    print(f"[22 grad] ({time.perf_counter() - t0:.1f} s) d loss / d rs at "
+          f"rs 1.0: autograd {g:.6g}, central "
+          f"difference (eps {FIT_FD_EPS}, probe frozen) {fd:.6g}, relative "
+          f"difference {abs(g - fd) / abs(fd):.4f} (limit {FIT_FD_RTOL}); "
+          f"d loss / d a {float(grads['a']):.6g}")
+    assert np.isfinite(g) and abs(g) > 1e-6 and np.isfinite(float(grads["a"]))
+    assert abs(g - fd) <= FIT_FD_RTOL * abs(fd), (g, fd)
+
+    # -- 23. train steps: three timed after the first (phase 20's) -----------
+    params, losses, rs = first, [], [FIT_START_RS, float(first["rs"])]
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, splits = [], []
+    for _ in range(3):
+        with train_step_events(integrate, mesh) as marks:
+            raymarch.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, loss = step(params, camera, target, sky, FIT_LR)
+            losses.append(float(loss))  # waits for the step
+            times.append(time.perf_counter() - t0)
+            step_launches = raymarch.launches()
+        torch.cuda.synchronize()
+        assert step_launches == 1, step_launches
+        assert [w for w, _, _ in marks] == ["probe launch", "scan forward",
+                                            "backward"], marks
+        splits.append({w: a.elapsed_time(b) for w, a, b in marks})
+        rs.append(float(params["rs"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, (t, sp) in enumerate(zip(times, splits)):
+        print(f"[23 train] step {i}: {t:.3f} s = probe launch "
+              f"{sp['probe launch']:.3f} + scan forward "
+              f"{sp['scan forward']:.3f} + backward {sp['backward']:.3f} ms "
+              f"+ the rest; loss {losses[i]:.6g}, rs {rs[i + 2]:.5f}")
+    s_per_step = statistics.median(times)
+    print(f"[23 train] median {s_per_step:.3f} s/step at {FIT_SIZE}^2/"
+          f"{FIT_MAX_STEPS} (remat {FIT_REMAT}, cap {FIT_CAP}, scan "
+          f"{FIT_SCAN_STEPS} iterations); peak memory {peak / 2**30:.3f} GiB; "
+          f"rs {' -> '.join(f'{r:.5f}' for r in rs)}")
+    assert all(np.isfinite(losses)) and losses[-1] < loss0
+    assert all(b > a for a, b in zip(rs, rs[1:])) and rs[-1] <= FIT_TRUE_RS
+
+    # -- 24. the fit CLI on the card, then resumed ----------------------------
+    outs = []
+    with tempfile.TemporaryDirectory() as ck:
+        for steps in (4, 5):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "geodesic_raytracing_tpu_torch.fit",
+                 "--device", "cuda", "--metric", "schwarzschild", "--size",
+                 "32", "--true", "rs=1.1", "--start", "rs=0.9", "--steps",
+                 str(steps), "--checkpoint", ck, "--checkpoint-every", "2"],
+                cwd=ROOT, capture_output=True,
+                text=True, timeout=300)
+            outs.append(run.stdout)
+            print(f"[24 cli] fit --device cuda --steps {steps}: exit "
+                  f"{run.returncode} in {time.perf_counter() - t0:.1f} s; "
+                  + "; ".join(ln.strip() for ln in run.stdout.splitlines()
+                              if ln.startswith(("resumed", "step", "fit"))))
+            assert run.returncode == 0, run.stderr[-2000:]
+    assert "resumed" not in outs[0] and "step   3 loss" in outs[0]
+    assert "resumed from step 4" in outs[1] and "step   4 loss" in outs[1]
+    assert "step   0 loss" not in outs[1]
+
+    med = {w: statistics.median(sp[w] for sp in splits) for w in splits[0]}
+    return {
+        "config": {"metric": "kerr_boyer", "size": FIT_SIZE,
+                   "max_steps": FIT_MAX_STEPS, "remat_every": FIT_REMAT,
+                   "grad_step_cap": FIT_CAP, "grad_hard_cap": hard_cap,
+                   "scan_steps": FIT_SCAN_STEPS},
+        "probe": {"rays": n, "ms": med["probe launch"], "plain_ms": plain_ms,
+                  "trial_iterations": probe["trials"],
+                  "mean_steps": probe["mean_steps"],
+                  "max_steps": probe["max_steps"],
+                  "idle_lane_factor": probe["idle_factor"],
+                  "bound_ms": probe_bound, "bound_by": "operations"
+                  if probe_bound == b_ops else "bytes"},
+        "launches_per_step": 1, "kept_lanes": kept, "scan_vs_probe_err":
+        scan_err, "target_s": target_s, "s_per_step": s_per_step,
+        "step_s": times, "stages_ms": med, "peak_memory_bytes": peak,
+        "losses": losses, "rs": rs, "grad": g, "grad_fd": fd,
+    }, err
+
+
+def geodesic_camera_path(dev, sky) -> dict:
+    """Phase 25: the geodesic camera.  The flagship camera's worldline
+    falling in at 0.3 c is recorded on the card and on the CPU (the same
+    count, positions within GEO_POS_TOL), its tetrad transported and ridden
+    at proper time GEO_TAU; then the adaptive 1920x1080 frame from that
+    camera through ``render_frame`` (a first frame: prepass, quarter and
+    refine launches), and every launch of its 480x270 twin against the
+    plain march.  Returns the row's ``paths.geodesic_camera`` and the
+    largest position difference."""
+    import torch
+    from geodesic_raytracing_tpu_torch import physics
+    from geodesic_raytracing_tpu_torch.bench_config import flagship_config
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.ops import tetrad as tet
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    metric, params, camera, asettings, feats = flagship_config(device=dev)
+    camera = camera._replace(basis_speed=torch.tensor(
+        GEO_SPEED, dtype=torch.float32, device=dev))
+
+    def launch_frame(cam):
+        x0 = pl.camera_to_generic(metric, cam, params)
+        gab = metric.fn(x0, params)
+        es0 = tet.boost_tetrad(tet.frame_basis(gab)[0], cam.basis_speed, gab)
+        return x0, es0
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    x0, es0 = launch_frame(camera)
+    path, record_s = timed(physics.record_geodesic, metric, x0, es0[0],
+                           params, feats, GEO_STEPS)
+    cpu_cam = camera.to("cpu")
+    cx0, ces0 = launch_frame(cpu_cam)
+    t0 = time.perf_counter()
+    cpath = physics.record_geodesic(metric, cx0, ces0[0], params, feats,
+                                    GEO_STEPS)
+    cpu_record_s = time.perf_counter() - t0
+    count, ccount = int(path.count), int(cpath.count)
+    pos_err = float((path.positions.cpu() - cpath.positions).abs().max())
+    print(f"[25 geodesic] {GEO_STEPS}-step recording of the flagship camera "
+          f"at speed {GEO_SPEED}: card {record_s:.3f} s, CPU "
+          f"{cpu_record_s:.3f} s; valid nodes {count} (CPU {ccount}), max "
+          f"|dpos| {pos_err:.3g}, r {float(path.positions[0, 1]):.4f} -> "
+          f"{float(path.positions[count - 1, 1]):.4f}, proper time "
+          f"{float(path.proper_time[count - 1]):.4f}")
+    assert count == ccount and count > 1
+    assert torch.allclose(path.positions.cpu(), cpath.positions,
+                          rtol=GEO_POS_TOL, atol=GEO_POS_TOL)
+    tets, transport_s = timed(physics.parallel_transport_tetrads, metric,
+                              path, es0, params)
+    (pos, _, frame), interp_s = timed(physics.interpolate_camera, path, tets,
+                                      GEO_TAU)
+    assert bool(torch.isfinite(tets).all()) and bool(
+        torch.isfinite(frame).all())
+    gcam = camera.on_geodesic(pos, frame)
+    print(f"[25 geodesic] transport of the tetrad along {count} nodes "
+          f"{transport_s:.3f} s, interpolation at tau {GEO_TAU} "
+          f"{interp_s * 1e3:.3f} ms: position "
+          f"{[round(float(v), 4) for v in pos]}")
+
+    with recorded_launches(integrate, with_opts=True) as launch:
+        raymarch.reset_launch_counts()
+        (img, frame_s) = timed(
+            lambda: pl.render_frame(metric, gcam, params, sky, asettings,
+                                    feats, device=dev))
+        frame_launches = raymarch.launches()
+    del launch
+    assert frame_launches == 3, frame_launches  # prepass, quarter, refine
+    assert tuple(img.shape) == (asettings.height, asettings.width, 3)
+    assert bool(torch.isfinite(img).all())
+    lit = float((img.sum(-1) > 0).float().mean())
+    print(f"[25 geodesic] {asettings.width}x{asettings.height} adaptive frame "
+          f"from the geodesic camera: "
+          f"{frame_s * 1e3:.3f} ms (a first frame), kernel launches "
+          f"{frame_launches}, lit fraction {lit:.4f}")
+    small = dataclasses.replace(asettings, width=GEO_SMALL[0],
+                                height=GEO_SMALL[1])
+    with recorded_launches(integrate, with_opts=True) as launch:
+        pl.render_frame(metric, gcam, params, sky, small, feats, device=dev)
+    assert len(launch) == 3
+    err, plain_ms = launches_vs_plain("[25 geodesic] 480x270 adaptive",
+                                      metric, params, feats, launch)
+    return {"record_steps": GEO_STEPS, "valid_nodes": count,
+            "record_s": record_s, "cpu_record_s": cpu_record_s,
+            "record_pos_err": pos_err, "transport_s": transport_s,
+            "interpolate_ms": interp_s * 1e3, "frame_ms": frame_s * 1e3,
+            "launches": frame_launches, "small_plain_ms": plain_ms}, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one GPU.")
@@ -1151,6 +1506,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
+    t_start = t_last = time.perf_counter()
+
+    def took(phases):
+        """Print the wall time of ``phases`` and of the run so far."""
+        nonlocal t_last
+        now = time.perf_counter()
+        print(f"[time] phase {phases}: {now - t_last:.1f} s (run "
+              f"{now - t_start:.1f} s)")
+        t_last = now
 
     # The flagship settings as they come (the adaptive frame), and their
     # dense twin for the dense path.
@@ -1199,6 +1563,7 @@ def main(argv=None) -> int:
                 for k, v in d["instances"].items()
                 if v["spill_store_bytes"] or v["spill_load_bytes"]]
     print(f"[1 build] instances that spill: {spilling or 'none'}")
+    took("1")
 
     sky = bg.checker_background(device=dev)
 
@@ -1209,34 +1574,20 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return k, p
 
-    # -- 2a. kernel vs plain: the make_rays(64) set --------------------------
+    # -- 2. kernel vs plain: the make_rays(64) set ---------------------------
+    # (4096 of the flagship camera's pixels are held in phase 3, as a sample
+    # of the frame's own launch and then all of it.)
     pos, vel = make_rays(64)
     sa = integrate.init_ray_state(metric, torch.from_numpy(pos).to(dev),
                                   torch.from_numpy(vel).to(dev), params, feats)
     sa.status[::7] = integrate.DEAD
     k, p = kernel_and_plain(sa, 4096)
     st, sp, err_a, close = compare_states(k, p)
-    print(f"[2a rays] 64 rays, max_steps 4096: status equal {st}/64, "
+    print(f"[2 rays] 64 rays, max_steps 4096: status equal {st}/64, "
           f"steps equal {sp}/64, max |dpos| {err_a:.3g}")
     assert st == 64 and sp >= SET_A_MIN_STEPS_EQ and close, (st, sp, err_a)
 
-    # -- 2b. kernel vs plain: 4096 flagship-camera pixels --------------------
-    rng = np.random.default_rng(0)
-    cx = rng.integers(0, settings.width, 4096).astype(np.float32)
-    cy = rng.integers(0, settings.height, 4096).astype(np.float32)
-    position, es = pl.camera_frame(metric, camera, params)
-    sb, _, _ = pl.rays_for_pixels(metric, camera, position, es, params,
-                                  settings, feats,
-                                  torch.from_numpy(cx).to(dev),
-                                  torch.from_numpy(cy).to(dev))
-    k, p = kernel_and_plain(sb, 16384)
-    st, sp, err_b, close = compare_states(k, p)
-    print(f"[2b rays] 4096 flagship pixels, max_steps 16384: status equal "
-          f"{st / 4096:.4f}, steps equal {sp / 4096:.4f}, max |dpos| "
-          f"{err_b:.3g}")
-    assert st >= SET_B_MIN_STATUS_EQ * 4096, st
-    assert sp >= SET_B_MIN_STEPS_EQ * 4096, sp
-    assert close, err_b
+    took("2")
 
     # -- 3. the main path at 1920x1080 ---------------------------------------
     # The frame's own march is recorded (its input and the kernel's output)
@@ -1298,6 +1649,7 @@ def main(argv=None) -> int:
           f"warp per 8x4 pixel tile has {work['idle_tiles']:.4f}, per 32 "
           f"pixels of a row {work['idle_rows']:.4f})")
     del launch, s_in, s_out, k
+    took("3")
 
     # -- 4. kernel frame vs plain frame at 480x270 ---------------------------
     small = dataclasses.replace(settings, width=480, height=270)
@@ -1326,6 +1678,7 @@ def main(argv=None) -> int:
           f"pixels off by >32 {bad:.5f}; trace kernel {small_ms:.3f} ms, "
           f"plain {small_plain_ms:.1f} ms")
     assert rmse < GATE_RMSE and bad < GATE_BAD_FRAC, (rmse, bad)
+    took("4")
 
     # -- 5. timing the 1080p frame -------------------------------------------
     def timed_frame():
@@ -1410,7 +1763,7 @@ def main(argv=None) -> int:
           f"pixels off by >32 {cli_bad:.5f}")
     assert rc == 0 and cli_aimg.shape == (1080, 1920, 3), cli_aimg.shape
     assert SHADOW_RANGE[0] <= cli_black <= SHADOW_RANGE[1], cli_black
-
+    took("5-7")
 
     # -- 8. the adaptive flagship frame at 1920x1080, first and steady --------
     # flagship_config as it comes, a fresh controller, six frames; the first
@@ -1457,10 +1810,12 @@ def main(argv=None) -> int:
     assert [w for _, _, w in recorded[5]] == [960, None]
 
     # -- 9. the adaptive launches at 1080p: work, and the plain twin ----------
-    # The prepass and the refine set (the launch that is no image and holds
-    # rays born DEAD) are marched once more by the plain twin; the quarter
-    # grid is an image launch like the dense frame's, which phase 3 held, and
-    # is held at 480x270 in phase 11 with the other two.
+    # The prepass is marched once more by the plain twin; the quarter grid is
+    # an image launch like the dense frame's, which phase 3 held, and the
+    # refine set (the launch that is no image and holds rays born DEAD) costs
+    # the plain twin 60-70 s at 1080p: both are held at 480x270 in phase 11
+    # with the prepass, and the refine set's kernel output is held to a
+    # second launch here.
     err_ad, first = 0.0, []
     for what, (s_in, s_out, width) in zip(("prepass", "quarter", "refine"),
                                           recorded[0]):
@@ -1469,7 +1824,7 @@ def main(argv=None) -> int:
                            width)
         assert same_bits(lw.pop("state"), s_out)
         del lw["per_ray"]
-        if what == "quarter":
+        if what != "prepass":
             born_dead = born_dead_untouched(s_in, (s_out,))
             print(f"[9 launches] first frame, {what}: {n} rays ({born_dead} "
                   "born DEAD, untouched by the kernel), a second launch on "
@@ -1497,6 +1852,7 @@ def main(argv=None) -> int:
         lw.update(name=what, image_width=width, born_dead=born_dead)
         first.append(lw)
     assert first[0]["born_dead"] == 0 and first[2]["born_dead"] > 0
+    took("8-9")
 
     # -- 10. adaptive against dense at 1080p ---------------------------------
     d = (aimg - dense_img).abs().max(dim=-1).values
@@ -1517,7 +1873,8 @@ def main(argv=None) -> int:
         fk = pl.render_frame(metric, camera, params, sky, asmall, feats,
                              device=dev)
         small_launches = raymarch.launches()
-    with plain_marches(integrate):
+    plain = []
+    with plain_marches(integrate, plain):
         fp = pl.render_frame(metric, camera, params, sky, asmall, feats,
                              device=dev)
     assert small_launches == 3 and raymarch.launches() == 3
@@ -1525,10 +1882,13 @@ def main(argv=None) -> int:
     print(f"[11 gate] 480x270 adaptive frame, kernel vs plain marches: RMSE "
           f"{rmse:.4f}, pixels off by >32 {bad:.5f}")
     assert rmse < GATE_RMSE and bad < GATE_BAD_FRAC, (rmse, bad)
-    for what, (s_in, s_out, _) in zip(("prepass", "quarter", "refine"),
-                                      launch):
-        p = integrate.trace_rays_reference(metric, s_in, params, feats,
-                                           asmall.trace)
+    for what, (s_in, s_out, _), (p_in, p) in zip(
+            ("prepass", "quarter", "refine"), launch, plain):
+        # The plain frame has marched these very rays when its input holds
+        # the same bits as the kernel launch's.
+        if not same_bits(p_in, s_in):
+            p = integrate.trace_rays_reference(metric, s_in, params, feats,
+                                               asmall.trace)
         n = s_in.status.numel()
         born_dead = born_dead_untouched(s_in, (s_out, p))
         st, sp, err, close = compare_states(s_out, p)
@@ -1540,7 +1900,8 @@ def main(argv=None) -> int:
         assert sp >= SET_B_MIN_STEPS_EQ * n, sp
         assert close, err
         err_ad = max(err_ad, err)
-    del launch, p
+    del launch, plain, p
+    took("10-11")
 
     # -- 12. a steady adaptive frame never waits for the device --------------
     torch.cuda.synchronize()
@@ -1655,14 +2016,27 @@ def main(argv=None) -> int:
         profile_frame(timed_frame, sum(totals) / len(totals), "dense")
         profile_frame(adaptive_frame, steady_total, "adaptive")
     del recorded
+    took("12-13")
 
     # -- 14-19. the second path ------------------------------------------------
     instance_err = check_instances(dev)
+    took("14")
     options_err = check_step_options(dev)
+    took("15")
     schw = second_path(dev, sky)
+    took("16")
     planar = planar_vs_4d(dev, sky)
+    took("17")
     goldens = golden_scenes(dev)
+    took("18")
     per_metric = every_metric_dense(dev, sky)
+    took("19")
+
+    # -- 20-25. the third path -------------------------------------------------
+    fit_row, fit_err = fit_path(dev)
+    took("20-24")
+    geo_row, geo_err = geodesic_camera_path(dev, sky)
+    took("25")
 
     def instance_row(mname):
         """The row of one of the seven new instances: ms, plain_ms and
@@ -1707,8 +2081,8 @@ def main(argv=None) -> int:
         "source": "geodesic_raytracing_tpu_torch/csrc/raymarch.cu",
         "replaces": "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488",
         "launches": launches,
-        "max_abs_err": max(err_a, err_b, err_f, err_ad,
-                           instance_err["kerr_boyer"]),
+        "max_abs_err": max(err_a, err_f, err_ad,
+                           fit_err, geo_err),
         # Of the main path's launch, the 1080p frame's 2,073,600 rays.
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1742,6 +2116,10 @@ def main(argv=None) -> int:
                                 steady_total, "stages_ms": steady[-1][1],
                                 "bench_mrays": adaptive_mrays,
                                 "launch": steady_rows, "refine_sort": sort},
+            # The train step's probe (one launch a step) and the fit.
+            "fit": fit_row,
+            # A first adaptive frame from the camera on its geodesic.
+            "geodesic_camera": geo_row,
         },
     }, *(instance_row(m) for m in sorted(per_metric))]}
     print(json.dumps(table))

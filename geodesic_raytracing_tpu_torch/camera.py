@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -70,6 +71,42 @@ def rot_quat_batched(v3: Tensor, q: Tensor) -> Tensor:
     ])
 
 
+@functools.lru_cache(maxsize=None)
+def focal_length(width: int, fov_degrees: float, device) -> Tensor:
+    """Focal length in pixels, a 0-d tensor on ``device`` (kept, so that a
+    frame uploads nothing)."""
+    fov_rad = fov_degrees * math.pi / 180.0
+    return (width / 2) / torch.tan(
+        torch.tensor(fov_rad / 2, dtype=torch.float32, device=device))
+
+
+def directions_for_pixels(cx: Tensor, cy: Tensor, width: int, height: int,
+                          quat: Tensor, fov_degrees: float) -> Tensor:
+    """Camera-space ray directions of flat pixel coordinates ``cx``/``cy``
+    of the width x height image, rotated by the camera quaternion
+    (``calculate_pixel_direction`` cl.cl:2044-2061).  Returns (3, N)."""
+    f_stop = focal_length(width, fov_degrees, cx.device)
+    dx = cx - width / 2.0
+    dy = cy - height / 2.0
+    dz = f_stop.expand(cx.shape)
+    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
+    return rot_quat_batched(torch.stack([dx * inv, dy * inv, dz * inv]),
+                            quat)
+
+
+def pixel_directions(width: int, height: int, quat: Tensor,
+                     fov_degrees: float) -> Tensor:
+    """Per-pixel ray directions of the row-major width x height image
+    (:func:`directions_for_pixels` of every pixel).  Returns (H, W, 3)."""
+    dev = quat.device
+    yy, xx = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev),
+        torch.arange(width, dtype=torch.float32, device=dev), indexing="ij")
+    d = directions_for_pixels(xx.reshape(-1), yy.reshape(-1), width, height,
+                              quat, fov_degrees)
+    return d.T.reshape(height, width, 3)
+
+
 def _orthonormalise3(v1: Tensor, v2: Tensor, v3: Tensor):
     """Euclidean Gram-Schmidt of 3 3-vectors."""
     u1 = v1 / torch.sqrt(dot(v1, v1))
@@ -129,11 +166,17 @@ def observer_tetrad(metric: Metric, position: Tensor, params,
 
 class Camera(NamedTuple):
     """Camera state: polar position (t, r, theta, phi), orientation
-    quaternion and tetrad-frame observer 3-velocity (float32 tensors)."""
+    quaternion and tetrad-frame observer 3-velocity (float32 tensors).
+
+    ``frame_override`` attaches the camera to a recorded geodesic: a
+    ``(generic position (4,), tetrad (4, 4))`` pair (from
+    ``physics.interpolate_camera``) used as it is instead of the
+    static-observer construction."""
 
     polar_position: Tensor
     quat: Tensor
     basis_speed: Tensor
+    frame_override: tuple | None = None
 
     @classmethod
     def default(cls, *, device) -> "Camera":
@@ -144,7 +187,16 @@ class Camera(NamedTuple):
         )
 
     def to(self, device) -> "Camera":
-        return Camera(*(t.to(device) for t in self))
+        override = self.frame_override
+        if override is not None:
+            override = tuple(t.to(device) for t in override)
+        return Camera(self.polar_position.to(device), self.quat.to(device),
+                      self.basis_speed.to(device), override)
+
+    def on_geodesic(self, position: Tensor, tetrad: Tensor) -> "Camera":
+        """Attach to a geodesic frame (the reference's "Snapshot Camera
+        Geodesic" flow, main.cpp:2675-2759)."""
+        return self._replace(frame_override=(position, tetrad))
 
     def rotate(self, yaw=0.0, pitch=0.0, roll=0.0) -> "Camera":
         """Local-axis rotation, matching camera::rotate (main.cpp:686-699)."""

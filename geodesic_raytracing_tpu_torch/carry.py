@@ -29,13 +29,15 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def camera_from_jax(camera, *, device) -> Camera:
-    """The reference's ``Camera`` -> the port's (the geodesic-camera
-    ``frame_override`` is not ported yet and must be None)."""
-    if getattr(camera, "frame_override", None) is not None:
-        raise NotImplementedError("geodesic-camera frames are not ported yet")
+    """The reference's ``Camera`` -> the port's, with its geodesic-camera
+    ``frame_override`` (position, tetrad) when it has one."""
+    override = getattr(camera, "frame_override", None)
+    if override is not None:
+        override = tuple(_f32(t, device) for t in override)
     return Camera(polar_position=_f32(camera.polar_position, device),
                   quat=_f32(camera.quat, device),
-                  basis_speed=_f32(camera.basis_speed, device))
+                  basis_speed=_f32(camera.basis_speed, device),
+                  frame_override=override)
 
 
 def background_from_jax(bgr, *, device) -> Background:

@@ -5,6 +5,9 @@ Usage:
         --width 1920 --height 1080 --pitch -90 --device cuda --out kerr.png
     python -m geodesic_raytracing_tpu_torch.cli --metric schwarzschild \
         --adaptive --redshift --pitch -90 --device cuda --out schw.png
+    python -m geodesic_raytracing_tpu_torch.cli --metric kerr_boyer \
+        --speed -0.3 0 0 --geodesic-camera 2 --adaptive --width 1920 \
+        --height 1080 --pitch -90 --device cuda --out infall.png
     python -m geodesic_raytracing_tpu_torch.cli --bench kerr_boyer --frames 5
     python -m geodesic_raytracing_tpu_torch.cli --list
 
@@ -106,6 +109,28 @@ def read_png(path) -> np.ndarray:
     return out.astype(np.uint8).reshape(h, w, bpp)[..., :3]
 
 
+def geodesic_camera(metric, cam, params, tau: float, n_steps: int = 4096):
+    """The reference's "Snapshot Camera Geodesic" (main.cpp:2675-2759):
+    record the observer's worldline from the camera state (the static frame
+    boosted by the camera's 3-velocity), transport that tetrad along it and
+    attach the camera at proper time ``tau``."""
+    from .ops import tetrad as tet
+    from .ops.integrate import Features
+    from .physics import (interpolate_camera, parallel_transport_tetrads,
+                          record_geodesic)
+    from .render.pipeline import camera_to_generic
+
+    x0 = camera_to_generic(metric, cam, params)
+    gab = metric.fn(x0, params)
+    es0, _ = tet.frame_basis(gab)
+    es0 = tet.boost_tetrad(es0, cam.basis_speed, gab)
+    path = record_geodesic(metric, x0, es0[0], params,
+                           Features.for_metric(metric), n_steps=n_steps)
+    tets = parallel_transport_tetrads(metric, path, es0, params)
+    pos, _, frame = interpolate_camera(path, tets, tau)
+    return cam.on_geodesic(pos, frame)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--metric", default="kerr_boyer")
@@ -149,6 +174,12 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive", action="store_true",
                     help="adaptive sampling: quarter-density trace + "
                          "error-driven refinement (reference default)")
+    ap.add_argument("--geodesic-camera", type=float, default=None,
+                    metavar="TAU",
+                    help="ride the camera's geodesic: record the observer's "
+                         "worldline from the camera state (4096 steps), "
+                         "transport its tetrad and render from proper time "
+                         "TAU")
     ap.add_argument("--max-steps", type=int, default=16384)
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -184,6 +215,10 @@ def main(argv=None) -> int:
     if args.pitch or args.yaw or args.roll:
         cam = cam.rotate(yaw=args.yaw * d2r, pitch=args.pitch * d2r,
                          roll=args.roll * d2r)
+    if args.geodesic_camera is not None:
+        cam = geodesic_camera(metric, cam, params, args.geodesic_camera)
+        print(f"geodesic camera: tau={args.geodesic_camera:g} pos="
+              f"{np.round(cam.frame_override[0].cpu().numpy(), 3).tolist()}")
     backgrounds = bg.checker_background(device=device)
     settings = RenderSettings(
         width=args.width, height=args.height, fov_degrees=args.fov,

@@ -69,6 +69,7 @@ class _Arctan2(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_forward(*inputs)
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def jvp(ctx, dy, dx):
@@ -76,10 +77,19 @@ class _Arctan2(torch.autograd.Function):
         d = torch.clamp(x * x + y * y, min=1e-37)
         return (x * dy - y * dx) / d
 
+    @staticmethod
+    def backward(ctx, g):
+        # The transpose of the tangent rule, as jax.grad forms it: the
+        # cotangent divided by d, then times x for y and times -y for x.
+        y, x = ctx.saved_tensors
+        gd = g / torch.clamp(x * x + y * y, min=1e-37)
+        return (x * gd).sum_to_size(y.shape), (y * -gd).sum_to_size(x.shape)
+
 
 def arctan2(y: Tensor, x: Tensor) -> Tensor:
     """The reference's polynomial atan2 (numpy quadrant conventions) with
-    the exact tangent ``(x dy - y dx) / (x^2 + y^2)`` (forward mode only)."""
+    the exact derivative ``(x dy - y dx) / (x^2 + y^2)`` in forward and
+    reverse mode."""
     return _Arctan2.apply(y, x)
 
 

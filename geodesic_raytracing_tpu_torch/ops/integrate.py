@@ -1,10 +1,13 @@
 """The geodesic integrator: adaptive-step velocity Verlet over ray batches
 (port of ``geodesic_raytracing_tpu.ops.integrate``).
 
-``trace_rays`` dispatches on the device of the state: CUDA tensors go to the
-hand-written ray-march kernel (``ops.raymarch.trace_rays_cuda``), which
-launches or raises; CPU tensors go to ``trace_rays_reference``, the eager
-port of the reference's ``while`` driver and the kernel's plain twin.
+``trace_rays`` has the reference's two drivers.  ``method="while"``
+dispatches on the device of the state: CUDA tensors go to the hand-written
+ray-march kernel (``ops.raymarch.trace_rays_cuda``), which launches or
+raises; CPU tensors go to ``trace_rays_reference``, the eager port of the
+reference's ``while`` driver and the kernel's plain twin.  ``method="scan"``
+is the differentiable fixed-length march with recomputed windows, in eager
+torch on whatever device the state is on.
 
 Status codes: 0 = active, 1 = escaped (samples the sky), 2 = dead (black).
 """
@@ -16,6 +19,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..metrics.base import Metric
 from . import geometry
@@ -58,18 +62,24 @@ class Features(NamedTuple):
 class TraceOptions:
     """Trace options: the iteration budget, the integrator ("verlet" or
     "euler"), affine reparameterisation (K = 1/max|v'| after every Verlet
-    step) and constant-theta planar mode (set by the render pipeline for a
+    step), constant-theta planar mode (set by the render pipeline for a
     spherically symmetric metric, whose rays it first rotates into the
-    equator)."""
+    equator), the driver (``method``: "while", the march to termination, or
+    "scan", the differentiable fixed-length march) and the scan's
+    recomputation window (``remat_every`` iterations)."""
 
     max_steps: int = MAX_STEPS_DEFAULT
     reparameterisation: bool = False
     integrator: str = "verlet"
+    method: str = "while"
     planar: bool = False
+    remat_every: int = 128
 
     def __post_init__(self):
         if self.integrator not in ("verlet", "euler"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
+        if self.method not in ("while", "scan"):
+            raise ValueError(f"unknown trace method {self.method!r}")
 
 
 class RayState(NamedTuple):
@@ -176,16 +186,19 @@ def initial_next_ds(metric: Metric, features: Features, acc: Tensor) -> Tensor:
 
 
 def init_ray_state(metric: Metric, position: Tensor, velocity: Tensor, params,
-                   features: Features) -> RayState:
+                   features: Features, fix_null_velocity: bool = True
+                   ) -> RayState:
     """Initial RayState from (N, 4) positions/velocities: null-fix the
-    velocity, compute the launch acceleration, seed the adaptive step."""
+    velocity (unless ``fix_null_velocity`` is False, as for a timelike
+    geodesic), compute the launch acceleration, seed the adaptive step."""
     pos = position.T.contiguous()
     vel = velocity.T.contiguous()
     n = pos.shape[1]
-    gab = metric.fn(pos, params)
-    if gab.ndim == 2:  # constant metric: add a broadcast batch axis
-        gab = gab[..., None]
-    vel = geometry.fix_null_batched(gab, vel)
+    if fix_null_velocity:
+        gab = metric.fn(pos, params)
+        if gab.ndim == 2:  # constant metric: add a broadcast batch axis
+            gab = gab[..., None]
+        vel = geometry.fix_null_batched(gab, vel)
     acc = metric_acceleration(metric, pos, vel, params)
     next_ds = initial_next_ds(metric, features, acc)
     dev = pos.device
@@ -200,11 +213,13 @@ def init_ray_state(metric: Metric, position: Tensor, velocity: Tensor, params,
     )
 
 
-def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
+def make_step_fn(metric: Metric, features: Features, opts: TraceOptions,
+                 with_ds: bool = False):
     """One masked integrator iteration over a component-first ray batch,
     term for term the reference's ``make_step_fn``, every branch of it.
     ``f_in_x`` is the launch-time |v^t| of each ray (the blow-up test's
-    baseline)."""
+    baseline).  With ``with_ds`` the step also returns the committed step
+    sizes (0 where nothing committed), for the geodesic recorder."""
     cfg = metric.config
     w_v = metric.precision_weights()
     udiv = float(max(w_v))
@@ -312,7 +327,7 @@ def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
             next_ds = torch.where(active, cand, next_ds)
 
         cm = commit[None, :]
-        return _StateT(
+        out = _StateT(
             position=torch.where(cm, npos, pos),
             velocity=torch.where(cm, nvel, vel),
             acceleration=torch.where(cm, nacc, acc),
@@ -321,6 +336,9 @@ def make_step_fn(metric: Metric, features: Features, opts: TraceOptions):
             status=status,
             steps=state.steps + commit.to(torch.int32),
         )
+        if with_ds:
+            return out, torch.where(commit, ds, 0.0)
+        return out
 
     return step
 
@@ -369,17 +387,79 @@ def trace_rays_reference(metric: Metric, state: RayState, params,
                     full.running_dlambda_dnew, full.status, full.steps)
 
 
+def trace_rays_scan(metric: Metric, state: RayState, params,
+                    features: Features = Features(),
+                    opts: TraceOptions = TraceOptions()) -> RayState:
+    """The reference's differentiable driver (``method="scan"``): a fixed
+    ``outer_n * inner_n`` trial iterations over ALL rays, with ``inner_n =
+    min(remat_every, max_steps)`` and ``outer_n = ceil(max_steps /
+    inner_n)``, so up to ``inner_n - 1`` more than ``max_steps``, as the
+    reference's nested scan.  Finished rays take no-op iterations through the
+    step's own masks (a DEAD or ESCAPED ray steps with ds = 0 and never
+    commits), so the final state equals the ``while`` driver's wherever that
+    one ran to the end; nothing waits for the device.
+
+    With grad enabled each window of ``inner_n`` iterations runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward pass keeps only
+    the window boundaries and recomputes one window at a time, the
+    reference's ``jax.checkpoint`` on its outer scan body.  The returned
+    tensors carry the autograd graph back to ``params`` (tensors that
+    require grad) and to ``state``.  This driver never calls the CUDA
+    kernel, which is forward-only as the reference's Pallas kernel is: on a
+    GPU it runs as eager torch ops, the reference's own XLA path."""
+    st = _StateT(state.position.T, state.velocity.T, state.acceleration.T,
+                 state.next_ds, state.running_dlambda_dnew, state.status,
+                 state.steps)
+    # Only compared with, never differentiated.
+    f_in_x = torch.abs(st.velocity[0]).detach()
+    step = make_step_fn(metric, features, opts)
+    inner_n = min(opts.remat_every, opts.max_steps)
+    outer_n = -(-opts.max_steps // inner_n)
+
+    def window(*s):
+        s = _StateT(*s)
+        for _ in range(inner_n):
+            s = step(s, f_in_x, params)
+        return tuple(s)
+
+    s = tuple(st)
+    for _ in range(outer_n):
+        if torch.is_grad_enabled():
+            s = torch.utils.checkpoint.checkpoint(window, *s,
+                                                  use_reentrant=False)
+        else:
+            s = window(*s)
+    s = _StateT(*s)
+    return RayState(s.position.T, s.velocity.T, s.acceleration.T, s.next_ds,
+                    s.running_dlambda_dnew, s.status, s.steps)
+
+
 def trace_rays(metric: Metric, state: RayState, params,
                features: Features = Features(),
                opts: TraceOptions = TraceOptions(),
                image_width: int | None = None) -> RayState:
     """March every ray to termination or the step limit.
 
-    A state on a CUDA device runs the hand-written ray-march kernel, which
-    launches or raises; a state on the CPU runs the eager reference.
+    ``opts.method``:
+
+    * ``"while"``: a state on a CUDA device runs the hand-written ray-march
+      kernel, which launches or raises (never eager torch); a state on the
+      CPU runs the eager reference.  Not differentiable: with grad enabled,
+      a state or parameter tensor that requires grad raises (a kernel
+      launch would silently cut the graph).
+    * ``"scan"``: :func:`trace_rays_scan`, reverse-differentiable with
+      respect to ``params`` and the launch state, on the state's device.
+
     ``image_width``: the rays are the pixels of a row-major image of this
     width, which lets the kernel group them by pixel tile; it changes no
     result."""
+    if opts.method == "scan":
+        return trace_rays_scan(metric, state, params, features, opts)
+    if torch.is_grad_enabled() and any(
+            isinstance(t, Tensor) and t.requires_grad
+            for t in (*state, *params.values())):
+        raise ValueError("trace_rays: the 'while' driver is not "
+                         "differentiable; use TraceOptions(method='scan')")
     if state.position.is_cuda:
         from .raymarch import trace_rays_cuda
 

@@ -331,6 +331,12 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     consecutive rays); the result is the same either way."""
     check_compiled_metric(metric)
     _, param_names = INSTANCES[metric.name]
+    if any(isinstance(params[k], torch.Tensor) and params[k].requires_grad
+           for k in param_names):
+        # The kernel is forward-only: it takes the parameters as host
+        # floats, and a gradient through them would be lost without a word.
+        raise ValueError("trace_rays_cuda: a parameter requires grad; the "
+                         "kernel takes detached host floats")
 
     n = state.position.shape[0]
     width = 0 if image_width is None else int(image_width)

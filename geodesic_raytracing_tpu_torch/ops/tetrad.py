@@ -24,6 +24,27 @@ def _dot_g_b(gab, u, v):
     return out
 
 
+def _gram_schmidt_metric(vs: Tensor, gab: Tensor) -> Tensor:
+    """Metric Gram-Schmidt of the 4 row vectors ``vs[i]`` (cl.cl:1645-1674):
+    g-inner products, each leg divided by sqrt(|g(u, u)|), so a timelike
+    leg normalises to g(u, u) = -1.  ``vs`` (4, 4), ``gab`` (4, 4)."""
+    def dot_g(u, v):  # one reduction, not 16 products: a node is eager ops
+        return torch.sum(gab * u[:, None] * v[None, :])
+
+    def proj(u, v):
+        return (dot_g(u, v) / dot_g(u, u)) * u
+
+    u0 = vs[0]
+    u1 = vs[1] - proj(u0, vs[1])
+    u2 = vs[2] - proj(u0, vs[2]) - proj(u1, vs[2])
+    u3 = vs[3] - proj(u0, vs[3]) - proj(u1, vs[3]) - proj(u2, vs[3])
+
+    def norm(u):
+        return u / torch.sqrt(torch.abs(dot_g(u, u)))
+
+    return torch.stack([norm(u0), norm(u1), norm(u2), norm(u3)])
+
+
 def _swap0_batched(arr, j):
     """Swap row 0 with per-item row ``j``: arr (4, N), j (N,) int."""
     ridx = torch.arange(4, device=arr.device).reshape(4, 1)

@@ -105,7 +105,14 @@ def camera_to_generic(metric: Metric, camera: cam.Camera, params) -> Tensor:
 
 
 def camera_frame(metric: Metric, camera: cam.Camera, params):
-    """Generic camera position + oriented, boosted observer tetrad."""
+    """Generic camera position + oriented, boosted observer tetrad.
+
+    A camera riding a recorded geodesic (``frame_override``) supplies its
+    interpolated position and tetrad directly
+    (handle_interpolating_geodesic cl.cl:2738-2872) and skips the
+    static-observer construction."""
+    if camera.frame_override is not None:
+        return camera.frame_override
     position = camera_to_generic(metric, camera, params)
     es = cam.observer_tetrad(metric, position, params,
                              basis_speed3=camera.basis_speed, orient=True)
@@ -116,15 +123,6 @@ def _trace_sign(metric: Metric) -> float:
     """Backwards-in-affine-time tracing unless the metric follows
     geodesics forward (cl.cl:3196-3206)."""
     return 1.0 if metric.config.follow_geodesics_forward else -1.0
-
-
-@functools.lru_cache(maxsize=None)
-def _f_stop(width: int, fov_degrees: float, device) -> Tensor:
-    """Focal length in pixels, a 0-d tensor on ``device`` (kept, so that a
-    frame uploads nothing)."""
-    fov_rad = fov_degrees * math.pi / 180.0
-    return (width / 2) / torch.tan(
-        torch.tensor(fov_rad / 2, dtype=torch.float32, device=device))
 
 
 def _grid_coords(w: int, h: int, step: float, device):
@@ -146,15 +144,19 @@ def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
     every ray is rotated into the equatorial plane (``correct_lightray``).
     Returns ``(state, ku_uobsu, inv_quat)`` (inv_quat None unless
     planar)."""
-    W, H = settings.width, settings.height
-    f_stop = _f_stop(W, settings.fov_degrees, cx.device)
-    dx = cx - W / 2.0
-    dy = cy - H / 2.0
-    dz = f_stop.expand(cx.shape)
-    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
-    dirs = cam.rot_quat_batched(torch.stack([dx * inv, dy * inv, dz * inv]),
-                                camera.quat)  # (3, N)
+    dirs = cam.directions_for_pixels(cx, cy, settings.width,
+                                     settings.height, camera.quat,
+                                     settings.fov_degrees)
+    return rays_for_directions(metric, position, es, params, features, dirs,
+                               planar)
 
+
+def rays_for_directions(metric: Metric, position, es, params,
+                        features: Features, dirs: Tensor,
+                        planar: bool = False):
+    """Null rays along the camera-space directions ``dirs`` (3, N) from the
+    observer at ``position`` with tetrad ``es``: ``rays_for_pixels`` after
+    its pixel directions.  Returns ``(state, ku_uobsu, inv_quat)``."""
     sign = _trace_sign(metric)
     velocity = (
         dirs[0][:, None] * es[1][None, :]
@@ -593,12 +595,13 @@ class RefineBudgetController:
 
 def _stream_key(camera, params, features) -> tuple:
     """Cheap identity key of a frame stream: tensors compare by object id
-    (reading one back would wait for the device), scalars by value.  A frame
-    loop that reuses its camera / params / features objects gets the
+    (reading one back would wait for the device), scalars by value; a
+    geodesic camera's ``frame_override`` by the ids of its two tensors.  A
+    frame loop that reuses its camera / params / features objects gets the
     steady-state prepass reuse; one that rebuilds them every frame re-runs
     the prepass: conservative, never wrong."""
-    leaves = (*camera, *(x for kv in sorted(params.items()) for x in kv),
-              *features)
+    leaves = (*camera[:3], *(camera.frame_override or (None,)),
+              *(x for kv in sorted(params.items()) for x in kv), *features)
     return tuple(id(x) if isinstance(x, torch.Tensor) else x for x in leaves)
 
 
@@ -1075,3 +1078,56 @@ def render_frame(metric: Metric, camera: cam.Camera, params,
     rdata = compute_render_data(metric, final, ku, params, features,
                                 inv_quat=iquat)
     return shade(rdata, backgrounds.to(device), settings)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable path
+# ---------------------------------------------------------------------------
+
+def grad_safe_final(metric: Metric, launch: RayState, final: RayState,
+                    params, features: Features, step_cap: int = 512):
+    """Differentiation-safe final state and its consumed-pixel mask.
+
+    Two reverse-mode hazards are kept out of the gradient:
+
+    * rays that stop at the horizon or terminator end where the metric is
+      singular (Kerr's ``g_rr`` is infinite at ``D = 0``): render data
+      evaluated there holds inf, and inf times a zero cotangent is NaN in
+      the summed parameter gradient, though the pixel is masked out of the
+      loss;
+    * rays winding many photon-sphere orbits (``steps > step_cap``): their
+      tangents grow like e^(2 pi) an orbit and overflow float32 in the
+      backward pass.
+
+    Every lane that is not consumed (escaped, on the far half of the
+    universe sphere, at most ``step_cap`` committed steps) gets its LAUNCH
+    position, velocity and acceleration (a regular point).  Returns
+    ``(final_sane, consumed)``; a loss masks its pixels by ``consumed``.
+    The forward frame does not use this: the near-horizon and photon-ring
+    pixels are part of the image."""
+    polar_r = torch.abs(metric.to_polar(final.position.T, params)[1])
+    consumed = ((final.status == integrate.ESCAPED)
+                & (polar_r >= 0.5 * features.universe_size)
+                & (final.steps <= step_cap))
+    m = consumed[:, None]
+    sane = final._replace(
+        position=torch.where(m, final.position, launch.position),
+        velocity=torch.where(m, final.velocity, launch.velocity),
+        acceleration=torch.where(m, final.acceleration, launch.acceleration))
+    return sane, consumed
+
+
+def trace_frame(metric: Metric, camera: cam.Camera, params,
+                settings: RenderSettings, features: Features | None = None,
+                *, device):
+    """Trace only (no shading), in the physical frame (planar off), with
+    ``settings.trace`` as it is.  Returns ``(final RayState, ku_uobsu)``."""
+    device = check_device(device)
+    if features is None:
+        features = Features.for_metric(metric)
+    nsettings = dataclasses.replace(settings, planar=False)
+    state, ku, _ = init_camera_rays(metric, camera, params, nsettings,
+                                    features, device=device)
+    final = integrate.trace_rays(metric, state, params, features=features,
+                                 opts=settings.trace)
+    return final, ku

@@ -71,11 +71,17 @@ def test_camera_carry():
     jc = JCamera.default().rotate(pitch=-np.pi / 2)
     tc = Camera.default(device="cpu").rotate(pitch=-math.pi / 2)
     carried = carry.camera_from_jax(jc, device="cpu")
-    for a, b in zip(carried, tc):
+    assert carried.frame_override is None and tc.frame_override is None
+    for a, b in zip(carried[:3], tc[:3]):
         assert a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
                                    atol=1e-7)
     np.testing.assert_array_equal(carried.quat.numpy(), np.asarray(jc.quat))
+    # A camera on a geodesic carries its (position, tetrad) frame.
+    pos, tet = np.arange(4, dtype=np.float32), np.eye(4, dtype=np.float32)
+    on = carry.camera_from_jax(jc.on_geodesic(pos, tet), device="cpu")
+    np.testing.assert_array_equal(on.frame_override[0].numpy(), pos)
+    np.testing.assert_array_equal(on.frame_override[1].numpy(), tet)
 
 
 @pytest.mark.parametrize("name", sorted(tmetrics.REGISTRY))

@@ -134,3 +134,69 @@ def test_camera_rotate_and_arctan2():
     np.testing.assert_allclose(
         _np(tgeo.arctan2(torch.from_numpy(y), torch.from_numpy(x))),
         _np(jgeo.arctan2(jnp.asarray(y), jnp.asarray(x))), **TIGHT)
+
+
+def _arctan2_points():
+    """Points in all four quadrants, on both axes, at the origin and with
+    |y/x| around 1 (the polynomial's reduction boundary)."""
+    rng = np.random.default_rng(4)
+    y = np.concatenate([rng.normal(size=32), [0.0, 1.0, -1.0, 0.0, 0.0],
+                        [1.0, -1.0, 1.0001, -0.9999, 2.0, -3.0]])
+    x = np.concatenate([rng.normal(size=32), [0.0, 0.0, 0.0, -2.0, 3.0],
+                        [1.0, 1.0, -1.0, -1.0, 2.0000002, -3.0]])
+    return y.astype(np.float32), x.astype(np.float32)
+
+
+def test_arctan2_reverse_mode_matches_jax_grad():
+    """``arctan2``'s reverse rule is the transpose of its exact tangent, as
+    ``jax.grad`` forms it from the reference's ``defjvp``: the gradient of a
+    weighted sum, d/dy and d/dx, equals JAX's bit for bit in float32 (TIGHT
+    bounds it), the origin included (d clamped to 1e-37 gives 0)."""
+    import jax
+
+    y, x = _arctan2_points()
+    w = np.random.default_rng(5).normal(size=y.shape).astype(np.float32)
+    jg = jax.grad(lambda a, b: jnp.sum(jgeo.arctan2(a, b) * w),
+                  argnums=(0, 1))(jnp.asarray(y), jnp.asarray(x))
+    ty = torch.from_numpy(y).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    tg = torch.autograd.grad(
+        torch.sum(tgeo.arctan2(ty, tx) * torch.from_numpy(w)), (ty, tx))
+    for t, j in zip(tg, jg):
+        assert np.isfinite(_np(t)).all()
+        np.testing.assert_allclose(_np(t), _np(j), **TIGHT)
+    # A scalar y against a batch of x: the gradient sums over the broadcast.
+    ty0 = torch.tensor(0.7, requires_grad=True)
+    g0, = torch.autograd.grad(torch.sum(tgeo.arctan2(ty0, tx.detach())), ty0)
+    j0 = jax.grad(lambda a: jnp.sum(jgeo.arctan2(a, jnp.asarray(x))))(
+        jnp.float32(0.7))
+    np.testing.assert_allclose(float(g0), float(j0), **TIGHT)
+
+
+def test_arctan2_reverse_over_forward_matches_jax():
+    """The integrator differentiates its charts in forward mode and the fit
+    takes the gradient of that in reverse: the reverse pass of
+    ``torch.func.jvp(arctan2)``'s tangent equals ``jax.grad`` of
+    ``jax.jvp``'s."""
+    import jax
+
+    y, x = _arctan2_points()
+    rng = np.random.default_rng(6)
+    dy, dx, w = (rng.normal(size=y.shape).astype(np.float32)
+                 for _ in range(3))
+
+    def jloss(a, b):
+        _, t = jax.jvp(jgeo.arctan2, (a, b), (jnp.asarray(dy),
+                                              jnp.asarray(dx)))
+        return jnp.sum(t * w)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(y), jnp.asarray(x))
+    ty = torch.from_numpy(y).requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    _, tt = torch.func.jvp(tgeo.arctan2, (ty, tx), (torch.from_numpy(dy),
+                                                     torch.from_numpy(dx)))
+    tg = torch.autograd.grad(torch.sum(tt * torch.from_numpy(w)), (ty, tx))
+    # Away from the origin, where 1/d^2 overflows float32 in both.
+    ok = (x * x + y * y) > 1e-6
+    for t, j in zip(tg, jg):
+        np.testing.assert_allclose(_np(t)[ok], _np(j)[ok], **LOOSE)

@@ -25,7 +25,9 @@ def test_port_imports_without_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         pkg.__path__, pkg.__name__ + "."))
     for new in ("cli", "ops.planar", "metrics.catalogue_simple",
-                "render.colour", "render.cie1931_data", "carry"):
+                "render.colour", "render.cie1931_data", "carry", "fit",
+                "parallel", "parallel.mesh", "physics", "physics.geodesics",
+                "utils", "utils.checkpoint"):
         assert f"geodesic_raytracing_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -185,3 +187,27 @@ def test_select_refine_blocks_refuses_seam_rows():
         pl._select_refine_blocks(qg, settings, 8, seam_rows=(2,))
     should, sel, dest = pl._select_refine_blocks(qg, settings, 8)
     assert sel.shape == (8,) and dest.shape == (24,)
+
+
+def test_while_driver_refuses_tensors_that_require_grad():
+    """The ``while`` driver is not differentiable (on the card it is the
+    forward-only kernel): a parameter or state that requires grad raises
+    with grad enabled instead of cutting the graph, and the kernel wrapper
+    refuses such a parameter before it looks at the tensors."""
+    m, st = _small_state()
+    feats = integrate.Features.for_metric(m)
+    opts = integrate.TraceOptions(max_steps=8)
+    p = {k: torch.tensor(v, requires_grad=True) for k, v in m.params().items()}
+    with pytest.raises(ValueError, match="not differentiable"):
+        integrate.trace_rays(m, st, p, feats, opts)
+    with pytest.raises(ValueError, match="not differentiable"):
+        integrate.trace_rays(m, st._replace(
+            position=st.position.clone().requires_grad_()), m.params(),
+            feats, opts)
+    with torch.no_grad():
+        fin = integrate.trace_rays(m, st, p, feats, opts)
+    assert int(fin.steps.max()) <= 8
+    with pytest.raises(ValueError, match="requires grad"):
+        raymarch.trace_rays_cuda(m, st, p, feats, opts)
+    with pytest.raises(ValueError, match="unknown trace method"):
+        integrate.TraceOptions(method="pallas")
