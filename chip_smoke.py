@@ -7,30 +7,35 @@ Builds the ray-march kernel from ``geodesic_raytracing_tpu_torch/csrc`` (one
 library per metric instance, all at once), checks it against its plain
 eager-torch twin on the card, drives the port's main paths through
 ``render_frame`` at 1920x1080 ``kerr_boyer``: the dense frame (one launch,
-its rays marched once more by the plain twin) and the adaptive flagship frame
-of ``flagship_config`` as it comes (prepass, quarter grid and refinement:
-three launches in a first frame, two in a steady one; the first frame's
-prepass launch and each launch of the 480x270 frame marched once more by the
-plain twin).  It counts each launch's work (steps, trial iterations, idle
-lanes), holds the kernel's time against its bound, holds the adaptive frame
-against the dense one and the kernel frames against the plain frames at
-480x270, checks that a steady adaptive frame never waits for the device,
-times both frames stage by stage, and runs the CLI on the card.  Then the
-second path: the seven other kernel instances (4-D and planar) and the
-step options (Euler, reparameterisation) against the plain march; the
-``schwarzschild`` frame in planar mode at 1920x1080, adaptive and dense, its
-dense, quarter and refine launches and each launch of its 480x270 twin
-against the plain march; planar against 4-D; the 128x128 golden scenes of the
-seven new metrics and ``kerr_redshift``; and a dense 1080p frame of every
-metric through ``render_frame``, its launch against the plain march.  Then
-the third path: the differentiable fit at ``scripts/fit_bench.py``'s size
-(``kerr_boyer`` 256x256, a 2048-step budget, an 896-iteration scan in windows
-of 128): its target, the train step's probe launch against the plain march
-and its scan against the probe, its gradient against the central difference,
-three timed train steps and the ``fit`` CLI; and the geodesic camera: a
-4096-step recording on the card against the CPU's, the tetrad's transport,
-and the adaptive 1080p frame from that camera, its 480x270 twin's launches
-against the plain march.
+its rays marched by the plain twin for their first ``PLAIN_DEPTH`` trial
+iterations) and the adaptive flagship frame of ``flagship_config`` as it
+comes (prepass, quarter grid and refinement: three launches in a first
+frame, two in a steady one; the first frame's prepass launch and each launch
+of the 480x270 frame marched once more by the plain twin).  It counts each
+launch's work (steps, trial iterations, idle lanes), holds the kernel's time
+against its bound, holds the adaptive frame against the dense one and the
+kernel frames against the plain frames at 480x270, checks that a steady
+adaptive frame never waits for the device, times both frames stage by stage,
+and runs the CLI on the card.  Then the second path: every other kernel
+instance (4-D and planar) and the step options (Euler, reparameterisation)
+against the plain march; the ``schwarzschild`` frame in planar mode at
+1920x1080, adaptive and dense, its dense, quarter and refine launches and
+each launch of its 480x270 twin against the plain march; planar against 4-D;
+the 128x128 golden scenes of every metric and ``kerr_redshift``; and a dense
+1080p frame of every metric through ``render_frame``, its launch against the
+plain march (the Kerr family's 480x270 twin instead, ``NO_1080P_PLAIN``).
+Then the third path: the differentiable fit at ``scripts/fit_bench.py``'s
+size (``kerr_boyer`` 256x256, a 2048-step budget, an 896-iteration scan in
+windows of 128): its target, the train step's probe launch against the plain
+march and its scan against the probe, its gradient against the central
+difference, two timed train steps and the ``fit`` CLI; and the geodesic
+camera: a 4096-step recording on the card against the CPU's (and where the
+two part), the tetrad's transport, and the adaptive 1080p frame from that
+camera, its 480x270 twin's launches against the plain march.  Then the
+fourth path: the adaptive 1080p frame of each metric of catalogue slice A
+(first, warm and steady frames, launches counted, against its dense frame, a
+steady frame without host synchronisation, stage times) and the CLI's
+adaptive 1080p ``kerr_newman_boyer`` frame.
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
 kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
@@ -75,6 +80,9 @@ SET_A_MIN_STEPS_EQ = 62  # of 64, status equal on all
 SET_B_MIN_STATUS_EQ = 0.995
 SET_B_MIN_STEPS_EQ = 0.98
 POS_TOL = 1e-4  # rtol and atol
+# Phase 3 marches the 1080p frame's rays with the plain twin for this many
+# trial iterations (its longest ray takes 10,230).
+PLAIN_DEPTH = 2048
 # The golden gate of tests/test_parity_images.py on sRGB uint8 images.
 GATE_RMSE = 4.0
 GATE_BAD_FRAC = 0.01
@@ -115,7 +123,42 @@ OPS_BY_INSTANCE = {
     ("de_sitter", True): 17 + 34 + 71,
     ("minkowski", False): 87,
     ("minkowski_skew", False): 87,
+    # Catalogue slice A, by the same rule.  A constant entry (a literal) folds
+    # away, and its products with it; a cylindrical chart's r adds 4, the
+    # Misner chart's (two exp) 11; no singularity kill takes 2 less.
+    ("wormhole (morris-thorne)", False): 13 + 24 + 81,
+    ("wormhole (morris-thorne)", True): 8 + 16 + 71,
+    ("black_hole_cosmic_string", False): 24 + 46 + 111,
+    ("ernst", False): 69 + 59 + 111,
+    ("kerr_newman_boyer", False): 129 + 89 + 111,
+    ("kerr_ingoing_ef", False): 80 + 105 + 111,
+    ("kerr_rational_polynomial", False): 73 + 89 + 111,
+    ("misner_4d", False): 0 + 5 + 122,
+    ("cosmic_string_spinning", False): 5 + 20 + 117,
 }
+# The metrics of catalogue slice A, the fourth path (phase 26).
+CATALOGUE_A = ("black_hole_cosmic_string", "cosmic_string_spinning", "ernst",
+               "kerr_ingoing_ef", "kerr_newman_boyer",
+               "kerr_rational_polynomial", "misner_4d",
+               "wormhole (morris-thorne)")
+# Of those, the Kerr family: a plain march of their 1080p frame would take
+# 60-110 s each (the longest ray's 10,000 steps at ~7 ms an eager step), so
+# they are held against the plain march on their 480x270 frame's launch and
+# on phase 14's sets, and their 1080p launch is measured without one.
+NO_1080P_PLAIN = ("kerr_ingoing_ef", "kerr_newman_boyer",
+                  "kerr_rational_polynomial")
+# Where make_rays' set would give a metric no escaped ray: the factor on
+# the phi velocity (black_hole_cosmic_string's g_phph carries B^2 = 0.09, so
+# the set's impact parameters shrink by B and every ray falls in) and the
+# sign of v^t (misner_4d's chart ends at x = t, which a ray forward in time
+# reaches before it escapes; the renderer traces backward in time).
+RAY_SET = {"black_hole_cosmic_string": (1 / 0.3, 1.0),
+           "misner_4d": (1.0, -1.0)}
+# The camera time of scenes that need one: scripts/make_goldens.py's
+# misner_4d scene (after the reference's scripts/misner_4d.json:18, "Camera
+# time should be set < 0"; at t = 0 the camera sits on the branch cut of
+# polar_to_misner_4d, log((x - t) / 2) with x = 0).
+SCENE_CAMERA_T = {"misner_4d": -2.0}
 # The planar frame against the 4-D one (tests/test_integrator.py's
 # test_planar_mode_matches_full_4d): fates equal on this share of the pixels
 # (the 4-D march has a polar-axis artifact the planar one has not), and the
@@ -364,6 +407,26 @@ def stage_events(pl, integrate):
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
+
+
+def timed_stages(frame, read):
+    """``(total ms, {stage: ms})`` of one ``frame()`` inside
+    ``stage_events`` (``read`` is what it yields); "other" is the rest."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    frame()
+    ev[1].record()
+    ms = read()
+    total = ev[0].elapsed_time(ev[1])
+    ms["other"] = total - sum(ms.get(s, 0.0) for s in STAGES)
+    return total, ms
+
+
+def stage_text(ms):
+    return " + ".join(f"{s} {ms[s]:.3f}" for s in (*STAGES, "other")
+                      if s in ms)
 
 
 def born_dead_untouched(s_in, outs) -> int:
@@ -655,11 +718,29 @@ def chart_rays(metric, params, feats, n, dev, tilt=0.0):
 
     pos, vel = make_rays(n)
     vel[:, 2] = tilt
+    phi_scale, time_sign = RAY_SET.get(metric.name, (1.0, 1.0))
+    vel[:, 3] *= phi_scale
+    vel[:, 0] *= time_sign
     p, v = torch.from_numpy(pos).to(dev).T, torch.from_numpy(vel).to(dev).T
     return integrate.init_ray_state(
         metric, metric.from_polar(p, params).T.contiguous(),
         metric.from_polar_velocity(p, v, params).T.contiguous(), params,
         feats)
+
+
+def scene_camera(name, camera):
+    """``camera`` with the time of the scene of metric ``name``
+    (``SCENE_CAMERA_T``), or as it is."""
+    if name not in SCENE_CAMERA_T:
+        return camera
+    pos = camera.polar_position.clone()
+    pos[0] = SCENE_CAMERA_T[name]
+    return camera._replace(polar_position=pos)
+
+
+def golden_key(name):
+    """The file name of a scene's golden (tests/test_parity_images.py)."""
+    return name.replace(" ", "_").replace("(", "").replace(")", "")
 
 
 def assert_equals_plain(what, k, p):
@@ -677,12 +758,17 @@ def assert_equals_plain(what, k, p):
 
 def check_instances(dev, skip=("kerr_boyer",)) -> dict:
     """Phase 14: each kernel instance but ``skip`` against the plain torch
-    march on ``make_rays`` sets (64 and 4096 rays; once more off the
-    equator; the spherically symmetric metrics in planar mode too).
-    ``kerr_boyer`` is held at its paths' own shapes instead: the same
-    64-ray set in phase 2, every ray of the 1080p frame (on and off the
-    equator) in phase 3, the adaptive and fit launches in phases 9, 11, 20
-    and 25.  Returns ``{metric: largest position difference}``."""
+    march on ``make_rays`` sets (64 and 4096 rays; 4096 once more off the
+    equator; the spherically symmetric metrics in planar mode too), every
+    7th ray born DEAD.  A metric's 4-D sets go to the kernel and to the
+    plain twin as one state, and its planar sets as another: a ray's march
+    depends on its own state alone, so this changes no bit, and the plain
+    twin, whose time is the longest ray's steps, marches once per mode.
+    ``kerr_boyer`` is held at its paths' own shapes instead: the same 64-ray
+    set in phase 2, every ray of the 1080p frame (on and off the equator) in
+    phase 3, the adaptive and fit launches in phases 9, 11, 20 and 25.
+    Returns ``{metric: largest position difference}``."""
+    import torch
     from geodesic_raytracing_tpu_torch import metrics
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
 
@@ -690,20 +776,34 @@ def check_instances(dev, skip=("kerr_boyer",)) -> dict:
     for name in sorted(set(raymarch.INSTANCES) - set(skip)):
         m = metrics.get_metric(name)
         params, feats = m.params(), integrate.Features.for_metric(m)
-        cases = [(64, 0.0, False), (4096, 0.0, False), (4096, 0.03, False)]
+        modes = [(False, ((64, 0.0), (4096, 0.0), (4096, 0.03)))]
         if m.spherically_symmetric:
-            cases += [(64, 0.0, True), (4096, 0.0, True)]
-        for n, tilt, planar in cases:
-            st = chart_rays(m, params, feats, n, dev, tilt)
-            st.status[::7] = integrate.DEAD
+            modes.append((True, ((64, 0.0), (4096, 0.0))))
+        for planar, sets in modes:
+            parts = [chart_rays(m, params, feats, n, dev, tilt)
+                     for n, tilt in sets]
+            for part in parts:
+                part.status[::7] = integrate.DEAD
+            st = integrate.RayState(*(torch.cat(f) for f in zip(*parts)))
             opts = integrate.TraceOptions(max_steps=4096, planar=planar)
             k = raymarch.trace_rays_cuda(m, st, params, feats, opts)
+            t0 = time.perf_counter()
             p = integrate.trace_rays_reference(m, st, params, feats, opts)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
             born_dead_untouched(st, (k, p))
-            err = assert_equals_plain(
-                f"[14 instances] {name} {'planar' if planar else '4-D'}"
-                f"{' off the equator' if tilt else ''}", k, p)
-            errs[name] = max(errs.get(name, 0.0), err)
+            lo = 0
+            for n, tilt in sets:
+                rows = slice(lo, lo + n)
+                lo += n
+                err = assert_equals_plain(
+                    f"[14 instances] {name} {'planar' if planar else '4-D'} "
+                    f"{n} rays{' off the equator' if tilt else ''}",
+                    integrate.RayState(*(t[rows] for t in k)),
+                    integrate.RayState(*(t[rows] for t in p)))
+                errs[name] = max(errs.get(name, 0.0), err)
+            print(f"[14 instances] {name} {'planar' if planar else '4-D'}: "
+                  f"one plain march of the {lo} rays {plain_s:.1f} s")
     return errs
 
 
@@ -1044,8 +1144,9 @@ def planar_vs_4d(dev, sky) -> dict:
 
 
 def golden_scenes(dev) -> dict:
-    """Phase 18: the 128x128 scenes of scripts/make_goldens.py for the seven
-    new metrics and ``kerr_redshift`` through the kernel path, against
+    """Phase 18: the 128x128 scenes of scripts/make_goldens.py for every
+    metric but ``kerr_boyer`` and for ``kerr_redshift`` through the kernel
+    path (``misner_4d`` with its scene's camera time), against
     ``tests/golden/catalogue/*.png`` with the golden gate."""
     import math
 
@@ -1068,12 +1169,13 @@ def golden_scenes(dev) -> dict:
             width=128, height=128, anisotropy=4,
             trace=integrate.TraceOptions(max_steps=8192), **sets_over)
         raymarch.reset_launch_counts()
-        img = pl.render_frame(m, camera, m.params(), sky, settings,
-                              integrate.Features.for_metric(m), device=dev)
+        img = pl.render_frame(m, scene_camera(name, camera), m.params(), sky,
+                              settings, integrate.Features.for_metric(m),
+                              device=dev)
         assert raymarch.LAUNCHES_BY_METRIC == {name: 1}
         assert bool(torch.isfinite(img).all())
         golden = cli.read_png(ROOT / "tests" / "golden" / "catalogue"
-                              / f"{key}.png")
+                              / f"{golden_key(key)}.png")
         rmse, bad = golden_gate(to_srgb8(img), golden)
         limit = GOLDEN_RMSE.get(key, GATE_RMSE)
         print(f"[18 goldens] {key}: RMSE {rmse:.4f} (limit {limit}), pixels "
@@ -1083,22 +1185,25 @@ def golden_scenes(dev) -> dict:
     return out
 
 
-def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
+def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     """Phase 19: one dense 1920x1080 frame of every other metric through
-    ``render_frame`` (counts from 0; planar as the pipeline decides), the
-    work of its launch, and that launch and its 480x270 twin against the
-    plain march on all rays.  Returns ``{metric: row}``."""
+    ``render_frame`` (counts from 0; planar as the pipeline decides; the
+    scene's camera time), the work of its launch and of its 480x270 twin,
+    and the 1080p launch against the plain march on all rays (the 480x270
+    twin instead for ``NO_1080P_PLAIN``).  Returns ``({metric: row},
+    {metric of CATALOGUE_A: its dense frame})``."""
     import torch
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
 
-    rows = {}
+    rows, frames = {}, {}
     for name in sorted(raymarch.INSTANCES):
         if name in skip:
             continue
         metric, params, camera, asettings, feats = flagship_config(
             device=dev, metric=name)
+        camera = scene_camera(name, camera)
         settings = dataclasses.replace(asettings, adaptive_sampling=False)
         with recorded_launches(integrate, with_opts=True) as launch:
             raymarch.reset_launch_counts()
@@ -1110,13 +1215,22 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
         assert bool(torch.isfinite(img).all())
         assert tuple(img.shape) == (1080, 1920, 3)
         black = float((img == 0).all(dim=-1).float().mean())
+        if name in CATALOGUE_A:
+            frames[name] = img
         (s_in, s_out, width, opts), = launch
         assert opts.planar == bool(metric.spherically_symmetric)
         full = work_row(
             f"1080p dense {name}", metric, s_in, s_out, params, feats, opts,
             width, median_launch_ms(metric, s_in, params, feats, opts, width))
-        err_full, (full["plain_ms"],) = launches_vs_plain(
-            f"[19 metrics] 1080p dense {name}", metric, params, feats, launch)
+        err_full = 0.0
+        if name in NO_1080P_PLAIN:
+            full["plain_ms"] = None
+            print(f"[19 metrics] 1080p dense {name}: no plain march of the "
+                  "frame (NO_1080P_PLAIN); held at 480x270 and in phase 14")
+        else:
+            err_full, (full["plain_ms"],) = launches_vs_plain(
+                f"[19 metrics] 1080p dense {name}", metric, params, feats,
+                launch)
         del launch, s_in, s_out, img
 
         small = dataclasses.replace(settings, width=480, height=270)
@@ -1125,9 +1239,11 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
         k = raymarch.trace_rays_cuda(metric, st, params, feats, opts,
                                      image_width=480)
         ms = median_launch_ms(metric, st, params, feats, opts, 480)
-        err, (plain_ms,) = launches_vs_plain(
-            f"[19 metrics] 480x270 dense {name}", metric, params, feats,
-            [(st, k, 480, opts)])
+        err, plain_ms = 0.0, None
+        if name in NO_1080P_PLAIN:
+            err, (plain_ms,) = launches_vs_plain(
+                f"[19 metrics] 480x270 dense {name}", metric, params, feats,
+                [(st, k, 480, opts)])
         row = work_row(f"480x270 dense {name}", metric, st, k, params, feats,
                        opts, 480, ms)
         row["plain_ms"] = plain_ms
@@ -1136,7 +1252,130 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
         rows[name] = {"launches": counts[name],
                       "max_abs_err": max(err, err_full),
                       "black_fraction": black, "small": row, "full": full}
-    return rows
+    return rows, frames
+
+
+def fourth_path(dev, sky, dense) -> dict:
+    """Phase 26: every metric of catalogue slice A through the main path,
+    ``render_frame``'s adaptive 1920x1080 frame with the flagship settings
+    (``flagship_config(metric=name)``, the scene's camera time) and a fresh
+    RefineBudgetController: a first frame (three launches where the config
+    asks for the prepass, else two), three warm frames and a steady one (two
+    launches each), the counts set to 0 before each frame and read after
+    it; the first frame against ``dense[name]``, phase 19's dense frame of
+    the metric, by the gate of phase 10; a steady frame under
+    ``set_sync_debug_mode("error")``; stage times of three steady frames
+    and of a first frame by CUDA events.  Returns ``{metric: paths}``."""
+    import torch
+    from geodesic_raytracing_tpu_torch.bench_config import flagship_config
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    out = {}
+    for name in CATALOGUE_A:
+        metric, params, camera, asettings, feats = flagship_config(
+            device=dev, metric=name)
+        camera = scene_camera(name, camera)
+        assert asettings.adaptive_sampling and asettings.shade_traced_only
+        first_n = 3 if metric.config.use_prepass else 2
+        controller = pl.RefineBudgetController()
+
+        def frame(ctrl=controller):
+            return pl.render_frame(metric, camera, params, sky, asettings,
+                                   feats, controller=ctrl, device=dev)
+
+        launches, first = [], None
+        for i in range(5):
+            raymarch.reset_launch_counts()
+            img = frame()
+            torch.cuda.synchronize()
+            counts = dict(raymarch.LAUNCHES_BY_METRIC)
+            launches.append(counts.get(name, 0))
+            assert set(counts) == {name}, counts
+            assert bool(torch.isfinite(img).all())
+            assert tuple(img.shape) == (1080, 1920, 3)
+            first = img if i == 0 else first
+        assert launches == [first_n, 2, 2, 2, 2], (name, launches)
+        black = float((first == 0).all(dim=-1).float().mean())
+        d = (first - dense[name]).abs().max(dim=-1).values
+        off_frac, median = float((d > 0.1).float().mean()), float(d.median())
+        off_max, median_max = ADAPTIVE_MAX_OFF_FRAC, ADAPTIVE_MAX_MEDIAN
+        print(f"[26 adaptive] {name}: 1920x1080 frames finite, kernel "
+              f"launches {launches} (first, warm, steady), black fraction "
+              f"{black:.4f}; first frame vs the dense frame: pixels with a "
+              f"channel off by >0.1 {off_frac:.5f} (limit {off_max}), median "
+              f"difference {median:.3g} (limit {median_max})")
+        assert off_frac < off_max and median < median_max, (name, off_frac,
+                                                             median)
+        del d, first, img
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frame()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"[26 sync] one steady adaptive 1080p {name} frame under "
+              "set_sync_debug_mode('error'): no host synchronisation")
+
+        with stage_events(pl, integrate) as read:
+            steady = [timed_stages(frame, read) for _ in range(3)]
+            first_total, first_ms = timed_stages(
+                lambda: frame(pl.RefineBudgetController()), read)
+        for i, (total, ms) in enumerate(steady):
+            print(f"[26 time] steady adaptive {name} frame {i}: {total:.3f} "
+                  f"ms = {stage_text(ms)} ms")
+        print(f"[26 time] first adaptive {name} frame: {first_total:.3f} ms "
+              f"= {stage_text(first_ms)} ms")
+        out[name] = {
+            "adaptive_first": {"launches": launches[0],
+                               "frame_ms": first_total,
+                               "stages_ms": first_ms},
+            "adaptive_steady": {"launches": launches[-1],
+                                "frame_ms": statistics.median(
+                                    t for t, _ in steady),
+                                "stages_ms": steady[-1][1]},
+            "adaptive_vs_dense": {"off_frac": off_frac, "median": median,
+                                  "limits": [off_max, median_max]},
+        }
+    return out
+
+
+def cli_catalogue_a(dev) -> dict:
+    """Phase 26's CLI run: ``--list`` names every ported metric, then one
+    adaptive 1920x1080 ``kerr_newman_boyer`` frame on the card to a PNG (two
+    launches: its config has no prepass)."""
+    from geodesic_raytracing_tpu_torch import cli, metrics
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--list"])
+    listed = buf.getvalue().split("\n")
+    assert rc == 0 and set(CATALOGUE_A) <= set(listed), listed
+    assert set(listed) >= set(metrics.list_metrics())
+    png = ROOT / "build" / "chip_smoke" / "kerr_newman_cli_adaptive.png"
+    png.parent.mkdir(parents=True, exist_ok=True)
+    raymarch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--metric", "kerr_newman_boyer", "--adaptive",
+                       "--width", "1920", "--height", "1080", "--pitch",
+                       "-90", "--device", "cuda", "--out", str(png)])
+    seconds = time.perf_counter() - t0
+    counts = dict(raymarch.LAUNCHES_BY_METRIC)
+    img = cli.read_png(png)
+    black = float((img == 0).all(axis=-1).mean())
+    print(f"[26 cli] --metric kerr_newman_boyer --adaptive 1920x1080 on "
+          f"cuda: exit {rc} in {seconds:.1f} s, kernel launches {counts}, PNG "
+          f"{img.shape}, black fraction {black:.4f}; --list names "
+          f"{len(listed) - 1} metrics")
+    assert rc == 0 and img.shape == (1080, 1920, 3), img.shape
+    assert counts == {"kerr_newman_boyer": 2}, counts
+    assert 0.0 < black < 0.9 and img.max() > 0, black
+    return {"launches": counts["kerr_newman_boyer"], "seconds": seconds,
+            "black_fraction": black}
 
 
 # ---------------------------------------------------------------------------
@@ -1149,6 +1388,7 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)) -> dict:
 FIT_SIZE, FIT_MAX_STEPS, FIT_REMAT, FIT_CAP = 256, 2048, 128, 512
 FIT_TRUE_RS, FIT_START_RS, FIT_LR = 1.1, 0.95, 0.02
 FIT_SCAN_STEPS = 896  # 1.25 x the hard cap 661, in whole windows of 128
+FIT_TIMED_STEPS = 2  # after the first, untimed one
 # The gradient against the central difference of the same weighted loss with
 # the probe frozen (tests/test_gradients.py's protocol and tolerance).
 FIT_FD_EPS, FIT_FD_RTOL = 2e-3, 0.2
@@ -1311,11 +1551,11 @@ def fit_path(dev) -> dict:
     assert np.isfinite(g) and abs(g) > 1e-6 and np.isfinite(float(grads["a"]))
     assert abs(g - fd) <= FIT_FD_RTOL * abs(fd), (g, fd)
 
-    # -- 23. train steps: three timed after the first (phase 20's) -----------
+    # -- 23. train steps: two timed after the first (phase 20's) -------------
     params, losses, rs = first, [], [FIT_START_RS, float(first["rs"])]
     torch.cuda.reset_peak_memory_stats(dev)
     times, splits = [], []
-    for _ in range(3):
+    for _ in range(FIT_TIMED_STEPS):
         with train_step_events(integrate, mesh) as marks:
             raymarch.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1385,6 +1625,64 @@ def fit_path(dev) -> dict:
     }, err
 
 
+def first_difference(a, b):
+    """The first node at which two recordings (one on the CPU) differ in any
+    bit of position, velocity or step, or None."""
+    import torch
+
+    differ = torch.zeros(a.ds.shape[0], dtype=torch.bool)
+    for x, y in ((a.positions, b.positions), (a.velocities, b.velocities),
+                 (a.ds[:, None], b.ds[:, None])):
+        differ |= (x.cpu().view(torch.int32)
+                   != y.cpu().view(torch.int32)).any(dim=1)
+    idx = torch.nonzero(differ).flatten()
+    return int(idx[0]) if idx.numel() else None
+
+
+def recording_gap(card_frame, cpu_frame, path, cpath):
+    """Where the card's geodesic recording parts from the CPU's (ROADMAP
+    Queue 3): the two launch frames (x0 and the tetrad es0, each built on
+    its own device), the first node at which the recordings differ and the
+    step there, and, on 2^20 seeded float32 values, how many results of
+    each elementwise function the step uses differ between torch on the CPU
+    and on the card.  Returns the numbers printed."""
+    import torch
+
+    (x0, es0), (cx0, ces0) = card_frame, cpu_frame
+    dev = x0.device
+    frame_err = {"x0": float((x0.cpu() - cx0).abs().max()),
+                 "es0": float((es0.cpu() - ces0).abs().max())}
+    frame_same = {k: bool(torch.equal(a.cpu().view(torch.int32),
+                                      b.view(torch.int32)))
+                  for k, a, b in (("x0", x0, cx0), ("es0", es0, ces0))}
+    node = first_difference(path, cpath)
+    out = {"frame_max_abs": frame_err, "frame_same_bits": frame_same,
+           "first_node": node}
+    at = ""
+    if node is not None:
+        at = (f", there ds {float(path.ds[node]):.9g} on the card, "
+              f"{float(cpath.ds[node]):.9g} on the CPU")
+    print(f"[25 gap] launch frame card vs CPU: x0 {x0.tolist()}, max |dx0| "
+          f"{frame_err['x0']:.3g}, max |des0| {frame_err['es0']:.3g}, same "
+          f"bits {frame_same}; first node that differs {node}{at}")
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(rng.uniform(1e-3, 64.0, 1 << 20).astype(
+        np.float32))
+    ops = {"sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "sin": torch.sin,
+           "cos": torch.cos, "exp": lambda v: torch.exp(-v),
+           "log": torch.log, "reciprocal": torch.reciprocal,
+           "x / 3": lambda v: v / 3.0}
+    out["ops_differ"] = {}
+    for name_, fn in ops.items():
+        a, b = fn(vals), fn(vals.to(dev)).cpu()
+        out["ops_differ"][name_] = int((a.view(torch.int32)
+                                        != b.view(torch.int32)).sum())
+    print(f"[25 gap] of {vals.numel()} float32 values, results that differ "
+          f"between torch on the CPU and on the card: "
+          + ", ".join(f"{k} {v}" for k, v in out["ops_differ"].items()))
+    return out
+
+
 def geodesic_camera_path(dev, sky) -> dict:
     """Phase 25: the geodesic camera.  The flagship camera's worldline
     falling in at 0.3 c is recorded on the card and on the CPU (the same
@@ -1435,6 +1733,7 @@ def geodesic_camera_path(dev, sky) -> dict:
           f"|dpos| {pos_err:.3g}, r {float(path.positions[0, 1]):.4f} -> "
           f"{float(path.positions[count - 1, 1]):.4f}, proper time "
           f"{float(path.proper_time[count - 1]):.4f}")
+    gap = recording_gap((x0, es0), (cx0, ces0), path, cpath)
     assert count == ccount and count > 1
     assert torch.allclose(path.positions.cpu(), cpath.positions,
                           rtol=GEO_POS_TOL, atol=GEO_POS_TOL)
@@ -1476,7 +1775,8 @@ def geodesic_camera_path(dev, sky) -> dict:
             "record_s": record_s, "cpu_record_s": cpu_record_s,
             "record_pos_err": pos_err, "transport_s": transport_s,
             "interpolate_ms": interp_s * 1e3, "frame_ms": frame_s * 1e3,
-            "launches": frame_launches, "small_plain_ms": plain_ms}, err
+            "launches": frame_launches, "small_plain_ms": plain_ms,
+            "record_gap": gap}, err
 
 
 def main(argv=None) -> int:
@@ -1610,10 +1910,18 @@ def main(argv=None) -> int:
     (s_in, s_out, _), = launch
     n_rays = settings.width * settings.height
     assert s_in.position.shape == (n_rays, 4), s_in.position.shape
+    # The plain twin marches every ray of the frame for its first
+    # PLAIN_DEPTH trial iterations, against a kernel launch on the same
+    # input with the same budget (a cut of depth: the whole plain march takes
+    # 96-98 s, the longest ray's 10,230 steps at ~9 ms an eager step); the
+    # frame's own launch is held to that launch on every ray that ended
+    # within it (a ray's march is the same whatever budget is left).
+    cut = dataclasses.replace(settings.trace, max_steps=PLAIN_DEPTH)
+    k_cut = raymarch.trace_rays_cuda(metric, s_in, params, feats, cut,
+                                     image_width=settings.width)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    p_all = integrate.trace_rays_reference(metric, s_in, params, feats,
-                                           settings.trace)
+    p_all = integrate.trace_rays_reference(metric, s_in, params, feats, cut)
     ev[1].record()
     torch.cuda.synchronize()
     plain_ms = ev[0].elapsed_time(ev[1])
@@ -1622,18 +1930,25 @@ def main(argv=None) -> int:
     err_f = 0.0
     for what, pick in ((f"4096 of the frame's {n_rays}", rows),
                        (f"all {n_rays}", slice(None))):
-        k = integrate.RayState(*(t[pick] for t in s_out))
+        k = integrate.RayState(*(t[pick] for t in k_cut))
         p = integrate.RayState(*(t[pick] for t in p_all))
         n = k.status.numel()
         st, sp, err, close = compare_states(k, p)
-        print(f"[3 frame] {what} kernel rays vs plain: status equal "
-              f"{st / n:.4f}, steps equal {sp / n:.4f}, max |dpos| "
-              f"{err:.3g}; plain march of the frame {plain_ms:.1f} ms")
+        print(f"[3 frame] {what} kernel rays vs plain, {PLAIN_DEPTH} trial "
+              f"iterations: status equal {st / n:.4f}, steps equal "
+              f"{sp / n:.4f}, max |dpos| {err:.3g}, same bits "
+              f"{same_bits(k, p)}; plain march {plain_ms:.1f} ms")
         assert st >= SET_B_MIN_STATUS_EQ * n, st
         assert sp >= SET_B_MIN_STEPS_EQ * n, sp
         assert close, err
         err_f = max(err_f, err)
-    del p_all, p
+    ended = k_cut.status != integrate.ACTIVE
+    assert same_bits(integrate.RayState(*(t[ended] for t in k_cut)),
+                     integrate.RayState(*(t[ended] for t in s_out)))
+    print(f"[3 frame] the frame's launch equals that launch on the "
+          f"{int(ended.sum())} rays that ended within {PLAIN_DEPTH} trial "
+          f"iterations ({n_rays - int(ended.sum())} went on)")
+    del p_all, p, k_cut, ended
 
     # The work of that launch, from one more launch on the same input (the
     # output must be the same again, in whatever order the warps ran).
@@ -1915,24 +2230,11 @@ def main(argv=None) -> int:
           "set_sync_debug_mode('error'): no host synchronisation")
 
     # -- 13. timing and work of the adaptive frame ---------------------------
-    def timed_adaptive(frame, read):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        frame()
-        ev[1].record()
-        ms = read()
-        total = ev[0].elapsed_time(ev[1])
-        ms["other"] = total - sum(ms.get(s, 0.0) for s in STAGES)
-        return total, ms
-
-    def stage_text(ms):
-        return " + ".join(f"{s} {ms[s]:.3f}" for s in (*STAGES, "other")
-                          if s in ms)
 
     with stage_events(pl, integrate) as read:
-        steady = [timed_adaptive(adaptive_frame, read) for _ in range(3)]
+        steady = [timed_stages(adaptive_frame, read) for _ in range(3)]
         fresh = pl.RefineBudgetController()
-        first_total, first_ms = timed_adaptive(
+        first_total, first_ms = timed_stages(
             lambda: pl.render_frame(metric, camera, params, sky, asettings,
                                     feats, controller=fresh, device=dev),
             read)
@@ -2029,7 +2331,7 @@ def main(argv=None) -> int:
     took("17")
     goldens = golden_scenes(dev)
     took("18")
-    per_metric = every_metric_dense(dev, sky)
+    per_metric, dense_a = every_metric_dense(dev, sky)
     took("19")
 
     # -- 20-25. the third path -------------------------------------------------
@@ -2038,12 +2340,22 @@ def main(argv=None) -> int:
     geo_row, geo_err = geodesic_camera_path(dev, sky)
     took("25")
 
+    # -- 26. the fourth path: catalogue slice A's adaptive 1080p frames -------
+    fourth = fourth_path(dev, sky, dense_a)
+    del dense_a
+    fourth_cli = cli_catalogue_a(dev)
+    took("26")
+
     def instance_row(mname):
-        """The row of one of the seven new instances: ms, plain_ms and
+        """The row of an instance other than ``kerr_boyer``: ms, plain_ms and
         bound_ms of its dense 1080p launch through ``render_frame`` (the
-        same rays for all three), as ``kerr_boyer``'s row; its 480x270
-        launch under ``small``."""
+        same rays for all three), as ``kerr_boyer``'s row, or of its 480x270
+        launch where the 1080p one is not marched plain (``NO_1080P_PLAIN``,
+        ``measured_at``); its 480x270 launch under ``small``, its 1080p one
+        under ``full``; for catalogue slice A, ``launches`` and ``paths`` of
+        phase 26's adaptive 1080p frames."""
         r = per_metric[mname]
+        at = r["small"] if mname in NO_1080P_PLAIN else r["full"]
         row = {
             "name": f"raymarch_{mname}",
             "route": "cuda",
@@ -2051,11 +2363,12 @@ def main(argv=None) -> int:
             "replaces": "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488",
             "launches": r["launches"],
             "max_abs_err": max(r["max_abs_err"], instance_err[mname]),
-            "ms": r["full"]["ms"],
-            "plain_ms": r["full"]["plain_ms"],
-            "bound_ms": r["full"]["bound_ms"],
-            "bound_by": r["full"]["bound_by"],
-            "share_of_bound": r["full"]["share_of_bound"],
+            "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"],
+            "share_of_bound": at["share_of_bound"],
+            "measured_at": "480x270" if at is r["small"] else "1920x1080",
             "library_ms": None,  # no PyTorch call computes a geodesic march
             "rays": r["full"]["rays"],
             "planar": r["full"]["planar"],
@@ -2065,9 +2378,15 @@ def main(argv=None) -> int:
             "idle_lane_factor": r["full"]["idle_lane_factor"],
             "ops_per_trial": r["full"]["ops_per_trial"],
             "small": r["small"],
+            "full": r["full"],
             "ptxas": ptxas_by_metric[mname],
             "golden": goldens[mname],
         }
+        if mname in fourth:
+            row["launches"] = fourth[mname]["adaptive_first"]["launches"]
+            row["paths"] = fourth[mname]
+            if mname == "kerr_newman_boyer":
+                row["paths"]["cli"] = fourth_cli
         if mname == "schwarzschild":
             row["max_abs_err"] = max(row["max_abs_err"], options_err,
                                      schw["max_abs_err"])
@@ -2086,6 +2405,7 @@ def main(argv=None) -> int:
         # Of the main path's launch, the 1080p frame's 2,073,600 rays.
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "plain_max_steps": PLAIN_DEPTH,
         "bound_ms": bound,
         "bound_by": "operations",
         "share_of_bound": bound / kernel_ms,

@@ -1,7 +1,7 @@
 """Coordinate transforms with autodiff Jacobians (port of
 ``geodesic_raytracing_tpu.coordinates.transforms``; the charts of the
-ported metrics: polar, cartesian, skewed cartesian, ingoing
-Eddington-Finkelstein and skewed polar).
+ported metrics: polar, cartesian, skewed cartesian, cylindrical, ingoing
+Eddington-Finkelstein, rational (X = cos theta), skewed polar and Misner).
 
 A transform is ``f(x: (4, ...), params) -> (4, ...)``; velocity transforms
 are one ``torch.func.jvp``.  Canonical polar coordinates are
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.geometry import arctan2
+from ..ops.geometry import arccos, arctan2
 
 Tensor = torch.Tensor
 
@@ -80,6 +80,20 @@ def polar_to_cartesian_skew(x, params):
         [r * st * torch.cos(phi), t, r * st * torch.sin(phi), r * ct])
 
 
+def cylindrical_to_polar(x, params):
+    """scripts/coordinates/cylindrical_to_polar.js — (t, p, phi, z)."""
+    t, p, phi, z = x[0], x[1], x[2], x[3]
+    rr = torch.sqrt(p * p + z * z)
+    rtheta = arctan2(p, z)
+    return torch.stack([t, rr, rtheta, phi])
+
+
+def polar_to_cylindrical(x, params):
+    """scripts/coordinates/polar_to_cylindrical.js."""
+    t, r, theta, phi = x[0], x[1], x[2], x[3]
+    return torch.stack([t, r * torch.sin(theta), phi, r * torch.cos(theta)])
+
+
 def ingoing_ef_to_polar(x, params):
     """scripts/coordinates/ingoing_ef_to_polar.js —
     v = t + r + rs log|r - rs|."""
@@ -97,6 +111,18 @@ def polar_to_ingoing_ef(x, params):
     return torch.stack([v, r, theta, phi])
 
 
+def polar_to_rational(x, params):
+    """scripts/coordinates/polar_to_rational.js — X = cos(theta)."""
+    t, r, theta, phi = x[0], x[1], x[2], x[3]
+    return torch.stack([t, r, torch.cos(theta), phi])
+
+
+def rational_to_polar(x, params):
+    """scripts/coordinates/rational_to_polar.js."""
+    t, r, X, phi = x[0], x[1], x[2], x[3]
+    return torch.stack([t, r, arccos(torch.clamp(X, -1.0, 1.0)), phi])
+
+
 def skewed_polar_to_polar(x, params):
     """scripts/coordinates/skewed_polar_to_polar.js — args are (r, t, ...)."""
     return torch.stack([x[1], x[0], x[2], x[3]])
@@ -107,16 +133,46 @@ def polar_to_skewed_polar(x, params):
     return torch.stack([x[1], x[0], x[2], x[3]])
 
 
+def misner_4d_to_polar(x, params):
+    """scripts/coordinates/misner_4d_to_polar.js (arXiv:1102.0907 eq. 8-9)
+    — (T, phi, y, z)."""
+    T, mphi, y, z = x[0], x[1], x[2], x[3]
+    t = T * torch.exp(mphi * 0.5) - torch.exp(-mphi * 0.5)
+    xx = T * torch.exp(mphi * 0.5) + torch.exp(-mphi * 0.5)
+    r = torch.sqrt(xx * xx + y * y + z * z)
+    theta = arctan2(torch.sqrt(xx * xx + y * y), z)
+    phi = arctan2(y, xx)
+    return torch.stack([t, r, theta, phi])
+
+
+def polar_to_misner_4d(x, params):
+    """scripts/coordinates/polar_to_misner_4d.js."""
+    t, r, theta, phi = x[0], x[1], x[2], x[3]
+    st = torch.sin(theta)
+    xx = r * st * torch.cos(phi)
+    y = r * st * torch.sin(phi)
+    z = r * torch.cos(theta)
+    mphi = -2.0 * torch.log((xx - t) * 0.5)
+    T = (xx * xx - t * t) * 0.25
+    return torch.stack([T, mphi, y, z])
+
+
 TRANSFORMS = {
     "polar_to_polar": polar_to_polar,
     "cartesian_to_polar": cartesian_to_polar,
     "polar_to_cartesian": polar_to_cartesian,
     "cartesian_skew_to_polar": cartesian_skew_to_polar,
     "polar_to_cartesian_skew": polar_to_cartesian_skew,
+    "cylindrical_to_polar": cylindrical_to_polar,
+    "polar_to_cylindrical": polar_to_cylindrical,
     "ingoing_ef_to_polar": ingoing_ef_to_polar,
     "polar_to_ingoing_ef": polar_to_ingoing_ef,
     "skewed_polar_to_polar": skewed_polar_to_polar,
     "polar_to_skewed_polar": polar_to_skewed_polar,
+    "polar_to_rational": polar_to_rational,
+    "rational_to_polar": rational_to_polar,
+    "misner_4d_to_polar": misner_4d_to_polar,
+    "polar_to_misner_4d": polar_to_misner_4d,
 }
 
 

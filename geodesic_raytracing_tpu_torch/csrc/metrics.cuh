@@ -15,6 +15,7 @@
 //                        seeds, or none
 #pragma once
 
+#include "exotic.cuh"
 #include "kerr_boyer.cuh"
 #include "minkowski.cuh"
 #include "schwarzschild.cuh"

@@ -1,9 +1,10 @@
-// The Schwarzschild family: `schwarzschild`, `schwarzschild_fast` (the same
-// metric with the scheduled step and a singular terminator),
-// `schwarzschild_skewed` (coordinates (r, t, theta, phi), rs = 1),
-// `schwarzschild_ingoing_ef` (ingoing Eddington-Finkelstein), and
-// `de_sitter`.  Term for term the torch metrics of
-// `metrics/catalogue_simple.py`; a change there must be made here too.
+// The diagonal polar metrics (and Schwarzschild in ingoing EF): `schwarzschild`,
+// `schwarzschild_fast` (the same metric with the scheduled step and a
+// singular terminator), `schwarzschild_skewed` (coordinates
+// (r, t, theta, phi), rs = 1), `schwarzschild_ingoing_ef` (ingoing
+// Eddington-Finkelstein), `de_sitter`, `wormhole (morris-thorne)`,
+// `black_hole_cosmic_string` and `ernst`.  Term for term the torch metrics
+// of `metrics/catalogue_simple.py`; a change there must be made here too.
 #pragma once
 
 #include "sym.cuh"
@@ -136,6 +137,83 @@ struct DeSitter : PolarBase, SymmetricWeights {
         1.0f - cosmological_constant * r * r * static_cast<float>(1.0 / 3.0);
     return sym(entry<0, 0>(-f), entry<1, 1>(grt_recip(f)), entry<2, 2>(r * r),
                entry<3, 3>(r * r * st * st));
+  }
+};
+
+// Precision weights (1, 1, 8, 32) of a polar chart that is not flagged
+// spherically symmetric.
+struct PolarWeights {
+  GRT_HD static constexpr float weight(int i) {
+    return i == 2 ? 8.0f : i == 3 ? 32.0f : 1.0f;
+  }
+  static constexpr double udiv = 32.0;
+};
+
+// Morris-Thorne: diag(-1, 1, b, b sin^2 theta) with b = p^2 + n^2; p runs
+// through the throat (negative on the far side).  The scheduled step.
+struct Wormhole : PolarBase, SymmetricWeights {
+  float n;
+  static constexpr const char* name = "wormhole (morris-thorne)";
+  static constexpr int n_params = 1;
+  static constexpr bool adaptive_precision = false;
+  static constexpr bool detect_singularities = false;
+  GRT_HD static Wormhole from_params(const float* p) {
+    Wormhole m;
+    m.n = p[0];
+    return m;
+  }
+  GRT_HD GRT_INLINE float polar_r(const float x[4]) const { return x[1]; }
+  template <class X0, class P, class Th, class X3>
+  GRT_HD GRT_INLINE auto g(const X0&, const P& p, const Th& theta,
+                           const X3&) const {
+    const auto st = grt_sin(theta);
+    const auto b = p * p + n * n;
+    return sym(entry<0, 0>(-1.0f), entry<1, 1>(1.0f), entry<2, 2>(b),
+               entry<3, 3>(b * st * st));
+  }
+};
+
+// Schwarzschild with a conical deficit B in g_phph; not flagged spherically
+// symmetric.
+struct BlackHoleCosmicString : PolarBase, PolarWeights {
+  float rs;
+  float B;
+  static constexpr const char* name = "black_hole_cosmic_string";
+  static constexpr int n_params = 2;  // rs, B
+  GRT_HD static BlackHoleCosmicString from_params(const float* p) {
+    return {{}, {}, p[0], p[1]};
+  }
+  GRT_HD GRT_INLINE float polar_r(const float x[4]) const { return x[1]; }
+  template <class X0, class R, class Th, class X3>
+  GRT_HD GRT_INLINE auto g(const X0&, const R& r, const Th& theta,
+                           const X3&) const {
+    const auto st = grt_sin(theta);
+    return sym(entry<0, 0>(-(1.0f - rs * grt_recip(r))),
+               entry<1, 1>(grt_recip(1.0f - rs * grt_recip(r))),
+               entry<2, 2>(r * r), entry<3, 3>(r * r * B * B * st * st));
+  }
+};
+
+// Ernst: a black hole in a magnetic field B, lambda = 1 + B^2 r^2 sin^2 theta.
+struct Ernst : PolarBase, PolarWeights {
+  float B;
+  float rs;
+  static constexpr const char* name = "ernst";
+  static constexpr int n_params = 2;  // B, rs
+  GRT_HD static Ernst from_params(const float* p) {
+    return {{}, {}, p[0], p[1]};
+  }
+  GRT_HD GRT_INLINE float polar_r(const float x[4]) const { return x[1]; }
+  template <class X0, class R, class Th, class X3>
+  GRT_HD GRT_INLINE auto g(const X0&, const R& r, const Th& theta,
+                           const X3&) const {
+    const auto st = grt_sin(theta);
+    const auto lam = 1.0f + B * B * r * r * st * st;
+    const auto lam2 = lam * lam;
+    const auto f = 1.0f - rs * grt_recip(r);
+    return sym(entry<0, 0>(-lam2 * f), entry<1, 1>(lam2 * grt_recip(f)),
+               entry<2, 2>(lam2 * r * r),
+               entry<3, 3>(r * r * st * st * grt_recip(lam2)));
   }
 };
 

@@ -51,7 +51,7 @@ class MetricConfig:
 
 
 # Base presets the ported metrics inherit (scripts/{polar,cartesian,
-# cartesian_skew,ingoing_ef,skewed_polar}_base.json).
+# cartesian_skew,cylindrical,ingoing_ef,skewed_polar}_base.json).
 BASE_CONFIGS: dict[str, dict] = {
     "polar_base": dict(
         coordinate_system="X_Y_THETA_PHI",
@@ -79,6 +79,16 @@ BASE_CONFIGS: dict[str, dict] = {
         max_acceleration_change=1e-4,
         to_polar="cartesian_skew_to_polar",
         from_polar="polar_to_cartesian_skew",
+        origin_distance="at_origin",
+    ),
+    "cylindrical_base": dict(
+        coordinate_system="CYLINDRICAL",
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-4,
+        to_polar="cylindrical_to_polar",
+        from_polar="polar_to_cylindrical",
+        coordinate_periodicity="cylindrical_periodicity",
         origin_distance="at_origin",
     ),
     "ingoing_ef_base": dict(

@@ -1,10 +1,15 @@
 """Kerr family (port of ``geodesic_raytracing_tpu.metrics.catalogue_kerr``):
-``kerr_boyer`` only so far.
+``kerr_boyer``, ``kerr_ingoing_ef``, ``kerr_newman_boyer`` and
+``kerr_rational_polynomial``.
 
-The same expression, term for term, is written once more as the C++
-template ``kerr_boyer_g`` in ``csrc/kerr_boyer.cuh`` for the ray-march
-kernel; a change here must be made there too (the kernel-vs-plain checks in
+The same expressions, term for term, are written once more as the C++
+metric structs of ``csrc/kerr_boyer.cuh`` for the ray-march kernel; a change
+here must be made there too (the kernel-vs-plain checks in
 ``tests/test_torch_raymarch_host.py`` and ``chip_smoke.py`` catch a drift).
+Quotients are ``c * recip(x)`` and squares ``q * q``, as in
+``catalogue_simple``.  A product of three or more parameters is evaluated by
+Python in double precision and rounded once to float32 where it meets a
+tensor; the C++ structs write such a product out in double the same way.
 """
 
 from __future__ import annotations
@@ -50,6 +55,149 @@ kerr_boyer = register(
             description="An uncharged, spinning black hole",
         ),
         defaults={"rs": 1.0, "a": -0.5},
+        depends_on=(1, 2),
+        structure=frozenset({(0, 0), (1, 1), (2, 2), (3, 3), (0, 3)}),
+    )
+)
+
+
+def kerr_ingoing_ef_fn(x, params):
+    """scripts/kerr_ingoing_ef.js — Kerr in ingoing EF-like coordinates
+    (scholarpedia Kerr-Newman eq. 47, signs flipped for signature)."""
+    rs, a = params["rs"], params["a"]
+    r, theta = x[1], x[2]
+    ct, st = torch.cos(theta), torch.sin(theta)
+    R2 = r * r + a * a * ct * ct
+    D = r * r + a * a - rs * r
+    invR2 = recip(R2)
+    dv = 1.0 - rs * r * invR2
+    dv_dr = -2.0
+    dv_dphi = (2.0 * a * st * st * invR2) * (rs * r)
+    dr_dphi = 2.0 * a * st * st
+    dtheta = -R2
+    q = a * a + r * r
+    dphi = (st * st * invR2) * (D * a * a * st * st - q * q)
+    return sym_metric(
+        {
+            (0, 0): -dv,
+            (0, 1): -0.5 * dv_dr,
+            (0, 3): -0.5 * dv_dphi,
+            (1, 3): -0.5 * dr_dphi,
+            (2, 2): -dtheta,
+            (3, 3): -dphi,
+        }
+    )
+
+
+kerr_ingoing_ef = register(
+    Metric(
+        name="kerr_ingoing_ef",
+        fn=kerr_ingoing_ef_fn,
+        config=make_config(
+            "ingoing_ef_base",
+            name="kerr_ingoing_ef",
+            use_prepass=True,
+            description="Kerr with a traversable horizon (ingoing EF)",
+        ),
+        defaults={"rs": 1.0, "a": -0.5},
+        depends_on=(1, 2),
+        structure=frozenset(
+            {(0, 0), (0, 1), (0, 3), (1, 3), (2, 2), (3, 3)}
+        ),
+    )
+)
+
+
+def kerr_newman_boyer_fn(x, params):
+    """scripts/kerr_newman_boyer.js — charged spinning black hole in BL."""
+    rs, r2q, a = params["rs"], params["r2q"], params["a"]
+    r, theta = x[1], x[2]
+    ct, st = torch.cos(theta), torch.sin(theta)
+    p2 = r * r + a * a * ct * ct
+    D = r * r - rs * r + a * a + r2q * r2q
+    inv_p2 = recip(p2)
+    dr = -p2 * recip(D)
+    dtheta = -p2
+    dt_1 = D * inv_p2
+    dtdphi_1 = -2.0 * a * st * st * D * inv_p2
+    u = a * st * st
+    dphi_1 = u * u * D * inv_p2
+    q = r * r + a * a
+    dphi_2 = -(q * q) * st * st * inv_p2
+    dtdphi_2 = 2.0 * a * q * st * st * inv_p2
+    dt_2 = -a * a * st * st * inv_p2
+    dtdphi = dtdphi_1 + dtdphi_2
+    return sym_metric(
+        {
+            (0, 0): -(dt_1 + dt_2),
+            (1, 1): -dr,
+            (2, 2): -dtheta,
+            (3, 3): -(dphi_1 + dphi_2),
+            (0, 3): -dtdphi * 0.5,
+        }
+    )
+
+
+kerr_newman_boyer = register(
+    Metric(
+        name="kerr_newman_boyer",
+        fn=kerr_newman_boyer_fn,
+        config=make_config(
+            "polar_base",
+            name="kerr_newman_boyer",
+            adaptive_precision=True,
+            detect_singularities=True,
+            max_acceleration_change=1e-6,
+            description="A charged, spinning black hole",
+        ),
+        defaults={"rs": 1.0, "r2q": 0.51, "a": -0.51},
+        depends_on=(1, 2),
+        structure=frozenset({(0, 0), (1, 1), (2, 2), (3, 3), (0, 3)}),
+    )
+)
+
+
+def kerr_rational_polynomial_fn(x, params):
+    """scripts/kerr_rational_polynomial.js — Kerr with X = cos(theta)."""
+    m, a = params["m"], params["a"]
+    r, X = x[1], x[2]
+    S = r * r + a * a * X * X
+    invS = recip(S)
+    dt = -(1.0 - 2.0 * m * r * invS)
+    dphidt = -(4.0 * a * m * r * (1.0 - X * X)) * invS
+    dr = S * recip(r * r - 2.0 * m * r + a * a)
+    dX = S * recip(1.0 - X * X)
+    dphi = (1.0 - X * X) * (
+        r * r + a * a + (2.0 * m * a * a * r * (1.0 - X * X)) * invS
+    )
+    return sym_metric(
+        {
+            (0, 0): dt,
+            (1, 1): dr,
+            (2, 2): dX,
+            (3, 3): dphi,
+            (0, 3): dphidt * 0.5,
+        }
+    )
+
+
+kerr_rational_polynomial = register(
+    Metric(
+        name="kerr_rational_polynomial",
+        fn=kerr_rational_polynomial_fn,
+        config=make_config(
+            None,
+            name="kerr_rational_polynomial",
+            coordinate_system="X_Y_THETA_PHI",
+            adaptive_precision=True,
+            detect_singularities=True,
+            max_acceleration_change=1e-6,
+            to_polar="rational_to_polar",
+            from_polar="polar_to_rational",
+            origin_distance="at_origin",
+            description="Kerr in rational polynomial form",
+        ),
+        defaults={"m": 0.5, "a": -0.25},
         depends_on=(1, 2),
         structure=frozenset({(0, 0), (1, 1), (2, 2), (3, 3), (0, 3)}),
     )

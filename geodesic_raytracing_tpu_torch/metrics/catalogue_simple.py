@@ -1,7 +1,8 @@
 """Spherically symmetric / diagonal metrics (port of
 ``geodesic_raytracing_tpu.metrics.catalogue_simple``): ``minkowski``,
 ``minkowski_skew``, ``schwarzschild``, ``schwarzschild_fast``,
-``schwarzschild_skewed``, ``schwarzschild_ingoing_ef`` and ``de_sitter``,
+``schwarzschild_skewed``, ``schwarzschild_ingoing_ef``, ``de_sitter``,
+``wormhole (morris-thorne)``, ``black_hole_cosmic_string`` and ``ernst``,
 with the reference's configs field for field.
 
 Quotients are written ``c * recip(x)`` (the reference's ``c / x``; the same
@@ -195,6 +196,91 @@ de_sitter = register(
         defaults={"cosmological_constant": 0.01},
         diagonal=True,
         spherically_symmetric=True,
+        depends_on=(1, 2),
+    )
+)
+
+
+def wormhole_fn(x, params):
+    """scripts/wormhole.js — Morris-Thorne wormhole (arXiv:0904.4184);
+    p runs through the throat, negative on the far side."""
+    n = params["n"]
+    p, theta = x[1], x[2]
+    st = torch.sin(theta)
+    b = p * p + n * n
+    return diag_metric(-1.0, 1.0, b, b * st * st)
+
+
+wormhole = register(
+    Metric(
+        name="wormhole (morris-thorne)",
+        fn=wormhole_fn,
+        config=make_config(
+            "polar_base",
+            name="wormhole (morris-thorne)",
+            adaptive_precision=False,
+            detect_singularities=False,
+        ),
+        defaults={"n": 1.0},
+        diagonal=True,
+        spherically_symmetric=True,
+        depends_on=(1, 2),
+    )
+)
+
+
+def cosmic_string_bh_fn(x, params):
+    """scripts/cosmic_string_bh.js — Schwarzschild with a conical deficit."""
+    rs, B = params["rs"], params["B"]
+    r, theta = x[1], x[2]
+    st = torch.sin(theta)
+    return diag_metric(
+        -(1.0 - rs * recip(r)),
+        recip(1.0 - rs * recip(r)),
+        r * r,
+        r * r * B * B * st * st,
+    )
+
+
+black_hole_cosmic_string = register(
+    Metric(
+        name="black_hole_cosmic_string",
+        fn=cosmic_string_bh_fn,
+        config=make_config(
+            "polar_base",
+            name="black_hole_cosmic_string",
+            max_acceleration_change=1e-6,
+        ),
+        defaults={"rs": 1.0, "B": 0.3},
+        diagonal=True,
+        depends_on=(1, 2),
+    )
+)
+
+
+def ernst_fn(x, params):
+    """scripts/ernst.js — black hole in a magnetic field."""
+    B, rs = params["B"], params["rs"]
+    r, theta = x[1], x[2]
+    st = torch.sin(theta)
+    lam = 1.0 + B * B * r * r * st * st
+    lam2 = lam * lam
+    f = 1.0 - rs * recip(r)
+    return diag_metric(-lam2 * f, lam2 * recip(f), lam2 * r * r,
+                       r * r * st * st * recip(lam2))
+
+
+ernst = register(
+    Metric(
+        name="ernst",
+        fn=ernst_fn,
+        config=make_config(
+            "polar_base",
+            name="ernst",
+            max_acceleration_change=1e-6,
+        ),
+        defaults={"B": 0.0000025, "rs": 1.0},
+        diagonal=True,
         depends_on=(1, 2),
     )
 )

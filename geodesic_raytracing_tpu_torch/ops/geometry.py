@@ -93,6 +93,12 @@ def arctan2(y: Tensor, x: Tensor) -> Tensor:
     return _Arctan2.apply(y, x)
 
 
+def arccos(x: Tensor) -> Tensor:
+    """The reference's acos through the polynomial atan2:
+    ``arctan2(sqrt(max(1 - x^2, 0)), x)``, with its derivatives."""
+    return arctan2(torch.sqrt(torch.clamp(1.0 - x * x, min=0.0)), x)
+
+
 # ---------------------------------------------------------------------------
 # Single-event 4x4 algebra (camera frame)
 # ---------------------------------------------------------------------------

@@ -70,6 +70,14 @@ INSTANCES = {
     "de_sitter": ("DeSitter", ("cosmological_constant",)),
     "minkowski": ("Minkowski", ()),
     "minkowski_skew": ("MinkowskiSkew", ()),
+    "wormhole (morris-thorne)": ("Wormhole", ("n",)),
+    "black_hole_cosmic_string": ("BlackHoleCosmicString", ("rs", "B")),
+    "ernst": ("Ernst", ("B", "rs")),
+    "kerr_newman_boyer": ("KerrNewmanBoyer", ("rs", "r2q", "a")),
+    "kerr_ingoing_ef": ("KerrIngoingEF", ("rs", "a")),
+    "kerr_rational_polynomial": ("KerrRationalPolynomial", ("m", "a")),
+    "misner_4d": ("Misner4D", ("phi0",)),
+    "cosmic_string_spinning": ("CosmicStringSpinning", ("a", "k")),
 }
 
 # What a metric struct of csrc/ has compiled in besides the metric function:
@@ -204,7 +212,8 @@ def build(name: str, flags=None) -> Path:
     struct, _ = _instance(name)
     flags = tuple(NVCC_FLAGS if flags is None else flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"libgrt_raymarch_{name}_{source_hash(flags)}.so"
+    # Named by the struct: a metric's name may hold spaces and parentheses.
+    lib_path = BUILD_DIR / f"libgrt_raymarch_{struct}_{source_hash(flags)}.so"
     report_path = lib_path.with_suffix(".ptxas.txt")
     key = (name, flags)
     if lib_path.exists() and report_path.exists():

@@ -25,6 +25,7 @@ def test_port_imports_without_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         pkg.__path__, pkg.__name__ + "."))
     for new in ("cli", "ops.planar", "metrics.catalogue_simple",
+                "metrics.catalogue_exotic",
                 "render.colour", "render.cie1931_data", "carry", "fit",
                 "parallel", "parallel.mesh", "physics", "physics.geodesics",
                 "utils", "utils.checkpoint"):

@@ -32,6 +32,11 @@ torch.set_num_threads(1)
 SEVEN = ("minkowski", "minkowski_skew", "schwarzschild",
          "schwarzschild_fast", "schwarzschild_skewed",
          "schwarzschild_ingoing_ef", "de_sitter")
+# The eight metrics of catalogue slice A (tests/test_torch_metrics_catalogue_a.py).
+CATALOGUE_A = ("wormhole (morris-thorne)", "black_hole_cosmic_string", "ernst",
+               "kerr_newman_boyer", "kerr_ingoing_ef",
+               "kerr_rational_polynomial", "misner_4d",
+               "cosmic_string_spinning")
 
 
 def _events(name, n=256, seed=0):
@@ -102,8 +107,8 @@ def test_symmetric_polar_precision_weights():
 
 
 @pytest.mark.parametrize("base", ["polar_base", "cartesian_base",
-                                  "cartesian_skew_base", "ingoing_ef_base",
-                                  "skewed_polar_base"])
+                                  "cartesian_skew_base", "cylindrical_base",
+                                  "ingoing_ef_base", "skewed_polar_base"])
 def test_base_configs_match_jax(base):
     assert tbase.BASE_CONFIGS[base] == jbase.BASE_CONFIGS[base]
 
@@ -169,5 +174,6 @@ def test_diag_metric_matches_jax():
 def test_unported_metric_is_a_key_error():
     with pytest.raises(KeyError, match="not ported yet"):
         tmetrics.get_metric("alcubierre")
-    assert set(SEVEN) | {"kerr_boyer"} == set(tmetrics.list_metrics())
+    assert set(SEVEN) | {"kerr_boyer"} | set(CATALOGUE_A) == set(
+        tmetrics.list_metrics())
     assert jax.default_backend() == "cpu"
