@@ -23,7 +23,7 @@ against the plain march; the ``schwarzschild`` frame in planar mode at
 each launch of its 480x270 twin against the plain march; planar against 4-D;
 the 128x128 golden scenes of every metric and ``kerr_redshift``; and a dense
 1080p frame of every metric through ``render_frame``, its launch against the
-plain march (the Kerr family's 480x270 twin instead, ``NO_1080P_PLAIN``).
+plain march (its 480x270 twin instead for ``NO_1080P_PLAIN``).
 Then the third path: the differentiable fit at ``scripts/fit_bench.py``'s
 size (``kerr_boyer`` 256x256, a 2048-step budget, an 896-iteration scan in
 windows of 128): its target, the train step's probe launch against the plain
@@ -32,10 +32,13 @@ difference, two timed train steps and the ``fit`` CLI; and the geodesic
 camera: a 4096-step recording on the card against the CPU's (and where the
 two part), the tetrad's transport, and the adaptive 1080p frame from that
 camera, its 480x270 twin's launches against the plain march.  Then the
-fourth path: the adaptive 1080p frame of each metric of catalogue slice A
-(first, warm and steady frames, launches counted, against its dense frame, a
-steady frame without host synchronisation, stage times) and the CLI's
-adaptive 1080p ``kerr_newman_boyer`` frame.
+fourth and fifth paths: the adaptive 1080p frame of each metric of catalogue
+slices A and B (first, warm and steady frames, launches counted, against its
+dense frame, a steady frame without host synchronisation, stage times) and the
+CLI's adaptive 1080p ``kerr_newman_boyer`` frame.  Slice B's instances also
+enter phase 14 (after a probe of the forward-mode rules torch applies on the
+card, ``tangent_rules``), 18 (with ``alcubierre_paper``) and 19, each scene
+with its preset camera and Features (``SCENES``).
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
 kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
@@ -60,12 +63,14 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import shlex
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -135,30 +140,118 @@ OPS_BY_INSTANCE = {
     ("kerr_rational_polynomial", False): 73 + 89 + 111,
     ("misner_4d", False): 0 + 5 + 122,
     ("cosmic_string_spinning", False): 5 + 20 + 117,
+    # Catalogue slice B, by the same rule, each libm call (exp, log, log1p,
+    # tanh, powf) counted as one, as sin is; the polynomial arctan of the
+    # reference is its 26 operations.  A tangent costs one operation a live
+    # tangent for a unary rule, three for a product of two duals that both
+    # carry it; tanh's fused 1 - y*y counts two.  No blow-up test takes 5
+    # less; the cartesian chart's r adds 6 and alcubierre_origin (the
+    # chart's two arctan2, two sincos) 89 more.
+    ("janis_newman_winicour", False): 48 + 46 + 109,
+    ("janis_newman_winicour", True): 42 + 34 + 99,
+    ("schwarzschild_ingoing_ef_hawking", False): 47 + 51 + 111,
+    ("schwarzschild_ingoing_ef_hawking", True): 41 + 39 + 101,
+    ("configurable_wormhole", False): 77 + 24 + 109,
+    ("configurable_wormhole", True): 71 + 16 + 99,
+    ("ellis_drainhole", False): 84 + 80 + 81,
+    ("ellis_drainhole", True): 78 + 60 + 71,
+    ("symmetric_warp_drive", False): 116 + 46 + 112,
+    ("alcubierre", False): 89 + 110 + 199,
+    ("krasnikov_tube", False): 114 + 110 + 115,
+    ("krasnikov_cylindrical", False): 89 + 85 + 113,
+    ("godel_cylindrical", False): 29 + 30 + 116,
 }
 # The metrics of catalogue slice A, the fourth path (phase 26).
 CATALOGUE_A = ("black_hole_cosmic_string", "cosmic_string_spinning", "ernst",
                "kerr_ingoing_ef", "kerr_newman_boyer",
                "kerr_rational_polynomial", "misner_4d",
                "wormhole (morris-thorne)")
-# Of those, the Kerr family: a plain march of their 1080p frame would take
-# 60-110 s each (the longest ray's 10,000 steps at ~7 ms an eager step), so
-# they are held against the plain march on their 480x270 frame's launch and
-# on phase 14's sets, and their 1080p launch is measured without one.
+# The metrics of catalogue slice B, the fifth path (phases 14, 18, 19, 26).
+CATALOGUE_B = ("alcubierre", "configurable_wormhole", "ellis_drainhole",
+               "godel_cylindrical", "janis_newman_winicour",
+               "krasnikov_cylindrical", "krasnikov_tube",
+               "schwarzschild_ingoing_ef_hawking", "symmetric_warp_drive")
+# Metrics whose plain march of their 1080p frame would take more than ~30 s
+# (the longest ray's trial iterations at ~7-12 ms an eager step): the Kerr
+# family of slice A (10,000 steps, 60-110 s each) and krasnikov_cylindrical
+# (its 1080p launch's longest ray takes 6,037 steps, its 480x270 one's
+# 1,549).  They are held against the plain march on their 480x270 frame's
+# launch and on phase 14's sets, and their 1080p launch is measured without
+# one.
 NO_1080P_PLAIN = ("kerr_ingoing_ef", "kerr_newman_boyer",
-                  "kerr_rational_polynomial")
-# Where make_rays' set would give a metric no escaped ray: the factor on
-# the phi velocity (black_hole_cosmic_string's g_phph carries B^2 = 0.09, so
-# the set's impact parameters shrink by B and every ray falls in) and the
-# sign of v^t (misner_4d's chart ends at x = t, which a ray forward in time
-# reaches before it escapes; the renderer traces backward in time).
-RAY_SET = {"black_hole_cosmic_string": (1 / 0.3, 1.0),
-           "misner_4d": (1.0, -1.0)}
-# The camera time of scenes that need one: scripts/make_goldens.py's
-# misner_4d scene (after the reference's scripts/misner_4d.json:18, "Camera
-# time should be set < 0"; at t = 0 the camera sits on the branch cut of
-# polar_to_misner_4d, log((x - t) / 2) with x = 0).
-SCENE_CAMERA_T = {"misner_4d": -2.0}
+                  "kerr_rational_polynomial", "krasnikov_cylindrical")
+class RaySet(NamedTuple):
+    """How phase 14 (and the host tests) adapt ``make_rays``' set to a
+    metric: a factor on the phi velocity, the sign of v^t, the polar launch
+    time, and how many rays at the front of the set start at r = 0.05 aimed
+    at the centre (v^phi = 0)."""
+
+    phi_scale: float = 1.0
+    time_sign: float = 1.0
+    t0: float = 0.0
+    radial: int = 0
+
+
+# Where make_rays' set would give a metric no escaped ray, or would miss a
+# branch the metric sets: black_hole_cosmic_string's g_phph carries
+# B^2 = 0.09, so the set's impact parameters shrink by B and every ray falls
+# in (phi velocity / 0.3); misner_4d's chart ends at x = t, which a ray
+# forward in time reaches before it escapes (the renderer traces backward in
+# time); godel_cylindrical's rays launched next to the axis and aimed at it
+# die at its cylindrical terminator (p < 0.005: from r = 7 the frame
+# dragging of g_tphi gives a ray aimed at the axis an angular momentum that
+# keeps it 0.03 away); symmetric_warp_drive at t = 10, its scene's time
+# (at t = 0 rays linger inside the warp shell for the whole step budget).
+RAY_SET = {"black_hole_cosmic_string": RaySet(phi_scale=1 / 0.3),
+           "misner_4d": RaySet(time_sign=-1.0),
+           "godel_cylindrical": RaySet(radial=4),
+           "symmetric_warp_drive": RaySet(t0=10.0)}
+
+
+def ray_set(name, n, tilt=0.0):
+    """``make_rays(n)`` (polar position and velocity, numpy) adapted to the
+    metric ``name`` by ``RAY_SET``; ``tilt`` is a theta velocity that takes
+    the rays off the equator."""
+    pos, vel = make_rays(n)
+    rs = RAY_SET.get(name, RaySet())
+    vel[:, 2] = tilt
+    vel[:, 3] *= rs.phi_scale
+    vel[:rs.radial, 3] = 0.0
+    pos[:rs.radial, 1] = 0.05
+    vel[:, 0] *= rs.time_sign
+    pos[:, 0] = rs.t0
+    return pos, vel
+
+
+# The scenes of scripts/make_goldens.py that differ from the flagship camera
+# (polar (t, r, theta, phi) = (0, 7, pi/2, -pi/2), pitch -90 degrees), as
+# (camera polar position, Features overrides):
+#   misner_4d at t = -2 (the reference's scripts/misner_4d.json:18, "Camera
+#   time should be set < 0"; at t = 0 the camera sits on the branch cut of
+#   polar_to_misner_4d, log((x - t) / 2) with x = 0);
+#   alcubierre side-on at r = 4 (the bubble's lensing ring fills the frame;
+#   from r = 7 it is nearly unlensed) and alcubierre_paper on the travel
+#   axis (phi = 0) at r = 4, the bubble moving toward the camera;
+#   the Krasnikov tubes at t = 20 and t = 10 (the tube forms with time: at
+#   t = 0 the scene is flat space);
+#   symmetric_warp_drive at t = 10 with universe and precision radius 100
+#   (its scripts/symmetric_warp_drive.json:9 preset).
+_SIDE = (7.0, math.pi / 2, -math.pi / 2)
+SCENES = {
+    "misner_4d": ((-2.0, *_SIDE), {}),
+    "alcubierre": ((0.0, 4.0, math.pi / 2, -math.pi / 2), {}),
+    "alcubierre_paper": ((0.0, 4.0, math.pi / 2, 0.0), {}),
+    "krasnikov_tube": ((20.0, *_SIDE), {}),
+    "krasnikov_cylindrical": ((10.0, *_SIDE), {}),
+    "symmetric_warp_drive": ((10.0, *_SIDE), dict(
+        universe_size=100.0, max_precision_radius=100.0)),
+}
+# Golden scenes of a metric under another key: key -> (metric, settings
+# overrides).
+SCENE_METRIC = {"kerr_redshift": ("kerr_boyer", dict(redshift=True)),
+                "alcubierre_paper": ("alcubierre", {})}
+
+
 # The planar frame against the 4-D one (tests/test_integrator.py's
 # test_planar_mode_matches_full_4d): fates equal on this share of the pixels
 # (the 4-D march has a polar-axis artifact the planar one has not), and the
@@ -710,17 +803,12 @@ def bench_protocol_mrays(frame, n_pixels: int, passes=3, frames=4) -> float:
 # ---------------------------------------------------------------------------
 
 def chart_rays(metric, params, feats, n, dev, tilt=0.0):
-    """The ``make_rays(n)`` set in the chart of ``metric`` as a launch
-    state; ``tilt`` is a theta velocity that takes the rays off the
-    equator."""
+    """The ``ray_set(metric.name, n, tilt)`` set in the chart of ``metric``
+    as a launch state."""
     import torch
     from geodesic_raytracing_tpu_torch.ops import integrate
 
-    pos, vel = make_rays(n)
-    vel[:, 2] = tilt
-    phi_scale, time_sign = RAY_SET.get(metric.name, (1.0, 1.0))
-    vel[:, 3] *= phi_scale
-    vel[:, 0] *= time_sign
+    pos, vel = ray_set(metric.name, n, tilt)
     p, v = torch.from_numpy(pos).to(dev).T, torch.from_numpy(vel).to(dev).T
     return integrate.init_ray_state(
         metric, metric.from_polar(p, params).T.contiguous(),
@@ -728,14 +816,24 @@ def chart_rays(metric, params, feats, n, dev, tilt=0.0):
         feats)
 
 
-def scene_camera(name, camera):
-    """``camera`` with the time of the scene of metric ``name``
-    (``SCENE_CAMERA_T``), or as it is."""
-    if name not in SCENE_CAMERA_T:
+def scene_camera(key, camera):
+    """``camera`` at the position of the scene ``key`` (``SCENES``), or as
+    it is."""
+    import torch
+
+    if key not in SCENES:
         return camera
-    pos = camera.polar_position.clone()
-    pos[0] = SCENE_CAMERA_T[name]
-    return camera._replace(polar_position=pos)
+    pos = torch.tensor(SCENES[key][0], dtype=torch.float32)
+    return camera._replace(polar_position=pos.to(camera.polar_position.device))
+
+
+def scene_features(key, metric):
+    """The Features of the scene ``key`` (``SCENES``' overrides) for
+    ``metric``."""
+    from geodesic_raytracing_tpu_torch.ops import integrate
+
+    over = SCENES[key][1] if key in SCENES else {}
+    return integrate.Features.for_metric(metric, **over)
 
 
 def golden_key(name):
@@ -756,6 +854,63 @@ def assert_equals_plain(what, k, p):
     return err
 
 
+def tangent_rules(dev) -> dict:
+    """Phase 14's probe of the forward-mode rules of the installed torch on
+    the card: ``torch.func.jvp`` of each elementwise function that catalogue
+    slice B's metrics call, on 2^20 seeded float32 inputs, against candidate
+    orderings of its tangent evaluated op by op in float32 (a fused
+    multiply-add in float64, rounded once).  Prints the number of inputs on
+    which each candidate's bits differ and raises unless the rule of
+    ``csrc/dual.cuh`` (the first candidate) matches on every input.
+    Returns ``{function: {candidate: mismatches}}``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    n = 1 << 20
+    pos = (torch.rand(n, generator=gen) * 8 + 1e-2).to(dev)
+    signed = (torch.rand(n, generator=gen) * 16 - 8).to(dev)
+    t = torch.randn(n, generator=gen).to(dev)
+
+    def fma(a, b, c):
+        return (a.double() * b.double() + c).float()
+
+    def bits(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    cases = {
+        "sqrt": (torch.sqrt, pos, {
+            "t / (2 y)": lambda x, y: t / (2 * y),
+            "t * (0.5 / y)": lambda x, y: t * (0.5 / y)}),
+        "exp": (torch.exp, signed, {"t * y": lambda x, y: t * y}),
+        "log": (torch.log, pos, {"t / x": lambda x, y: t / x,
+                                 "t * (1 / x)": lambda x, y: t * (1 / x)}),
+        "log1p": (torch.log1p, pos, {
+            "t / (x + 1)": lambda x, y: t / (x + 1),
+            "t * (1 / (x + 1))": lambda x, y: t * (1 / (x + 1))}),
+        "tanh": (torch.tanh, signed, {
+            "t * fma(-y, y, 1)": lambda x, y: t * fma(-y, y, 1.0),
+            "t * (1 - y y)": lambda x, y: t * (1 - y * y)}),
+        "abs": (torch.abs, signed, {
+            "t * sgn(x)": lambda x, y: t * torch.sgn(x)}),
+        "clamp(min=0)": (lambda x: torch.clamp(x, min=0.0), signed, {
+            "where(x >= 0, t, 0)": lambda x, y: torch.where(
+                x >= 0, t, torch.zeros_like(t))}),
+    }
+    for e in (1.5, 4, 0.25, -0.75, 1.25, -1.75):
+        cases[f"x ** {e}"] = (lambda x, e=e: x ** e, pos, {
+            "t * (e * x ** (e - 1))": lambda x, y, e=e: t * (e * x ** (e - 1)),
+            "t * e * x ** (e - 1)": lambda x, y, e=e: t * e * x ** (e - 1)})
+    out = {}
+    for name, (fn, x, cands) in cases.items():
+        y, d = torch.func.jvp(fn, (x,), (t,))
+        out[name] = {k: bits(c(x, y), d) for k, c in cands.items()}
+        print(f"[14 rules] torch.func.jvp of {name} on {dev}, {n} inputs: "
+              + ", ".join(f"{k} differs on {v}" for k, v in
+                          out[name].items()))
+        assert next(iter(out[name].values())) == 0, (name, out[name])
+    return out
+
+
 def check_instances(dev, skip=("kerr_boyer",)) -> dict:
     """Phase 14: each kernel instance but ``skip`` against the plain torch
     march on ``make_rays`` sets (64 and 4096 rays; 4096 once more off the
@@ -764,6 +919,8 @@ def check_instances(dev, skip=("kerr_boyer",)) -> dict:
     plain twin as one state, and its planar sets as another: a ray's march
     depends on its own state alone, so this changes no bit, and the plain
     twin, whose time is the longest ray's steps, marches once per mode.
+    ``branch_rays`` checks that ``godel_cylindrical``'s sets reach its
+    cylindrical terminator and ``alcubierre``'s its bubble's wall.
     ``kerr_boyer`` is held at its paths' own shapes instead: the same 64-ray
     set in phase 2, every ray of the 1080p frame (on and off the equator) in
     phase 3, the adaptive and fit launches in phases 9, 11, 20 and 25.
@@ -796,15 +953,47 @@ def check_instances(dev, skip=("kerr_boyer",)) -> dict:
             for n, tilt in sets:
                 rows = slice(lo, lo + n)
                 lo += n
-                err = assert_equals_plain(
-                    f"[14 instances] {name} {'planar' if planar else '4-D'} "
-                    f"{n} rays{' off the equator' if tilt else ''}",
-                    integrate.RayState(*(t[rows] for t in k)),
-                    integrate.RayState(*(t[rows] for t in p)))
+                what = (f"[14 instances] {name} "
+                        f"{'planar' if planar else '4-D'} {n} rays"
+                        f"{' off the equator' if tilt else ''}")
+                kr = integrate.RayState(*(t[rows] for t in k))
+                pr = integrate.RayState(*(t[rows] for t in p))
+                err = assert_equals_plain(what, kr, pr)
                 errs[name] = max(errs.get(name, 0.0), err)
+                branch_rays(what, m, integrate.RayState(
+                    *(t[rows] for t in st)), kr, pr)
             print(f"[14 instances] {name} {'planar' if planar else '4-D'}: "
                   f"one plain march of the {lo} rays {plain_s:.1f} s")
     return errs
+
+
+def branch_rays(what, metric, s_in, k, p) -> None:
+    """Phase 14's checks that a set runs the branch its metric was given it
+    for: ``godel_cylindrical``'s rays aimed at the axis die at the
+    cylindrical terminator (p < 0.005), the same rays in the kernel and in
+    the plain march; ``alcubierre``'s rays meet the bubble's wall (their
+    escape direction is more than a degree off their launch direction:
+    outside the wall the metric is flat, and a ray that misses it runs
+    straight)."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate
+
+    if metric.name == "godel_cylindrical":
+        term = [(s.status == integrate.DEAD)
+                & (s.position[:, 1] < metric.config.cylindrical_terminator)
+                for s in (k, p)]
+        print(f"{what}: {int(term[0].sum())} rays died at the cylindrical "
+              "terminator in the kernel, the same rays in the plain march "
+              f"{bool(torch.equal(term[0], term[1]))}")
+        assert int(term[0].sum()) >= 1 and torch.equal(term[0], term[1])
+    if metric.name == "alcubierre":
+        v0, v1 = s_in.velocity[:, 1:], k.velocity[:, 1:]
+        cos = (v0 * v1).sum(-1) / (v0.norm(dim=-1) * v1.norm(dim=-1))
+        met = (k.status == integrate.ESCAPED) & (
+            cos < math.cos(math.radians(1.0)))
+        print(f"{what}: {int(met.sum())} escaped rays met the bubble's wall "
+              "(deflected by more than 1 degree)")
+        assert int(met.sum()) >= 8
 
 
 def check_step_options(dev) -> float:
@@ -1145,11 +1334,10 @@ def planar_vs_4d(dev, sky) -> dict:
 
 def golden_scenes(dev) -> dict:
     """Phase 18: the 128x128 scenes of scripts/make_goldens.py for every
-    metric but ``kerr_boyer`` and for ``kerr_redshift`` through the kernel
-    path (``misner_4d`` with its scene's camera time), against
-    ``tests/golden/catalogue/*.png`` with the golden gate."""
-    import math
-
+    metric but ``kerr_boyer`` and for ``kerr_redshift`` and
+    ``alcubierre_paper`` through the kernel path (each with its scene's
+    camera and Features, ``SCENES``), against ``tests/golden/catalogue/
+    *.png`` with the golden gate."""
     import torch
     from geodesic_raytracing_tpu_torch import cli, metrics
     from geodesic_raytracing_tpu_torch.camera import Camera
@@ -1161,7 +1349,7 @@ def golden_scenes(dev) -> dict:
     camera = Camera.default(device=dev).rotate(pitch=-math.pi / 2)
     scenes = {n: (n, {}) for n in sorted(raymarch.INSTANCES)
               if n != "kerr_boyer"}
-    scenes["kerr_redshift"] = ("kerr_boyer", dict(redshift=True))
+    scenes.update(SCENE_METRIC)
     out = {}
     for key, (name, sets_over) in scenes.items():
         m = metrics.get_metric(name)
@@ -1169,9 +1357,8 @@ def golden_scenes(dev) -> dict:
             width=128, height=128, anisotropy=4,
             trace=integrate.TraceOptions(max_steps=8192), **sets_over)
         raymarch.reset_launch_counts()
-        img = pl.render_frame(m, scene_camera(name, camera), m.params(), sky,
-                              settings, integrate.Features.for_metric(m),
-                              device=dev)
+        img = pl.render_frame(m, scene_camera(key, camera), m.params(), sky,
+                              settings, scene_features(key, m), device=dev)
         assert raymarch.LAUNCHES_BY_METRIC == {name: 1}
         assert bool(torch.isfinite(img).all())
         golden = cli.read_png(ROOT / "tests" / "golden" / "catalogue"
@@ -1191,7 +1378,7 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     scene's camera time), the work of its launch and of its 480x270 twin,
     and the 1080p launch against the plain march on all rays (the 480x270
     twin instead for ``NO_1080P_PLAIN``).  Returns ``({metric: row},
-    {metric of CATALOGUE_A: its dense frame})``."""
+    {metric of CATALOGUE_A or CATALOGUE_B: its dense frame})``."""
     import torch
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
@@ -1201,9 +1388,10 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     for name in sorted(raymarch.INSTANCES):
         if name in skip:
             continue
-        metric, params, camera, asettings, feats = flagship_config(
+        metric, params, camera, asettings, _ = flagship_config(
             device=dev, metric=name)
         camera = scene_camera(name, camera)
+        feats = scene_features(name, metric)
         settings = dataclasses.replace(asettings, adaptive_sampling=False)
         with recorded_launches(integrate, with_opts=True) as launch:
             raymarch.reset_launch_counts()
@@ -1215,7 +1403,7 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
         assert bool(torch.isfinite(img).all())
         assert tuple(img.shape) == (1080, 1920, 3)
         black = float((img == 0).all(dim=-1).float().mean())
-        if name in CATALOGUE_A:
+        if name in CATALOGUE_A + CATALOGUE_B:
             frames[name] = img
         (s_in, s_out, width, opts), = launch
         assert opts.planar == bool(metric.spherically_symmetric)
@@ -1255,10 +1443,11 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     return rows, frames
 
 
-def fourth_path(dev, sky, dense) -> dict:
-    """Phase 26: every metric of catalogue slice A through the main path,
-    ``render_frame``'s adaptive 1920x1080 frame with the flagship settings
-    (``flagship_config(metric=name)``, the scene's camera time) and a fresh
+def catalogue_paths(dev, sky, dense) -> dict:
+    """Phase 26: every metric of catalogue slices A and B (the fourth and
+    the fifth path) through the main path, ``render_frame``'s adaptive
+    1920x1080 frame with the flagship settings (``flagship_config(
+    metric=name)``, the scene's camera and Features) and a fresh
     RefineBudgetController: a first frame (three launches where the config
     asks for the prepass, else two), three warm frames and a steady one (two
     launches each), the counts set to 0 before each frame and read after
@@ -1272,10 +1461,11 @@ def fourth_path(dev, sky, dense) -> dict:
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
 
     out = {}
-    for name in CATALOGUE_A:
-        metric, params, camera, asettings, feats = flagship_config(
+    for name in CATALOGUE_A + CATALOGUE_B:
+        metric, params, camera, asettings, _ = flagship_config(
             device=dev, metric=name)
         camera = scene_camera(name, camera)
+        feats = scene_features(name, metric)
         assert asettings.adaptive_sampling and asettings.shade_traced_only
         first_n = 3 if metric.config.use_prepass else 2
         controller = pl.RefineBudgetController()
@@ -1353,7 +1543,7 @@ def cli_catalogue_a(dev) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--list"])
     listed = buf.getvalue().split("\n")
-    assert rc == 0 and set(CATALOGUE_A) <= set(listed), listed
+    assert rc == 0 and set(CATALOGUE_A + CATALOGUE_B) <= set(listed), listed
     assert set(listed) >= set(metrics.list_metrics())
     png = ROOT / "build" / "chip_smoke" / "kerr_newman_cli_adaptive.png"
     png.parent.mkdir(parents=True, exist_ok=True)
@@ -2321,6 +2511,7 @@ def main(argv=None) -> int:
     took("12-13")
 
     # -- 14-19. the second path ------------------------------------------------
+    rules = tangent_rules(dev)
     instance_err = check_instances(dev)
     took("14")
     options_err = check_step_options(dev)
@@ -2340,8 +2531,9 @@ def main(argv=None) -> int:
     geo_row, geo_err = geodesic_camera_path(dev, sky)
     took("25")
 
-    # -- 26. the fourth path: catalogue slice A's adaptive 1080p frames -------
-    fourth = fourth_path(dev, sky, dense_a)
+    # -- 26. the fourth and fifth paths: catalogue slices A and B's adaptive
+    # 1080p frames ---------------------------------------------------------
+    catalogue = catalogue_paths(dev, sky, dense_a)
     del dense_a
     fourth_cli = cli_catalogue_a(dev)
     took("26")
@@ -2382,11 +2574,13 @@ def main(argv=None) -> int:
             "ptxas": ptxas_by_metric[mname],
             "golden": goldens[mname],
         }
-        if mname in fourth:
-            row["launches"] = fourth[mname]["adaptive_first"]["launches"]
-            row["paths"] = fourth[mname]
+        if mname in catalogue:
+            row["launches"] = catalogue[mname]["adaptive_first"]["launches"]
+            row["paths"] = catalogue[mname]
             if mname == "kerr_newman_boyer":
                 row["paths"]["cli"] = fourth_cli
+        if mname == "alcubierre":
+            row["golden_alcubierre_paper"] = goldens["alcubierre_paper"]
         if mname == "schwarzschild":
             row["max_abs_err"] = max(row["max_abs_err"], options_err,
                                      schw["max_abs_err"])
@@ -2424,6 +2618,9 @@ def main(argv=None) -> int:
         "build_flags": " ".join(raymarch.NVCC_FLAGS),
         "ptxas": {**ptxas, **config, **ptxas_by_metric["kerr_boyer"]},
         "golden_kerr_redshift": goldens["kerr_redshift"],
+        # Phase 14's probe: inputs on which each candidate tangent rule
+        # differs from torch.func.jvp on the card (the first is dual.cuh's).
+        "tangent_rules": rules,
         # Launches of one frame of each path through render_frame, counted
         # from 0 just before it; the adaptive launches one by one.
         "paths": {

@@ -1,7 +1,8 @@
 """Coordinate transforms with autodiff Jacobians (port of
 ``geodesic_raytracing_tpu.coordinates.transforms``; the charts of the
 ported metrics: polar, cartesian, skewed cartesian, cylindrical, ingoing
-Eddington-Finkelstein, rational (X = cos theta), skewed polar and Misner).
+Eddington-Finkelstein and its identity variant, rational (X = cos theta),
+skewed polar and Misner).
 
 A transform is ``f(x: (4, ...), params) -> (4, ...)``; velocity transforms
 are one ``torch.func.jvp``.  Canonical polar coordinates are
@@ -111,6 +112,17 @@ def polar_to_ingoing_ef(x, params):
     return torch.stack([v, r, theta, phi])
 
 
+def ingoing_ef_variable_to_polar(x, params):
+    """scripts/coordinates/ingoing_ef_variable_to_polar.js — identity (the
+    polar time coordinate is never round-tripped)."""
+    return x
+
+
+def polar_to_ingoing_ef_variable(x, params):
+    """scripts/coordinates/polar_to_ingoing_ef_variable.js — identity."""
+    return x
+
+
 def polar_to_rational(x, params):
     """scripts/coordinates/polar_to_rational.js — X = cos(theta)."""
     t, r, theta, phi = x[0], x[1], x[2], x[3]
@@ -167,6 +179,8 @@ TRANSFORMS = {
     "polar_to_cylindrical": polar_to_cylindrical,
     "ingoing_ef_to_polar": ingoing_ef_to_polar,
     "polar_to_ingoing_ef": polar_to_ingoing_ef,
+    "ingoing_ef_variable_to_polar": ingoing_ef_variable_to_polar,
+    "polar_to_ingoing_ef_variable": polar_to_ingoing_ef_variable,
     "skewed_polar_to_polar": skewed_polar_to_polar,
     "polar_to_skewed_polar": polar_to_skewed_polar,
     "polar_to_rational": polar_to_rational,

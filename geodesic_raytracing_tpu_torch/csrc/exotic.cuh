@@ -1,6 +1,7 @@
 // Metrics of the exotic catalogue: `misner_4d` (coordinates (T, phi, y, z),
-// g_TT = 0, g depends on T alone) and `cosmic_string_spinning` (cylindrical
-// (t, p, phi, z), g depends on p alone).  Term for term the torch metrics of
+// g_TT = 0, g depends on T alone), `cosmic_string_spinning` and
+// `godel_cylindrical` (cylindrical (t, p, phi, z), g depends on p alone;
+// Godel's chart ends at the axis, the cylindrical terminator).  Term for term the torch metrics of
 // `metrics/catalogue_exotic.py`; a change there must be made here too.  Each
 // chart's polar r is computed in float from the plain coordinates, as the
 // torch step takes it from the chart's to_polar.
@@ -77,6 +78,43 @@ struct CosmicStringSpinning : ExoticBase {
     return sym(entry<0, 0>(-1.0f), entry<1, 1>(1.0f),
                entry<2, 2>(a * a + k * k * p * p), entry<3, 3>(1.0f),
                entry<0, 1>(a));
+  }
+};
+
+// Godel's rotating universe: g_tt = -1, g_pp = 1 / (1 + q^2),
+// g_phiphi = p^2 (1 - q^2), g_zz = 1, g_tphi = -p^2 / (sqrt(2) a), with
+// q = p / (2a).  A ray that reaches p < 0.005 dies (the cylindrical
+// terminator).
+struct GodelCylindrical : ExoticBase {
+  float inv_2a;        // 1 / (2 a)
+  float inv_sqrt2_a;   // 1 / (sqrt(2) a)
+  static constexpr const char* name = "godel_cylindrical";
+  static constexpr int n_params = 1;  // a
+  static constexpr bool detect_singularities = true;
+  static constexpr bool has_cylindrical_singularity = true;
+  GRT_HD static constexpr float weight(int i) { return i == 2 ? 8.0f : 1.0f; }
+  static constexpr double udiv = 8.0;
+  GRT_HD static constexpr int dep(int) { return 1; }
+  GRT_HD static GodelCylindrical from_params(const float* p) {
+    GodelCylindrical m;
+    m.inv_2a = static_cast<float>(1.0 / (2.0 * static_cast<double>(p[0])));
+    m.inv_sqrt2_a =
+        static_cast<float>(1.0 / (sqrt(2.0) * static_cast<double>(p[0])));
+    return m;
+  }
+  // cylindrical_to_polar's r: sqrt(p^2 + z^2).
+  GRT_HD GRT_INLINE float polar_r(const float x[4]) const {
+    return sqrtf(x[1] * x[1] + x[3] * x[3]);
+  }
+  template <class X0, class P, class X2, class X3>
+  GRT_HD GRT_INLINE auto g(const X0&, const P& p, const X2&,
+                           const X3&) const {
+    const auto q = p * inv_2a;
+    const auto q2 = q * q;
+    const auto dt_dphi = -2.0f * p * p * inv_sqrt2_a;
+    return sym(entry<0, 0>(-1.0f), entry<1, 1>(grt_recip(1.0f + q2)),
+               entry<2, 2>(p * p * (1.0f - q2)), entry<3, 3>(1.0f),
+               entry<0, 2>(0.5f * dt_dphi));
   }
 };
 

@@ -22,6 +22,8 @@
 #include <math.h>
 
 #include <cmath>
+#include <type_traits>
+#include <utility>
 
 #include "metrics.cuh"
 
@@ -77,12 +79,26 @@ GRT_HD GRT_INLINE bool grt_isfinite(float x) {
 #endif
 }
 
-GRT_HD GRT_INLINE float grt_rsqrt(float x) {
-#ifdef __CUDA_ARCH__
-  return rsqrtf(x);
-#else
-  return 1.0f / sqrtf(x);
-#endif
+// The metric's origin distance (the step schedule's |r|): M::origin_distance
+// where the metric defines one (its config's origin_distance is not
+// at_origin), else polar[1] of its chart.
+template <class M, class = void>
+struct HasOriginDistance : std::false_type {};
+template <class M>
+struct HasOriginDistance<M, std::void_t<decltype(std::declval<const M&>()
+                                                     .origin_distance(
+                                                         std::declval<
+                                                             const float*>()))>>
+    : std::true_type {};
+
+template <class M>
+GRT_HD GRT_INLINE float origin_distance(const M& m, const float x[4],
+                                        float polar_r) {
+  if constexpr (HasOriginDistance<M>::value) {
+    return m.origin_distance(x);
+  } else {
+    return polar_r;
+  }
 }
 
 // jnp.maximum / jnp.minimum on finite operands.
@@ -286,22 +302,26 @@ template <class Opt = DefaultOptions, class M>
 GRT_HD GRT_INLINE void step(const M& m, const Features& f, float f_in_x,
                             Ray& s) {
   constexpr bool adaptive = M::adaptive_precision && !Opt::euler;
+  // The schedule, the near zone and the far-field step take the origin
+  // distance; the universe sphere and the singular terminator take the
+  // chart's polar r (integrate.py's step, as the reference's).
   const float polar_r = m.polar_r(s.pos);
-  const float abs_r = fabsf(polar_r);  // the at_origin distance
+  const float abs_r = fabsf(polar_r);
+  const float dist = fabsf(origin_distance(m, s.pos, polar_r));
   const float new_max = f.max_precision_radius;
-  const bool near = abs_r < new_max;
+  const bool near = dist < new_max;
   float ds;
   if constexpr (adaptive) {
     ds = s.next_ds;
   } else {
-    // The step schedule (cl.cl:4059-4086): linear in |r| between 3 and the
-    // precision radius.
+    // The step schedule (cl.cl:4059-4086): linear in the distance between 3
+    // and the precision radius.
     const float mixd =
-        fmin2(fmax2((abs_r - 3.0f) * f.sched_inv_span, 0.0f), 1.0f);
+        fmin2(fmax2((dist - 3.0f) * f.sched_inv_span, 0.0f), 1.0f);
     ds = f.ambient_precision + f.sched_slope * mixd;
   }
   ds = near ? fmin2(ds, f.ambient_precision)
-            : 0.1f * (abs_r - new_max) + f.ambient_precision;
+            : 0.1f * (dist - new_max) + f.ambient_precision;
 
   // Termination tests on the current position; escape takes precedence.
   bool escaped = abs_r >= f.universe_size;

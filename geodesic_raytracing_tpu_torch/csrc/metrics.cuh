@@ -8,14 +8,23 @@
 //   cylindrical_terminator, unconditionally_nonsingular   the MetricConfig
 //   weight(i), udiv      precision weights of the chart and their maximum
 //   n_deps, dep(k)       the coordinates g depends on; dep(k) seeds tangent k
-//   polar_r(x)           polar[1] of the chart's to_polar (the at_origin
-//                        distance and the escape radius)
+//   polar_r(x)           polar[1] of the chart's to_polar (the escape
+//                        radius, and the at_origin distance)
+//   origin_distance(x)   optional: the config's origin_distance where it is
+//                        not at_origin (the step schedule's distance)
 //   g(x0, x1, x2, x3)    the metric as a Sym of typed entries (sym.cuh); each
 //                        coordinate is a dual that carries the tangent it
-//                        seeds, or none
+//                        seeds, or none (up to kTangents = 4 of them)
+// One header per family: kerr_boyer.cuh, schwarzschild.cuh, minkowski.cuh,
+// exotic.cuh (Misner, the spinning string, Godel), wormhole.cuh (Janis-
+// Newman-Winicour, evaporating Schwarzschild, Thorne's and Ellis's
+// wormholes), warp.cuh (Alcubierre, the Krasnikov tubes, the symmetric warp
+// drive).
 #pragma once
 
 #include "exotic.cuh"
 #include "kerr_boyer.cuh"
 #include "minkowski.cuh"
 #include "schwarzschild.cuh"
+#include "warp.cuh"
+#include "wormhole.cuh"

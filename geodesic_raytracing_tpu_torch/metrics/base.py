@@ -51,7 +51,8 @@ class MetricConfig:
 
 
 # Base presets the ported metrics inherit (scripts/{polar,cartesian,
-# cartesian_skew,cylindrical,ingoing_ef,skewed_polar}_base.json).
+# cartesian_skew,cylindrical,ingoing_ef,ingoing_ef_variable,
+# skewed_polar}_base.json).
 BASE_CONFIGS: dict[str, dict] = {
     "polar_base": dict(
         coordinate_system="X_Y_THETA_PHI",
@@ -102,6 +103,17 @@ BASE_CONFIGS: dict[str, dict] = {
         coordinate_periodicity="polar_periodicity",
         origin_distance="at_origin",
     ),
+    "ingoing_ef_variable_base": dict(
+        coordinate_system="X_Y_THETA_PHI",
+        traversable_event_horizon=True,
+        adaptive_precision=True,
+        detect_singularities=True,
+        max_acceleration_change=1e-6,
+        to_polar="ingoing_ef_variable_to_polar",
+        from_polar="polar_to_ingoing_ef_variable",
+        coordinate_periodicity="polar_periodicity",
+        origin_distance="at_origin",
+    ),
     "skewed_polar_base": dict(
         coordinate_system="X_Y_THETA_PHI",
         adaptive_precision=True,
@@ -129,8 +141,23 @@ def at_origin(polar: Tensor, params) -> Tensor:
     return polar[1]
 
 
+def alcubierre_origin(polar: Tensor, params) -> Tensor:
+    """scripts/origins/alcubierre_origin.js — distance to the moving warp
+    bubble at x = v t, from the polar event.  The kernel's
+    ``Alcubierre::origin_distance`` (csrc/warp.cuh) computes the same
+    composition."""
+    t, r, theta, phi = polar[0], polar[1], polar[2], polar[3]
+    st = torch.sin(theta)
+    cx = r * st * torch.cos(phi)
+    cy = r * st * torch.sin(phi)
+    cz = r * torch.cos(theta)
+    x_pos = cx - params["velocity"] * t
+    return torch.sqrt(x_pos * x_pos + cy * cy + cz * cz)
+
+
 ORIGINS = {
     "at_origin": at_origin,
+    "alcubierre_origin": alcubierre_origin,
     "": at_origin,
 }
 

@@ -8,6 +8,7 @@ kernel's dual numbers (``csrc/dual.cuh``), kept independent of them.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -86,6 +87,34 @@ class _Arctan2(torch.autograd.Function):
         return (x * gd).sum_to_size(y.shape), (y * -gd).sum_to_size(x.shape)
 
 
+class _Arctan(torch.autograd.Function):
+    @staticmethod
+    def forward(x):
+        return _arctan_poly(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, dx):
+        x, = ctx.saved_tensors
+        return dx / (1.0 + x * x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The transpose of the tangent rule, as jax.grad forms it.
+        x, = ctx.saved_tensors
+        return g / (1.0 + x * x)
+
+
+def arctan(x: Tensor) -> Tensor:
+    """The reference's polynomial atan with the exact derivative
+    ``dx / (1 + x^2)`` in forward and reverse mode."""
+    return _Arctan.apply(x)
+
+
 def arctan2(y: Tensor, x: Tensor) -> Tensor:
     """The reference's polynomial atan2 (numpy quadrant conventions) with
     the exact derivative ``(x dy - y dx) / (x^2 + y^2)`` in forward and
@@ -97,6 +126,57 @@ def arccos(x: Tensor) -> Tensor:
     """The reference's acos through the polynomial atan2:
     ``arctan2(sqrt(max(1 - x^2, 0)), x)``, with its derivatives."""
     return arctan2(torch.sqrt(torch.clamp(1.0 - x * x, min=0.0)), x)
+
+
+def pow_pos(base, exponent: float):
+    """``base ** exponent`` for ``base >= 0`` as the reference's
+    ``exp(log(max(base, 1e-37)) * exponent)``, with ``base <= 0`` mapped to
+    exactly 0 (value and tangent).  A Python float ``base`` (a parameter
+    expression) is evaluated in double, as Python evaluates it."""
+    if not isinstance(base, torch.Tensor):
+        return math.exp(math.log(max(base, 1e-37)) * exponent) \
+            if base > 0 else 0.0
+    safe = torch.clamp(base, min=1e-37)
+    return torch.where(base > 0, torch.exp(torch.log(safe) * exponent), 0.0)
+
+
+# Expressions of parameters alone are evaluated in double: by Python where
+# the parameters are floats, and in float64 where one is a tensor (a fitted
+# parameter), so that both give the same float32 value where the expression
+# meets a coordinate (the kernel's structs evaluate them in double too).
+
+def param64(x):
+    """A parameter for an expression of parameters alone: a Python float as
+    it is, a tensor in float64."""
+    return x.double() if isinstance(x, torch.Tensor) else x
+
+
+def param32(x):
+    """The value of such an expression where it meets a coordinate: a
+    tensor rounded to float32 (a Python float is rounded by the op)."""
+    return x.float() if isinstance(x, torch.Tensor) else x
+
+
+def param_sqrt(x):
+    """sqrt of a parameter expression (see :func:`param64`)."""
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def param_tanh(x):
+    """tanh of a parameter expression (see :func:`param64`)."""
+    return torch.tanh(x) if isinstance(x, torch.Tensor) else math.tanh(x)
+
+
+def param_pow(x: Tensor, e) -> Tensor:
+    """``x ** e`` for an exponent of parameters alone: torch's pow with a
+    Python-number exponent (the kernel's rule), also where ``e`` is a
+    tensor (a fitted parameter: its value is read on the host), whose
+    gradient then flows through a term of value 0."""
+    if not isinstance(e, torch.Tensor):
+        return x ** e
+    y = x ** float(e.detach())
+    z = x.detach() ** e.float()
+    return y + (z - z.detach())
 
 
 # ---------------------------------------------------------------------------

@@ -78,6 +78,16 @@ INSTANCES = {
     "kerr_rational_polynomial": ("KerrRationalPolynomial", ("m", "a")),
     "misner_4d": ("Misner4D", ("phi0",)),
     "cosmic_string_spinning": ("CosmicStringSpinning", ("a", "k")),
+    "janis_newman_winicour": ("JanisNewmanWinicour", ("r0", "mu")),
+    "schwarzschild_ingoing_ef_hawking": ("SchwarzschildIngoingEFHawking",
+                                         ("rs_base", "lifetime")),
+    "configurable_wormhole": ("ConfigurableWormhole", ("M", "p", "a")),
+    "ellis_drainhole": ("EllisDrainhole", ("m", "n")),
+    "symmetric_warp_drive": ("SymmetricWarpDrive", ()),
+    "alcubierre": ("Alcubierre", ("velocity", "sigma", "R")),
+    "krasnikov_tube": ("KrasnikovTube", ("e", "D", "pmax", "littled")),
+    "krasnikov_cylindrical": ("KrasnikovCylindrical", ("e", "D", "pmax")),
+    "godel_cylindrical": ("GodelCylindrical", ("a",)),
 }
 
 # What a metric struct of csrc/ has compiled in besides the metric function:

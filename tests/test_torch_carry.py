@@ -64,7 +64,7 @@ def test_params_carry():
     with pytest.raises(KeyError):
         tm.params(q=1.0)
     with pytest.raises(KeyError):
-        tmetrics.get_metric("alcubierre")
+        tmetrics.get_metric("kerr_schild")
 
 
 def test_camera_carry():

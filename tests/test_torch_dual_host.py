@@ -32,7 +32,8 @@ import torch
 from geodesic_raytracing_tpu.metrics import get_metric as jax_get_metric
 from geodesic_raytracing_tpu.ops import geometry as jgeometry
 from geodesic_raytracing_tpu_torch import metrics
-from geodesic_raytracing_tpu_torch.ops import integrate
+from geodesic_raytracing_tpu_torch.ops import geometry as tgeometry
+from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
 from test_integrator import make_rays
 from test_torch_raymarch_host import SHIM as MARCH_SHIM
 
@@ -43,10 +44,12 @@ CSRC = Path(integrate.__file__).resolve().parents[1] / "csrc"
 # out[i] = 15 floats: g (tt, rr, thth, phph, tph), d_r g, d_theta g.
 SHIM = r"""
 #include "kerr_boyer.cuh"
+// The two tangents the Kerr metric's seeds use (r: 0, theta: 1).
+constexpr unsigned kRTheta = 3u;
 template <class R, class Th>
 static void entries(const R& r, const Th& theta, float rs, float a,
                     float* out) {
-  grt::Dual<grt::kAllTangents> g[5];
+  grt::Dual<kRTheta> g[5];
   grt::kerr_boyer_g(r, theta, rs, a, g);
   for (int e = 0; e < 5; ++e) {
     out[e] = g[e].v;
@@ -61,8 +64,7 @@ extern "C" void grt_host_kerr_g(float rs, float a, int n, const float* r,
     const auto rd = dual_seed<0>(r[i]);
     const auto td = dual_seed<1>(theta[i]);
     if (full)
-      entries(widen<kAllTangents>(rd), widen<kAllTangents>(td), rs, a,
-              out + 15 * i);
+      entries(widen<kRTheta>(rd), widen<kRTheta>(td), rs, a, out + 15 * i);
     else
       entries(rd, td, rs, a, out + 15 * i);
   }
@@ -77,6 +79,104 @@ extern "C" void grt_host_kerr_g_float(float rs, float a, int n,
 """
 
 ENTRIES = ((0, 0), (1, 1), (2, 2), (3, 3), (0, 3))
+
+# Every metric struct's g and its partials at a batch of events, and each
+# dual op of catalogue slice B with its tangent, through the same headers.
+# Built twice: with pruned tangents, and with -DGRT_FULL_TANGENTS (every
+# seeding coordinate widened to all the seeded tangents).
+METRIC_SHIM = r"""
+#include <string.h>
+
+#include <utility>
+
+#include "march.cuh"
+
+namespace {
+
+constexpr int kI[10] = {0, 0, 0, 0, 1, 1, 1, 2, 2, 3};
+constexpr int kJ[10] = {0, 1, 2, 3, 1, 2, 3, 2, 3, 3};
+
+// out[50 i + e] = g_e, out[50 i + 10 (1 + c) + e] = d g_e / d x^c.
+template <class M, class G, int... E>
+void put(const G& g, float* out, std::integer_sequence<int, E...>) {
+  ((out[E] = grt::to_float(grt::gval<kI[E], kJ[E]>(g))), ...);
+  auto tangents = [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    if constexpr (K < M::n_deps) {
+      float* o = out + 10 * (1 + M::dep(K));
+      ((o[E] = grt::to_float(grt::gtan<K, kI[E], kJ[E]>(g))), ...);
+    }
+  };
+  tangents(std::integral_constant<int, 0>{});
+  tangents(std::integral_constant<int, 1>{});
+  tangents(std::integral_constant<int, 2>{});
+  tangents(std::integral_constant<int, 3>{});
+}
+
+template <class M>
+void eval(const float* mparams, int n, const float* x, float* out) {
+  const M m = M::from_params(mparams);
+  for (int i = 0; i < n; ++i) {
+    const float* xi = x + 4 * i;
+    const auto g = m.g(grt::coordinate<M, false, 0>(xi[0]),
+                       grt::coordinate<M, false, 1>(xi[1]),
+                       grt::coordinate<M, false, 2>(xi[2]),
+                       grt::coordinate<M, false, 3>(xi[3]));
+    memset(out + 50 * i, 0, 50 * sizeof(float));
+    put<M>(g, out + 50 * i, std::make_integer_sequence<int, 10>{});
+  }
+}
+
+}  // namespace
+
+extern "C" int grt_host_metric(const char* metric, const float* mparams,
+                               int n, const float* x, float* out) {
+#define TRY(M)                              \
+  if (strcmp(metric, #M) == 0) {            \
+    eval<grt::M>(mparams, n, x, out);       \
+    return 0;                               \
+  }
+  TRY(JanisNewmanWinicour)
+  TRY(SchwarzschildIngoingEFHawking)
+  TRY(ConfigurableWormhole)
+  TRY(EllisDrainhole)
+  TRY(SymmetricWarpDrive)
+  TRY(Alcubierre)
+  TRY(KrasnikovTube)
+  TRY(KrasnikovCylindrical)
+  TRY(GodelCylindrical)
+#undef TRY
+  return 1;
+}
+
+// Each op of a dual of four live tangents, seeded with t (4 floats a
+// value): out[5 i] the value, out[5 i + 1 + k] tangent k.  `e` is the
+// exponent of pow and pow_pos, `c` the constant x of arctan2(y, c).
+extern "C" int grt_host_op(const char* op, double e, float c, int n,
+                           const float* x, const float* t, float* out) {
+  using namespace grt;
+  for (int i = 0; i < n; ++i) {
+    Dual<kAllTangents> a;
+    a.v = x[i];
+    for (int k = 0; k < kTangents; ++k) a.d[k] = t[4 * i + k];
+    Dual<kAllTangents> r;
+    if (strcmp(op, "sqrt") == 0) r = grt_sqrt(a);
+    else if (strcmp(op, "exp") == 0) r = grt_exp(a);
+    else if (strcmp(op, "log1p") == 0) r = grt_log1p(a);
+    else if (strcmp(op, "tanh") == 0) r = grt_tanh(a);
+    else if (strcmp(op, "pow") == 0) r = grt_pow(a, pow_rule(e));
+    else if (strcmp(op, "pow_pos") == 0)
+      r = grt_pow_pos(a, static_cast<float>(e));
+    else if (strcmp(op, "arctan") == 0) r = grt_arctan(a);
+    else if (strcmp(op, "arctan2") == 0) r = grt_arctan2(a, c);
+    else if (strcmp(op, "abs") == 0) r = grt_abs(a);
+    else return 1;
+    out[5 * i] = r.v;
+    for (int k = 0; k < kTangents; ++k) out[5 * i + 1 + k] = r.d[k];
+  }
+  return 0;
+}
+"""
 
 
 def _gxx():
@@ -220,3 +320,188 @@ def test_pruned_march_equals_unpruned_march(host_marches):
     assert pruned[6].max() > 100
     for a, b in zip(pruned, full):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Catalogue slice B: the new dual ops, four live tangents, the nine structs
+# ---------------------------------------------------------------------------
+
+CATALOGUE_B = ("janis_newman_winicour", "schwarzschild_ingoing_ef_hawking",
+               "configurable_wormhole", "ellis_drainhole",
+               "symmetric_warp_drive", "alcubierre", "krasnikov_tube",
+               "krasnikov_cylindrical", "godel_cylindrical")
+
+
+@pytest.fixture(scope="module")
+def host_b(tmp_path_factory):
+    """``(pruned, unpruned)`` builds of ``METRIC_SHIM``."""
+    d = tmp_path_factory.mktemp("dual_host_b")
+    libs = (_build(d, "metric_pruned", METRIC_SHIM),
+            _build(d, "metric_full", METRIC_SHIM, "-DGRT_FULL_TANGENTS"))
+    for so in libs:
+        so.grt_host_metric.restype = ctypes.c_int
+        so.grt_host_metric.argtypes = [ctypes.c_char_p] + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        so.grt_host_op.restype = ctypes.c_int
+        so.grt_host_op.argtypes = [ctypes.c_char_p, ctypes.c_double,
+                                   ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+    return libs
+
+
+def _host_op(so, op, x, t, e=0.0, c=0.0):
+    """(5, n): the value and the four tangents of ``op`` on the host."""
+    x = np.ascontiguousarray(x, np.float32)
+    t = np.ascontiguousarray(t.T, np.float32)
+    out = np.zeros((len(x), 5), np.float32)
+    assert so.grt_host_op(op.encode(), e, c, len(x), x.ctypes.data,
+                          t.ctypes.data, out.ctypes.data) == 0, op
+    return out.T
+
+
+# op -> (the port's torch form, the reference's jnp form, the domain of x,
+# the exponent e or arctan2's constant x).
+_OPS = {
+    "sqrt": (torch.sqrt, jnp.sqrt, "positive", 0.0),
+    "exp": (torch.exp, jnp.exp, "signed", 0.0),
+    "log1p": (torch.log1p, jnp.log1p, "positive", 0.0),
+    "tanh": (torch.tanh, jnp.tanh, "signed", 0.0),
+    "abs": (torch.abs, jnp.abs, "signed", 0.0),
+    "arctan": (tgeometry.arctan, jgeometry.arctan, "signed", 0.0),
+}
+_POW = (1.5, 4.0, 0.25, -0.75, 1.25, 0.5, 2.0, 3.0)
+
+
+def _op_cases():
+    cases = [(op, None) for op in _OPS]
+    cases += [("pow", e) for e in _POW]
+    cases += [("pow_pos", 1.0 / 3.0), ("arctan2", 0.8660254)]
+    return cases
+
+
+def _op_inputs(domain, n=4096, seed=7):
+    """Seeded x and four tangents: positive x in (0.01, 50); signed x in
+    (-8, 8) with |x| either side of 1 and of tan(pi/8); pow_pos's base with
+    some at and below 0."""
+    rng = np.random.default_rng(seed)
+    if domain == "positive":
+        x = np.exp(rng.uniform(np.log(0.01), np.log(50.0), n))
+    else:
+        x = rng.uniform(-8, 8, n)
+        x[:8] = [1.0, -1.0, 0.999, 1.001, 0.41421357, -0.41421354, 0.0, 3.0]
+    t = rng.normal(size=(4, n))
+    return x.astype(np.float32), t.astype(np.float32)
+
+
+@pytest.mark.parametrize("op,e", _op_cases())
+def test_new_dual_op_matches_torch_jvp_and_jax(host_b, op, e):
+    """Each dual op of catalogue slice B with four live tangents, on the
+    host build, against ``torch.func.jvp`` of the port's form, tangent by
+    tangent, and against ``jax.jvp`` of the reference's: rtol 1e-6 and
+    atol 1e-6 of the largest |value| (libm's float functions and torch's
+    and XLA's CPU ones differ in the last ulp; tanh's tangent 1 - y^2 moves
+    by 1.2e-7 where tanh saturates)."""
+    import jax
+
+    so = host_b[0]
+    if op == "pow":
+        tfn = lambda v: v ** e  # noqa: E731
+        jfn = lambda v: v ** e  # noqa: E731
+        domain = "positive"
+    elif op == "pow_pos":
+        tfn = lambda v: tgeometry.pow_pos(v, e)  # noqa: E731
+        jfn = lambda v: jgeometry.pow_pos(v, e)  # noqa: E731
+        domain = "signed"
+    elif op == "arctan2":
+        c = np.float32(e)
+        tfn = lambda v: tgeometry.arctan2(v, torch.full_like(v, c))  # noqa
+        jfn = lambda v: jgeometry.arctan2(v, jnp.full_like(v, c))  # noqa
+        domain = "signed"
+    else:
+        tfn, jfn, domain, _ = _OPS[op]
+    x, t = _op_inputs(domain)
+    got = _host_op(so, op, x, t, e=e if op in ("pow", "pow_pos") else 0.0,
+                   c=e if op == "arctan2" else 0.0)
+    tx = torch.from_numpy(x)
+    want = [tfn(tx).numpy()]
+    jwant = [np.asarray(jfn(jnp.asarray(x)))]
+    for k in range(4):
+        want.append(torch.func.jvp(tfn, (tx,), (torch.from_numpy(t[k]),))[1]
+                    .numpy())
+        jwant.append(np.asarray(jax.jvp(jfn, (jnp.asarray(x),),
+                                        (jnp.asarray(t[k]),))[1]))
+    assert np.isfinite(got).all()
+    # JAX's |x| takes the tangent t at x = 0, torch's (and the kernel's)
+    # t * sgn(0) = 0.
+    keep = x != 0 if op == "abs" else slice(None)
+    for ref, cols in ((np.stack(want), slice(None)), (np.stack(jwant), keep)):
+        for row in range(5):
+            scale = max(1.0, float(np.abs(ref[row]).max()))
+            np.testing.assert_allclose(got[row][cols], ref[row][cols],
+                                       rtol=1e-6, atol=1e-6 * scale,
+                                       err_msg=f"{row}")
+    if op == "pow_pos":
+        off = x <= 0
+        assert off.any() and (got[:, off] == 0).all()
+
+
+def _b_events(name, n=512, seed=11):
+    """Seeded (n, 4) events where the metric is real, in its chart (as
+    test_torch_metrics_catalogue_b.events)."""
+    from test_torch_metrics_catalogue_b import events
+
+    return np.ascontiguousarray(events(name, n, seed).T)
+
+
+_IDX = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3), (2, 2),
+        (2, 3), (3, 3))
+
+
+def _host_metric(so, name, x):
+    struct, names = raymarch.INSTANCES[name]
+    params = metrics.get_metric(name).params()
+    mp = np.array([params[k] for k in names] + [0.0], np.float32)
+    out = np.zeros((len(x), 50), np.float32)
+    assert so.grt_host_metric(struct.encode(), mp.ctypes.data, len(x),
+                              x.ctypes.data, out.ctypes.data) == 0
+    return out
+
+
+@pytest.mark.parametrize("name", CATALOGUE_B)
+def test_catalogue_b_pruned_equals_unpruned(host_b, name):
+    """Each slice B struct's entries and partials with pruned tangents
+    (``alcubierre`` and ``krasnikov_tube`` carry four live ones through
+    their entries) equal the unpruned computation (every seeding coordinate
+    widened to all the seeded tangents), bit for bit."""
+    x = _b_events(name)
+    pruned, full = (_host_metric(so, name, x) for so in host_b)
+    assert np.isfinite(pruned).all()
+    np.testing.assert_array_equal(pruned, full)
+    live = metrics.get_metric(name).depends_on
+    assert len(live) < 4 or name in ("alcubierre", "krasnikov_tube")
+    for c in live:
+        assert np.abs(pruned[:, 10 * (1 + c):10 * (2 + c)]).max() > 0, c
+
+
+@pytest.mark.parametrize("name", CATALOGUE_B)
+def test_catalogue_b_host_partials_match_torch_jvp(host_b, name):
+    """Each slice B struct's 10 entries and their partials against
+    ``torch.func.jvp`` of the torch metric: rtol 1e-5 and atol 1e-6 of the
+    largest magnitude of the entry (measured: within 3.1e-7 of it)."""
+    m = metrics.get_metric(name)
+    x = _b_events(name)
+    got = _host_metric(host_b[0], name, x)
+    gab, dg = tgeometry.metric_and_partials_batched(
+        m.fn, torch.from_numpy(np.ascontiguousarray(x.T)), m.params(),
+        deps=m.depends_on)
+    n = len(x)
+    want = np.zeros_like(got)
+    for e, (i, j) in enumerate(_IDX):
+        want[:, e] = torch.broadcast_to(gab.reshape(4, 4, -1),
+                                        (4, 4, n))[i, j].numpy()
+        for c in m.depends_on:
+            want[:, 10 * (1 + c) + e] = torch.broadcast_to(
+                dg[c].reshape(4, 4, -1), (4, 4, n))[i, j].numpy()
+    scale = np.maximum(np.abs(want).max(0), 1.0)
+    assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6 * scale).all()

@@ -200,3 +200,80 @@ def test_arctan2_reverse_over_forward_matches_jax():
     ok = (x * x + y * y) > 1e-6
     for t, j in zip(tg, jg):
         np.testing.assert_allclose(_np(t)[ok], _np(j)[ok], **LOOSE)
+
+
+def _arctan_points():
+    """Both signs, |x| either side of 1 and of tan(pi/8) (the polynomial's
+    two reduction boundaries), 0, and a spread of magnitudes."""
+    rng = np.random.default_rng(7)
+    edges = [1.0, 0.99999, 1.00001, 0.41421357, 0.4142135, 0.4142137, 0.0,
+             1e-3, 30.0, 1e4]
+    x = np.concatenate([rng.normal(size=48) * 3, edges,
+                        [-e for e in edges]])
+    return x.astype(np.float32)
+
+
+def test_arctan_matches_jax():
+    """``arctan`` (the reference's polynomial) against JAX's: the value
+    bit for bit in float32 (TIGHT bounds it), within 2e-7 of numpy's atan,
+    and its tangent dx / (1 + x^2) in forward mode."""
+    import jax
+
+    x = _arctan_points()
+    tx = torch.from_numpy(x)
+    got = _np(tgeo.arctan(tx))
+    np.testing.assert_allclose(got, _np(jgeo.arctan(jnp.asarray(x))),
+                               **TIGHT)
+    np.testing.assert_allclose(got, np.arctan(x.astype(np.float64)),
+                               atol=2e-7, rtol=2e-7)
+    dx = np.random.default_rng(8).normal(size=x.shape).astype(np.float32)
+    _, tt = torch.func.jvp(tgeo.arctan, (tx,), (torch.from_numpy(dx),))
+    _, jt = jax.jvp(jgeo.arctan, (jnp.asarray(x),), (jnp.asarray(dx),))
+    np.testing.assert_allclose(_np(tt), _np(jt), **TIGHT)
+
+
+def test_arctan_reverse_mode_matches_jax_grad():
+    """``arctan``'s reverse rule is the transpose of its exact tangent, as
+    ``jax.grad`` forms it from the reference's ``defjvp``: the gradient of
+    a weighted sum equals JAX's, and so does the reverse pass of its
+    ``torch.func.jvp`` tangent (reverse over forward, as the fit takes
+    it)."""
+    import jax
+
+    x = _arctan_points()
+    w = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+    jg = jax.grad(lambda a: jnp.sum(jgeo.arctan(a) * w))(jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    tg, = torch.autograd.grad(torch.sum(tgeo.arctan(tx)
+                                        * torch.from_numpy(w)), tx)
+    assert np.isfinite(_np(tg)).all()
+    np.testing.assert_allclose(_np(tg), _np(jg), **TIGHT)
+    dx = np.random.default_rng(10).normal(size=x.shape).astype(np.float32)
+
+    def jloss(a):
+        _, t = jax.jvp(jgeo.arctan, (a,), (jnp.asarray(dx),))
+        return jnp.sum(t * w)
+
+    jg2 = jax.grad(jloss)(jnp.asarray(x))
+    _, tt = torch.func.jvp(tgeo.arctan, (tx,), (torch.from_numpy(dx),))
+    tg2, = torch.autograd.grad(torch.sum(tt * torch.from_numpy(w)), tx)
+    np.testing.assert_allclose(_np(tg2), _np(jg2), **LOOSE)
+
+
+def test_pow_pos_at_and_below_zero():
+    """``pow_pos``: the reference's exp(log(max(b, 1e-37)) e), and exactly
+    0, value and derivatives in both modes, where b <= 0, as JAX's."""
+    import jax
+
+    b = np.array([0.0, -2.0, 8.0, 1e-3, 2.5], np.float32)
+    tb = torch.from_numpy(b).requires_grad_()
+    y = tgeo.pow_pos(tb, 1.0 / 3.0)
+    g, = torch.autograd.grad(y.sum(), tb)
+    jy = jgeo.pow_pos(jnp.asarray(b), 1.0 / 3.0)
+    jg = jax.grad(lambda a: jnp.sum(jgeo.pow_pos(a, 1.0 / 3.0)))(
+        jnp.asarray(b))
+    np.testing.assert_allclose(_np(y), _np(jy), **TIGHT)
+    np.testing.assert_allclose(_np(g), _np(jg), **TIGHT)
+    assert _np(y)[0] == 0 and _np(y)[1] == 0
+    assert _np(g)[0] == 0 and _np(g)[1] == 0
+    np.testing.assert_allclose(_np(y)[2], 2.0, rtol=1e-6)

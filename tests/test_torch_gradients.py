@@ -116,6 +116,70 @@ def test_grad_wrt_kerr_spin_matches_jax_and_fd():
            dict(rtol=0.2, atol=5e-3))
 
 
+def test_grad_wrt_alcubierre_velocity_matches_jax_and_fd():
+    """tests/test_gradients.py:123 (the gradient through the warp-drive
+    metric with respect to the bubble's velocity) on the port: six rays
+    that pass near, but outside, the bubble's wall; d(endpoint y)/d
+    velocity of each, by reverse mode through the scan (windows of 32),
+    finite, equal to JAX's ``jacrev`` (rtol 1e-3) and, on the rays whose
+    central difference is stable under two probe sizes (at least two), to
+    the difference within 0.15, the reference's tolerance.  Alcubierre is
+    exactly flat outside the bubble (acceleration 0): the reverse pass
+    through tanh, sqrt and the step controller's error norm must not take
+    sqrt(0)'s NaN gradient (the reference's regression case)."""
+    import jax
+
+    n = 6
+    off = np.linspace(2.5, 4.0, n)
+    pos = np.stack([np.zeros(n), np.full(n, 8.0), off, np.zeros(n)],
+                   -1).astype(np.float32)
+    vel = np.stack([np.ones(n), -np.ones(n), np.zeros(n), np.zeros(n)],
+                   -1).astype(np.float32)
+
+    jm = jmetrics.get_metric("alcubierre")
+    jfeats = jint.Features.for_metric(jm)
+    jopts = jint.TraceOptions(max_steps=256, method="scan", remat_every=32)
+
+    def jendpoints(v):
+        p = dict(jm.params())
+        p["velocity"] = v
+        st = jint.init_ray_state(jm, jnp.asarray(pos), jnp.asarray(vel), p,
+                                 jfeats)
+        return jint.trace_rays(jm, st, p, features=jfeats,
+                               opts=jopts).position[:, 2]
+
+    tm = tmetrics.get_metric("alcubierre")
+    feats = tint.Features.for_metric(tm)
+    opts = tint.TraceOptions(max_steps=256, method="scan", remat_every=32)
+
+    def endpoints(v):
+        p = dict(tm.params())
+        p["velocity"] = v
+        st = tint.init_ray_state(tm, torch.from_numpy(pos),
+                                 torch.from_numpy(vel), p, feats)
+        return tint.trace_rays(tm, st, p, feats, opts).position[:, 2]
+
+    v = torch.tensor(2.0, requires_grad=True)
+    out = endpoints(v)
+    g = np.array([torch.autograd.grad(out[i], v, retain_graph=i < n - 1)[0]
+                  .item() for i in range(n)])
+    assert np.isfinite(g).all(), g
+    jg = np.asarray(jax.jacrev(jendpoints)(jnp.float32(2.0)))
+    np.testing.assert_allclose(g, jg, rtol=JAX_RTOL, atol=1e-6)
+
+    def fd(eps):
+        with torch.no_grad():
+            hi = endpoints(torch.tensor(2.0 + eps)).numpy()
+            lo = endpoints(torch.tensor(2.0 - eps)).numpy()
+        return (hi - lo) / (2 * eps)
+
+    fd1, fd2 = fd(1e-2), fd(5e-3)
+    stable = np.abs(fd1 - fd2) <= 0.05 * np.maximum(np.abs(fd1),
+                                                    np.abs(fd2))
+    assert stable.sum() >= 2, f"no FD-stable rays ({fd1} vs {fd2})"
+    np.testing.assert_allclose(g[stable], fd1[stable], rtol=0.15)
+
+
 def test_remat_gradient_equals_unwindowed_gradient():
     """Recomputed windows of 32 iterations give the gradient of one window
     of all 256 bit for bit: ``torch.func.jvp`` inside non-reentrant

@@ -32,6 +32,11 @@ torch.set_num_threads(1)
 SEVEN = ("minkowski", "minkowski_skew", "schwarzschild",
          "schwarzschild_fast", "schwarzschild_skewed",
          "schwarzschild_ingoing_ef", "de_sitter")
+# Catalogue slice B (tests/test_torch_metrics_catalogue_b.py).
+CATALOGUE_B = ("janis_newman_winicour", "schwarzschild_ingoing_ef_hawking",
+               "configurable_wormhole", "ellis_drainhole",
+               "symmetric_warp_drive", "alcubierre", "krasnikov_tube",
+               "krasnikov_cylindrical", "godel_cylindrical")
 # The eight metrics of catalogue slice A (tests/test_torch_metrics_catalogue_a.py).
 CATALOGUE_A = ("wormhole (morris-thorne)", "black_hole_cosmic_string", "ernst",
                "kerr_newman_boyer", "kerr_ingoing_ef",
@@ -173,7 +178,7 @@ def test_diag_metric_matches_jax():
 
 def test_unported_metric_is_a_key_error():
     with pytest.raises(KeyError, match="not ported yet"):
-        tmetrics.get_metric("alcubierre")
-    assert set(SEVEN) | {"kerr_boyer"} | set(CATALOGUE_A) == set(
-        tmetrics.list_metrics())
+        tmetrics.get_metric("kerr_schild")
+    assert set(SEVEN) | {"kerr_boyer"} | set(CATALOGUE_A) | set(
+        CATALOGUE_B) == set(tmetrics.list_metrics())
     assert jax.default_backend() == "cpu"

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RAY_SET
+from chip_smoke import ray_set
 from geodesic_raytracing_tpu_torch import metrics
 from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
 from test_integrator import make_rays
@@ -147,6 +147,15 @@ extern "C" int grt_host_march(const char* metric, const float* mparams,
   TRY(grt::KerrRationalPolynomial, "KerrRationalPolynomial")
   TRY(grt::Misner4D, "Misner4D")
   TRY(grt::CosmicStringSpinning, "CosmicStringSpinning")
+  TRY(grt::JanisNewmanWinicour, "JanisNewmanWinicour")
+  TRY(grt::SchwarzschildIngoingEFHawking, "SchwarzschildIngoingEFHawking")
+  TRY(grt::ConfigurableWormhole, "ConfigurableWormhole")
+  TRY(grt::EllisDrainhole, "EllisDrainhole")
+  TRY(grt::SymmetricWarpDrive, "SymmetricWarpDrive")
+  TRY(grt::Alcubierre, "Alcubierre")
+  TRY(grt::KrasnikovTube, "KrasnikovTube")
+  TRY(grt::KrasnikovCylindrical, "KrasnikovCylindrical")
+  TRY(grt::GodelCylindrical, "GodelCylindrical")
   TRY(CylindricalSchwarzschild, "CylindricalSchwarzschild")
   TRY(NonsingularSchwarzschild, "NonsingularSchwarzschild")
 #undef TRY
@@ -272,13 +281,10 @@ def test_host_march_step_budget(host_march):
 def generic_rays(m, params, n=64, tilt=0.0):
     """``make_rays(n)`` (polar position and velocity) in the chart of
     ``m``, through its ``from_polar``; ``tilt`` adds a theta velocity, so
-    that the rays leave the equator; ``RAY_SET`` adapts the set to a metric
-    where it would have no escaped ray (as ``chip_smoke.chart_rays``)."""
-    pos, vel = (np.array(a) for a in make_rays(n))
-    vel[:, 2] = tilt
-    phi_scale, time_sign = RAY_SET.get(m.name, (1.0, 1.0))
-    vel[:, 3] *= phi_scale
-    vel[:, 0] *= time_sign
+    that the rays leave the equator; ``chip_smoke.RAY_SET`` adapts the set
+    to a metric where it would have no escaped ray or miss a branch (as
+    ``chip_smoke.chart_rays``)."""
+    pos, vel = ray_set(m.name, n, tilt)
     p, v = torch.from_numpy(pos).T, torch.from_numpy(vel).T
     return (m.from_polar(p, params).T.contiguous(),
             m.from_polar_velocity(p, v, params).T.contiguous())
@@ -303,11 +309,42 @@ INSTANCE_CASES += [(n, True) for n in sorted(raymarch.INSTANCES)
                    if metrics.get_metric(n).spherically_symmetric]
 
 
+# Metrics whose rays cross a tanh wall (the Alcubierre bubble, the forming
+# Krasnikov tube), where 1 + tanh cancels: there glibc's tanhf (the host
+# build's) and torch's CPU tanh, which differ on 7% of float32 inputs, part
+# the marches by more than float32 resolves (the float32 plain march itself
+# is up to 2.3e-3 and 0.048 from the float64 one).
+TANH_WALL = ("alcubierre", "krasnikov_tube")
+
+
+def _assert_same_march_tanh_wall(host, ref, m, st, params, feats, opts):
+    """Fates and step counts equal on every ray; positions within 1e-4 on
+    the escaped rays that float32 resolves to 1e-4 (the float32 plain march
+    within 1e-4 of the float64 one), of which there are at least 4
+    (alcubierre: 5 of 54, its flat region's acceleration being the
+    cancellation; krasnikov_tube: 34 of 54, all but the rays through the
+    tube's wall)."""
+    np.testing.assert_array_equal(host.status.numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(host.steps.numpy(), ref.steps.numpy())
+    st64 = integrate.RayState(*(t.double() if t.dtype == torch.float32
+                                else t for t in st))
+    r64 = integrate.trace_rays_reference(m, st64, params, feats, opts)
+    np.testing.assert_array_equal(r64.status.numpy(), ref.status.numpy())
+    esc = ref.status.numpy() == integrate.ESCAPED
+    err32 = np.abs(ref.position.numpy() - r64.position.numpy()).max(1)
+    well = esc & (err32 <= 1e-4)
+    assert esc.sum() >= 16 and well.sum() >= 4, (esc.sum(), well.sum())
+    np.testing.assert_allclose(host.position.numpy()[well],
+                               ref.position.numpy()[well], rtol=1e-4,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("name,planar", INSTANCE_CASES)
 def test_host_instance_matches_plain_torch(host_march_any, name, planar):
     """Every kernel instance but kerr_boyer's (above), 4-D, and in planar
     mode where the metric is spherically symmetric: 64 rays, every 7th born
-    DEAD, against the plain torch march."""
+    DEAD, against the plain torch march (the ``TANH_WALL`` metrics by
+    ``_assert_same_march_tanh_wall``)."""
     m = metrics.get_metric(name)
     params = m.params()
     feats = integrate.Features.for_metric(m)
@@ -317,7 +354,17 @@ def test_host_instance_matches_plain_torch(host_march_any, name, planar):
     opts = integrate.TraceOptions(max_steps=4096, planar=planar)
     host = host_march_any(struct, names, st, params, feats, opts)
     ref = integrate.trace_rays_reference(m, st, params, feats, opts)
-    _assert_same_march(host, ref, 16)
+    if name in TANH_WALL:
+        _assert_same_march_tanh_wall(host, ref, m, st, params, feats, opts)
+    else:
+        _assert_same_march(host, ref, 16)
+    if name == "godel_cylindrical":
+        # The rays launched next to the axis and aimed at it die at the
+        # cylindrical terminator.
+        axis = ray_set(name, 64)[0][:, 1] < 0.1
+        dead = host.status.numpy() == integrate.DEAD
+        assert (dead[axis][1:]).all()
+        assert (host.position.numpy()[axis][1:, 1] < 0.005).all()
     # Rays born DEAD are untouched.
     for a, b in zip(host, st):
         np.testing.assert_array_equal(a.numpy()[::7], b.numpy()[::7])
