@@ -23,12 +23,12 @@ against the plain march; the ``schwarzschild`` frame in planar mode at
 each launch of its 480x270 twin against the plain march; planar against 4-D;
 the 128x128 golden scenes of every metric and ``kerr_redshift``; and a dense
 1080p frame of every metric through ``render_frame``, its launch against the
-plain march (its 480x270 twin instead for ``NO_1080P_PLAIN``).
+plain march for ``DENSE_PLAIN_DEPTH`` trial iterations.
 Then the third path: the differentiable fit at ``scripts/fit_bench.py``'s
 size (``kerr_boyer`` 256x256, a 2048-step budget, an 896-iteration scan in
 windows of 128): its target, the train step's probe launch against the plain
 march and its scan against the probe, its gradient against the central
-difference, two timed train steps and the ``fit`` CLI; and the geodesic
+difference, a timed train step and the ``fit`` CLI; and the geodesic
 camera: a 4096-step recording on the card against the CPU's (and where the
 two part), the tetrad's transport, and the adaptive 1080p frame from that
 camera, its 480x270 twin's launches against the plain march.  Then the
@@ -38,7 +38,9 @@ dense frame, a steady frame without host synchronisation, stage times) and the
 CLI's adaptive 1080p ``kerr_newman_boyer`` frame.  Slice B's instances also
 enter phase 14 (after a probe of the forward-mode rules torch applies on the
 card, ``tangent_rules``), 18 (with ``alcubierre_paper``) and 19, each scene
-with its preset camera and Features (``SCENES``).
+with its preset camera and Features (``SCENES``).  Every plain march on
+the card replays its step from a CUDA graph (``trace_rays_reference``'s
+default there), held bit for bit to the eager march in phases 2 and 14.
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
 kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
@@ -88,6 +90,10 @@ POS_TOL = 1e-4  # rtol and atol
 # Phase 3 marches the 1080p frame's rays with the plain twin for this many
 # trial iterations (its longest ray takes 10,230).
 PLAIN_DEPTH = 2048
+# Phase 14 holds the graphed plain march to the eager one on each
+# instance's 64-ray set for this many trial iterations (phase 2: kerr_boyer's
+# to the end).
+GRAPH_CHECK_STEPS = 64
 # The golden gate of tests/test_parity_images.py on sRGB uint8 images.
 GATE_RMSE = 4.0
 GATE_BAD_FRAC = 0.01
@@ -171,15 +177,12 @@ CATALOGUE_B = ("alcubierre", "configurable_wormhole", "ellis_drainhole",
                "godel_cylindrical", "janis_newman_winicour",
                "krasnikov_cylindrical", "krasnikov_tube",
                "schwarzschild_ingoing_ef_hawking", "symmetric_warp_drive")
-# Metrics whose plain march of their 1080p frame would take more than ~30 s
-# (the longest ray's trial iterations at ~7-12 ms an eager step): the Kerr
-# family of slice A (10,000 steps, 60-110 s each) and krasnikov_cylindrical
-# (its 1080p launch's longest ray takes 6,037 steps, its 480x270 one's
-# 1,549).  They are held against the plain march on their 480x270 frame's
-# launch and on phase 14's sets, and their 1080p launch is measured without
-# one.
-NO_1080P_PLAIN = ("kerr_ingoing_ef", "kerr_newman_boyer",
-                  "kerr_rational_polynomial", "krasnikov_cylindrical")
+# Phase 19 marches each metric's 1080p launch with the plain twin for this
+# many trial iterations, against a kernel launch with that budget (a cut of
+# depth: the longest rays of black_hole_cosmic_string, ernst and the Kerr
+# family take 2,400-16,400, krasnikov_cylindrical's 6,037; every other
+# metric's rays end within it, so those are held to the end).
+DENSE_PLAIN_DEPTH = 1024
 class RaySet(NamedTuple):
     """How phase 14 (and the host tests) adapt ``make_rays``' set to a
     metric: a factor on the phi velocity, the sign of v^t, the polar launch
@@ -854,6 +857,26 @@ def assert_equals_plain(what, k, p):
     return err
 
 
+def graphed_equals_eager(what, metric, state, params, feats, opts) -> None:
+    """The graphed plain march (the default on the card, every other
+    phase's plain march) against the eager one on ``state``: every
+    field of every ray equal bit for bit."""
+    from geodesic_raytracing_tpu_torch.ops import integrate
+
+    t0 = time.perf_counter()
+    eager = integrate.trace_rays_reference(metric, state, params, feats,
+                                           opts, graphed=False)
+    t1 = time.perf_counter()
+    graphed = integrate.trace_rays_reference(metric, state, params, feats,
+                                             opts, graphed=True)
+    t2 = time.perf_counter()
+    same = same_bits(graphed, eager)
+    print(f"{what}: graphed plain march vs eager, {opts.max_steps} trial "
+          f"iterations, {state.status.numel()} rays: same bits {same} "
+          f"(eager {t1 - t0:.2f} s, graphed {t2 - t1:.2f} s)")
+    assert same, what
+
+
 def tangent_rules(dev) -> dict:
     """Phase 14's probe of the forward-mode rules of the installed torch on
     the card: ``torch.func.jvp`` of each elementwise function that catalogue
@@ -943,6 +966,10 @@ def check_instances(dev, skip=("kerr_boyer",)) -> dict:
                 part.status[::7] = integrate.DEAD
             st = integrate.RayState(*(torch.cat(f) for f in zip(*parts)))
             opts = integrate.TraceOptions(max_steps=4096, planar=planar)
+            graphed_equals_eager(
+                f"[14 graph] {name} {'planar' if planar else '4-D'}", m,
+                parts[0], params, feats,
+                dataclasses.replace(opts, max_steps=GRAPH_CHECK_STEPS))
             k = raymarch.trace_rays_cuda(m, st, params, feats, opts)
             t0 = time.perf_counter()
             p = integrate.trace_rays_reference(m, st, params, feats, opts)
@@ -1376,8 +1403,10 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     """Phase 19: one dense 1920x1080 frame of every other metric through
     ``render_frame`` (counts from 0; planar as the pipeline decides; the
     scene's camera time), the work of its launch and of its 480x270 twin,
-    and the 1080p launch against the plain march on all rays (the 480x270
-    twin instead for ``NO_1080P_PLAIN``).  Returns ``({metric: row},
+    and the 1080p launch against the plain march on all rays for
+    ``DENSE_PLAIN_DEPTH`` trial iterations (to the end where no ray takes
+    more; ``depth``, the work of the cut launch, where one does).  Returns
+    ``({metric: row},
     {metric of CATALOGUE_A or CATALOGUE_B: its dense frame})``."""
     import torch
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
@@ -1410,16 +1439,34 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
         full = work_row(
             f"1080p dense {name}", metric, s_in, s_out, params, feats, opts,
             width, median_launch_ms(metric, s_in, params, feats, opts, width))
-        err_full = 0.0
-        if name in NO_1080P_PLAIN:
+        # The plain twin marches every ray of the launch for its first
+        # DENSE_PLAIN_DEPTH trial iterations, against a kernel launch with
+        # that budget; the frame's launch equals that launch on every ray
+        # that ended within it (on all rays where none went on).
+        cut = dataclasses.replace(opts, max_steps=min(opts.max_steps,
+                                                      DENSE_PLAIN_DEPTH))
+        k_cut = raymarch.trace_rays_cuda(metric, s_in, params, feats, cut,
+                                         image_width=width)
+        err_full, (plain_ms,) = launches_vs_plain(
+            f"[19 metrics] 1080p dense {name}, {cut.max_steps} trial "
+            "iterations", metric, params, feats, [(s_in, k_cut, width, cut)])
+        ended = k_cut.status != integrate.ACTIVE
+        went_on = int((~ended).sum())
+        assert same_bits(integrate.RayState(*(t[ended] for t in k_cut)),
+                         integrate.RayState(*(t[ended] for t in s_out)))
+        print(f"[19 metrics] 1080p dense {name}: the frame's launch equals "
+              f"that launch on the {int(ended.sum())} rays that ended within "
+              f"{cut.max_steps} trial iterations ({went_on} went on)")
+        if went_on:
             full["plain_ms"] = None
-            print(f"[19 metrics] 1080p dense {name}: no plain march of the "
-                  "frame (NO_1080P_PLAIN); held at 480x270 and in phase 14")
+            depth = work_row(
+                f"1080p dense {name}, first {cut.max_steps} trial iterations",
+                metric, s_in, k_cut, params, feats, cut, width,
+                median_launch_ms(metric, s_in, params, feats, cut, width))
+            depth["plain_ms"] = plain_ms
         else:
-            err_full, (full["plain_ms"],) = launches_vs_plain(
-                f"[19 metrics] 1080p dense {name}", metric, params, feats,
-                launch)
-        del launch, s_in, s_out, img
+            full["plain_ms"], depth = plain_ms, None
+        del launch, s_in, s_out, img, k_cut, ended
 
         small = dataclasses.replace(settings, width=480, height=270)
         st, _, _ = pl.init_camera_rays(metric, camera, params, small, feats,
@@ -1427,19 +1474,13 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
         k = raymarch.trace_rays_cuda(metric, st, params, feats, opts,
                                      image_width=480)
         ms = median_launch_ms(metric, st, params, feats, opts, 480)
-        err, plain_ms = 0.0, None
-        if name in NO_1080P_PLAIN:
-            err, (plain_ms,) = launches_vs_plain(
-                f"[19 metrics] 480x270 dense {name}", metric, params, feats,
-                [(st, k, 480, opts)])
         row = work_row(f"480x270 dense {name}", metric, st, k, params, feats,
                        opts, 480, ms)
-        row["plain_ms"] = plain_ms
         print(f"[19 metrics] {name}: 1080p frame finite, black fraction "
               f"{black:.4f}, kernel launches {counts}")
-        rows[name] = {"launches": counts[name],
-                      "max_abs_err": max(err, err_full),
-                      "black_fraction": black, "small": row, "full": full}
+        rows[name] = {"launches": counts[name], "max_abs_err": err_full,
+                      "black_fraction": black, "small": row, "full": full,
+                      "depth": depth}
     return rows, frames
 
 
@@ -1578,7 +1619,6 @@ def cli_catalogue_a(dev) -> dict:
 FIT_SIZE, FIT_MAX_STEPS, FIT_REMAT, FIT_CAP = 256, 2048, 128, 512
 FIT_TRUE_RS, FIT_START_RS, FIT_LR = 1.1, 0.95, 0.02
 FIT_SCAN_STEPS = 896  # 1.25 x the hard cap 661, in whole windows of 128
-FIT_TIMED_STEPS = 2  # after the first, untimed one
 # The gradient against the central difference of the same weighted loss with
 # the probe frozen (tests/test_gradients.py's protocol and tolerance).
 FIT_FD_EPS, FIT_FD_RTOL = 2e-3, 0.2
@@ -1629,8 +1669,9 @@ def fit_path(dev) -> dict:
     under ``no_grad``) and the train step's probe launch held to the plain
     march on all 65,536 rays; 21: the differentiable scan's forward against
     the probe on every kept lane; 22: the train step's gradient against the
-    central difference of the same loss; 23: timed train steps, split into
-    probe launch, scan forward and backward; 24: the ``fit`` CLI on
+    central difference of the same loss; 23: the first train step (phase
+    20's), timed and split into probe launch, scan forward and backward, and
+    the loss after it below the loss before; 24: the ``fit`` CLI on
     ``cuda``, twice, the second run resuming from the first's checkpoint
     and taking one more step.
     Returns the row's ``paths.fit`` and the largest position difference."""
@@ -1673,14 +1714,23 @@ def fit_path(dev) -> dict:
     step = make_train_step(metric, settings, feats, grad_step_cap=FIT_CAP,
                            device=dev)
     start = metric.params(rs=FIT_START_RS)
-    # The first train step (phase 23's untimed one), its two marches
-    # recorded: the probe launch and the differentiable scan.
-    with recorded_launches(integrate, with_opts=True) as calls:
+    # The first train step, timed (phase 23), its two marches recorded:
+    # the probe launch and the differentiable scan.
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recorded_launches(integrate, with_opts=True) as calls, \
+            train_step_events(integrate, mesh) as marks:
         raymarch.reset_launch_counts()
+        t0 = time.perf_counter()
         first, loss0 = step(start, camera, target, sky, FIT_LR)
-        loss0 = float(loss0)
+        loss0 = float(loss0)  # waits for the step
+        step_s = time.perf_counter() - t0
         launches = raymarch.launches()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
     assert launches == 1, launches  # the probe; the scan launches nothing
+    assert [w for w, _, _ in marks] == ["probe launch", "scan forward",
+                                        "backward"], marks
+    split = {w: a.elapsed_time(b) for w, a, b in marks}
     (p_in, p_out, width, popts), (s_in, s_out, _, sopts) = calls
     s_out = integrate.RayState(*(t.detach() for t in s_out))
     assert (popts.method, popts.max_steps, width) == ("while", FIT_MAX_STEPS,
@@ -1741,42 +1791,23 @@ def fit_path(dev) -> dict:
     assert np.isfinite(g) and abs(g) > 1e-6 and np.isfinite(float(grads["a"]))
     assert abs(g - fd) <= FIT_FD_RTOL * abs(fd), (g, fd)
 
-    # -- 23. train steps: two timed after the first (phase 20's) -------------
-    params, losses, rs = first, [], [FIT_START_RS, float(first["rs"])]
-    torch.cuda.reset_peak_memory_stats(dev)
-    times, splits = [], []
-    for _ in range(FIT_TIMED_STEPS):
-        with train_step_events(integrate, mesh) as marks:
-            raymarch.reset_launch_counts()
-            t0 = time.perf_counter()
-            params, loss = step(params, camera, target, sky, FIT_LR)
-            losses.append(float(loss))  # waits for the step
-            times.append(time.perf_counter() - t0)
-            step_launches = raymarch.launches()
-        torch.cuda.synchronize()
-        assert step_launches == 1, step_launches
-        assert [w for w, _, _ in marks] == ["probe launch", "scan forward",
-                                            "backward"], marks
-        splits.append({w: a.elapsed_time(b) for w, a, b in marks})
-        rs.append(float(params["rs"]))
-    peak = torch.cuda.max_memory_allocated(dev)
-    for i, (t, sp) in enumerate(zip(times, splits)):
-        print(f"[23 train] step {i}: {t:.3f} s = probe launch "
-              f"{sp['probe launch']:.3f} + scan forward "
-              f"{sp['scan forward']:.3f} + backward {sp['backward']:.3f} ms "
-              f"+ the rest; loss {losses[i]:.6g}, rs {rs[i + 2]:.5f}")
-    s_per_step = statistics.median(times)
-    print(f"[23 train] median {s_per_step:.3f} s/step at {FIT_SIZE}^2/"
-          f"{FIT_MAX_STEPS} (remat {FIT_REMAT}, cap {FIT_CAP}, scan "
-          f"{FIT_SCAN_STEPS} iterations); peak memory {peak / 2**30:.3f} GiB; "
-          f"rs {' -> '.join(f'{r:.5f}' for r in rs)}")
-    assert all(np.isfinite(losses)) and losses[-1] < loss0
-    assert all(b > a for a, b in zip(rs, rs[1:])) and rs[-1] <= FIT_TRUE_RS
+    # -- 23. the first train step (phase 20's): its time and its effect ------
+    rs = [FIT_START_RS, float(first["rs"])]
+    loss1 = float(step.loss(first, camera, target, sky))
+    print(f"[23 train] step 0: {step_s:.3f} s = probe launch "
+          f"{split['probe launch']:.3f} + scan forward "
+          f"{split['scan forward']:.3f} + backward {split['backward']:.3f} ms "
+          f"+ the rest at {FIT_SIZE}^2/{FIT_MAX_STEPS} (remat {FIT_REMAT}, "
+          f"cap {FIT_CAP}, scan {FIT_SCAN_STEPS} iterations); peak memory "
+          f"{peak / 2**30:.3f} GiB; rs {rs[0]:.5f} -> {rs[1]:.5f}, loss "
+          f"{loss0:.6g} -> {loss1:.6g}")
+    assert np.isfinite(loss0) and loss1 < loss0, (loss0, loss1)
+    assert rs[0] < rs[1] <= FIT_TRUE_RS, rs
 
     # -- 24. the fit CLI on the card, then resumed ----------------------------
     outs = []
     with tempfile.TemporaryDirectory() as ck:
-        for steps in (4, 5):
+        for steps in (2, 3):
             t0 = time.perf_counter()
             run = subprocess.run(
                 [sys.executable, "-m", "geodesic_raytracing_tpu_torch.fit",
@@ -1791,17 +1822,16 @@ def fit_path(dev) -> dict:
                   + "; ".join(ln.strip() for ln in run.stdout.splitlines()
                               if ln.startswith(("resumed", "step", "fit"))))
             assert run.returncode == 0, run.stderr[-2000:]
-    assert "resumed" not in outs[0] and "step   3 loss" in outs[0]
-    assert "resumed from step 4" in outs[1] and "step   4 loss" in outs[1]
+    assert "resumed" not in outs[0] and "step   1 loss" in outs[0]
+    assert "resumed from step 2" in outs[1] and "step   2 loss" in outs[1]
     assert "step   0 loss" not in outs[1]
 
-    med = {w: statistics.median(sp[w] for sp in splits) for w in splits[0]}
     return {
         "config": {"metric": "kerr_boyer", "size": FIT_SIZE,
                    "max_steps": FIT_MAX_STEPS, "remat_every": FIT_REMAT,
                    "grad_step_cap": FIT_CAP, "grad_hard_cap": hard_cap,
                    "scan_steps": FIT_SCAN_STEPS},
-        "probe": {"rays": n, "ms": med["probe launch"], "plain_ms": plain_ms,
+        "probe": {"rays": n, "ms": split["probe launch"], "plain_ms": plain_ms,
                   "trial_iterations": probe["trials"],
                   "mean_steps": probe["mean_steps"],
                   "max_steps": probe["max_steps"],
@@ -1809,9 +1839,9 @@ def fit_path(dev) -> dict:
                   "bound_ms": probe_bound, "bound_by": "operations"
                   if probe_bound == b_ops else "bytes"},
         "launches_per_step": 1, "kept_lanes": kept, "scan_vs_probe_err":
-        scan_err, "target_s": target_s, "s_per_step": s_per_step,
-        "step_s": times, "stages_ms": med, "peak_memory_bytes": peak,
-        "losses": losses, "rs": rs, "grad": g, "grad_fd": fd,
+        scan_err, "target_s": target_s, "s_per_step": step_s,
+        "stages_ms": split, "peak_memory_bytes": peak,
+        "losses": [loss0, loss1], "rs": rs, "grad": g, "grad_fd": fd,
     }, err
 
 
@@ -2076,6 +2106,8 @@ def main(argv=None) -> int:
     print(f"[2 rays] 64 rays, max_steps 4096: status equal {st}/64, "
           f"steps equal {sp}/64, max |dpos| {err_a:.3g}")
     assert st == 64 and sp >= SET_A_MIN_STEPS_EQ and close, (st, sp, err_a)
+    graphed_equals_eager("[2 graph] 64 rays", metric, sa, params, feats,
+                         integrate.TraceOptions(max_steps=4096))
 
     took("2")
 
@@ -2541,13 +2573,14 @@ def main(argv=None) -> int:
     def instance_row(mname):
         """The row of an instance other than ``kerr_boyer``: ms, plain_ms and
         bound_ms of its dense 1080p launch through ``render_frame`` (the
-        same rays for all three), as ``kerr_boyer``'s row, or of its 480x270
-        launch where the 1080p one is not marched plain (``NO_1080P_PLAIN``,
-        ``measured_at``); its 480x270 launch under ``small``, its 1080p one
-        under ``full``; for catalogue slice A, ``launches`` and ``paths`` of
-        phase 26's adaptive 1080p frames."""
+        same rays for all three), as ``kerr_boyer``'s row, or of that
+        launch cut to ``DENSE_PLAIN_DEPTH`` trial iterations where a ray
+        takes more (``measured_at``); its 480x270 launch under ``small``,
+        its 1080p one under ``full``, the cut one under ``depth``; for
+        catalogue slices A and B, ``launches`` and ``paths`` of phase 26's
+        adaptive 1080p frames."""
         r = per_metric[mname]
-        at = r["small"] if mname in NO_1080P_PLAIN else r["full"]
+        at = r["depth"] or r["full"]
         row = {
             "name": f"raymarch_{mname}",
             "route": "cuda",
@@ -2560,7 +2593,8 @@ def main(argv=None) -> int:
             "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"],
             "share_of_bound": at["share_of_bound"],
-            "measured_at": "480x270" if at is r["small"] else "1920x1080",
+            "measured_at": "1920x1080" if at is r["full"] else (
+                f"1920x1080, first {DENSE_PLAIN_DEPTH} trial iterations"),
             "library_ms": None,  # no PyTorch call computes a geodesic march
             "rays": r["full"]["rays"],
             "planar": r["full"]["planar"],
@@ -2571,6 +2605,7 @@ def main(argv=None) -> int:
             "ops_per_trial": r["full"]["ops_per_trial"],
             "small": r["small"],
             "full": r["full"],
+            "depth": r["depth"],
             "ptxas": ptxas_by_metric[mname],
             "golden": goldens[mname],
         }

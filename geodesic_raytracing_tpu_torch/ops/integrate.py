@@ -347,14 +347,72 @@ def _take(s: _StateT, idx: Tensor) -> _StateT:
     return _StateT(*(t[..., idx] for t in s))
 
 
+# Trial iterations between two reads of the working set's status in the
+# graphed march (each read waits for the device).
+GRAPH_CHUNK = 16
+
+
+def _march_graphed(step, work: _StateT, ids: Tensor, fx: Tensor, params,
+                   max_steps: int, write_back) -> tuple[_StateT, Tensor]:
+    """The ``while`` march with the step replayed from a CUDA graph: the
+    same kernels on the same inputs, so the same bits, without the host's
+    cost of launching each op.  A graph holds one working-set size, so the
+    set shrinks only when half of it has finished; until then a finished
+    ray takes iterations that change nothing (inactive, its step is 0 and
+    never commits, as in ``trace_rays_scan``).  The status is read every
+    ``GRAPH_CHUNK`` iterations.  On CPU tensors each replay is an eager
+    step (how the tests hold this march to the eager one).  Returns the
+    working set and its ray indices after ``max_steps`` iterations."""
+    capture = work.position.is_cuda
+    its = 0
+    while its < max_steps and ids.numel():
+        n = ids.numel()
+        static = _StateT(*(t.clone() for t in work))
+
+        def iterate():
+            for dst, src in zip(static, step(static, fx, params)):
+                dst.copy_(src)
+
+        # One eager iteration first: lazy initialisation stays out of the
+        # capture.
+        iterate()
+        its += 1
+        graph, replay = None, iterate
+        if capture and its < max_steps:
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                iterate()
+                graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+            replay = graph.replay
+        while its < max_steps:
+            for _ in range(min(GRAPH_CHUNK, max_steps - its)):
+                replay()
+                its += 1
+            if int((static.status == ACTIVE).sum()) <= n // 2:
+                break
+        graph = replay = None
+        done = static.status != ACTIVE
+        write_back(_take(static, done), ids[done])
+        keep = ~done
+        work, ids, fx = _take(static, keep), ids[keep], fx[keep]
+    return work, ids
+
+
 def trace_rays_reference(metric: Metric, state: RayState, params,
                          features: Features = Features(),
-                         opts: TraceOptions = TraceOptions()) -> RayState:
+                         opts: TraceOptions = TraceOptions(),
+                         graphed: bool | None = None) -> RayState:
     """Eager port of the reference's ``while`` driver: every active ray
     takes trial iterations until it leaves ACTIVE or ``opts.max_steps``
     iterations have run.  Finished rays leave the working set (the step is
     per-ray elementwise, so this changes no number).  The blow-up test's
-    baseline is the launch |v^t| of ``state``."""
+    baseline is the launch |v^t| of ``state``.  ``graphed`` (by default on
+    CUDA tensors) replays the step from a CUDA graph, ``_march_graphed``;
+    otherwise every iteration is an eager step."""
     pos = state.position.T.contiguous()
     vel = state.velocity.T.contiguous()
     acc = state.acceleration.T.contiguous()
@@ -372,15 +430,21 @@ def trace_rays_reference(metric: Metric, state: RayState, params,
         for dst, src in zip(full, w):
             dst[..., where] = src
 
-    for _ in range(opts.max_steps):
-        if ids.numel() == 0:
-            break
-        work = step(work, fx, params)
-        done = work.status != ACTIVE
-        if bool(done.any()):
-            write_back(_take(work, done), ids[done])
-            keep = ~done
-            work, ids, fx = _take(work, keep), ids[keep], fx[keep]
+    if graphed is None:
+        graphed = pos.is_cuda
+    if graphed:
+        work, ids = _march_graphed(step, work, ids, fx, params,
+                                   opts.max_steps, write_back)
+    else:
+        for _ in range(opts.max_steps):
+            if ids.numel() == 0:
+                break
+            work = step(work, fx, params)
+            done = work.status != ACTIVE
+            if bool(done.any()):
+                write_back(_take(work, done), ids[done])
+                keep = ~done
+                work, ids, fx = _take(work, keep), ids[keep], fx[keep]
     write_back(work, ids)
     return RayState(full.position.T.contiguous(), full.velocity.T.contiguous(),
                     full.acceleration.T.contiguous(), full.next_ds,
