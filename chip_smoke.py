@@ -32,13 +32,16 @@ difference, a timed train step and the ``fit`` CLI; and the geodesic
 camera: a 4096-step recording on the card against the CPU's (and where the
 two part), the tetrad's transport, and the adaptive 1080p frame from that
 camera, its 480x270 twin's launches against the plain march.  Then the
-fourth and fifth paths: the adaptive 1080p frame of each metric of catalogue
-slices A and B (first, warm and steady frames, launches counted, against its
-dense frame, a steady frame without host synchronisation, stage times) and the
-CLI's adaptive 1080p ``kerr_newman_boyer`` frame.  Slice B's instances also
-enter phase 14 (after a probe of the forward-mode rules torch applies on the
-card, ``tangent_rules``), 18 (with ``alcubierre_paper``) and 19, each scene
-with its preset camera and Features (``SCENES``).  Every plain march on
+fourth, fifth and sixth paths: the adaptive 1080p frame of each metric of
+catalogue slices A, B and C (first, warm and steady frames, launches counted,
+against its dense frame, a steady frame without host synchronisation, stage
+times) and the CLI's adaptive 1080p ``kerr_newman_boyer`` frame.  Slice B's
+instances also enter phase 14 (after a probe of the forward-mode rules torch
+applies on the card, ``tangent_rules``), 18 (with ``alcubierre_paper``) and
+19, each scene with its preset camera and Features (``SCENES``); so do slice
+C's six (the rank-1 Kerr-Schild acceleration and the complex pairs), whose
+scenes take the flagship camera: with them the kernel has all 31 metric
+instances of the JAX registry.  Every plain march on
 the card replays its step from a CUDA graph (``trace_rays_reference``'s
 default there), held bit for bit to the eager march in phases 2 and 14.
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
@@ -166,6 +169,26 @@ OPS_BY_INSTANCE = {
     ("krasnikov_tube", False): 114 + 110 + 115,
     ("krasnikov_cylindrical", False): 89 + 85 + 113,
     ("godel_cylindrical", False): 29 + 30 + 116,
+    # Catalogue slice C.  The Kerr-Schild instances by hand, by the same
+    # rule: the decomposition (f, l) with three tangents (x, y, z; 159, and
+    # 170 with the charge term), the rank-1 contraction and Sherman-Morrison
+    # of csrc/march.cuh (97), the step with the cartesian chart's r (117).
+    # The two-body instances: double_schwarzschild's metric by hand (260);
+    # the complex potentials' metric with its two tangents counted from the
+    # torch form, every elementwise arithmetic op of the value and of each
+    # tangent sweep (torch.func.jvp under a dispatch-mode count), less the
+    # square of z + c that the kernel's pruned tangents skip (32): an upper
+    # estimate within 5%; the contraction and the pruned inverse of the five
+    # entries, each carrying both tangents, by march.cuh's folding (92; 62
+    # for the diagonal); the step with the cylindrical chart's r (115, and
+    # 116 with the cylindrical terminator).  The double-Kerr instances spill
+    # (PERF.md section 6): their local-memory traffic is not counted here.
+    ("kerr_schild", False): 159 + 97 + 117,
+    ("kerr_newman_schild", False): 170 + 97 + 117,
+    ("double_schwarzschild", False): 260 + 62 + 116,
+    ("double_kerr", False): 1322 + 92 + 115,
+    ("double_kerr_alt", False): 2153 + 92 + 115,
+    ("double_unequal_kerr", False): 1569 + 92 + 115,
 }
 # The metrics of catalogue slice A, the fourth path (phase 26).
 CATALOGUE_A = ("black_hole_cosmic_string", "cosmic_string_spinning", "ernst",
@@ -177,6 +200,10 @@ CATALOGUE_B = ("alcubierre", "configurable_wormhole", "ellis_drainhole",
                "godel_cylindrical", "janis_newman_winicour",
                "krasnikov_cylindrical", "krasnikov_tube",
                "schwarzschild_ingoing_ef_hawking", "symmetric_warp_drive")
+# The metrics of catalogue slice C, the sixth path (phases 14, 18, 19, 26).
+CATALOGUE_C = ("double_kerr", "double_kerr_alt", "double_schwarzschild",
+               "double_unequal_kerr", "kerr_newman_schild", "kerr_schild")
+CATALOGUES = CATALOGUE_A + CATALOGUE_B + CATALOGUE_C
 # Phase 19 marches each metric's 1080p launch with the plain twin for this
 # many trial iterations, against a kernel launch with that budget (a cut of
 # depth: the longest rays of black_hole_cosmic_string, ernst and the Kerr
@@ -1407,7 +1434,7 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     ``DENSE_PLAIN_DEPTH`` trial iterations (to the end where no ray takes
     more; ``depth``, the work of the cut launch, where one does).  Returns
     ``({metric: row},
-    {metric of CATALOGUE_A or CATALOGUE_B: its dense frame})``."""
+    {metric of CATALOGUES: its dense frame})``."""
     import torch
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
@@ -1432,7 +1459,7 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
         assert bool(torch.isfinite(img).all())
         assert tuple(img.shape) == (1080, 1920, 3)
         black = float((img == 0).all(dim=-1).float().mean())
-        if name in CATALOGUE_A + CATALOGUE_B:
+        if name in CATALOGUES:
             frames[name] = img
         (s_in, s_out, width, opts), = launch
         assert opts.planar == bool(metric.spherically_symmetric)
@@ -1485,8 +1512,8 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
 
 
 def catalogue_paths(dev, sky, dense) -> dict:
-    """Phase 26: every metric of catalogue slices A and B (the fourth and
-    the fifth path) through the main path, ``render_frame``'s adaptive
+    """Phase 26: every metric of catalogue slices A, B and C (the fourth,
+    fifth and sixth paths) through the main path, ``render_frame``'s adaptive
     1920x1080 frame with the flagship settings (``flagship_config(
     metric=name)``, the scene's camera and Features) and a fresh
     RefineBudgetController: a first frame (three launches where the config
@@ -1502,7 +1529,7 @@ def catalogue_paths(dev, sky, dense) -> dict:
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
 
     out = {}
-    for name in CATALOGUE_A + CATALOGUE_B:
+    for name in CATALOGUES:
         metric, params, camera, asettings, _ = flagship_config(
             device=dev, metric=name)
         camera = scene_camera(name, camera)
@@ -1584,7 +1611,7 @@ def cli_catalogue_a(dev) -> dict:
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--list"])
     listed = buf.getvalue().split("\n")
-    assert rc == 0 and set(CATALOGUE_A + CATALOGUE_B) <= set(listed), listed
+    assert rc == 0 and set(CATALOGUES) <= set(listed), listed
     assert set(listed) >= set(metrics.list_metrics())
     png = ROOT / "build" / "chip_smoke" / "kerr_newman_cli_adaptive.png"
     png.parent.mkdir(parents=True, exist_ok=True)
@@ -2563,8 +2590,8 @@ def main(argv=None) -> int:
     geo_row, geo_err = geodesic_camera_path(dev, sky)
     took("25")
 
-    # -- 26. the fourth and fifth paths: catalogue slices A and B's adaptive
-    # 1080p frames ---------------------------------------------------------
+    # -- 26. the fourth, fifth and sixth paths: catalogue slices A, B and C's
+    # adaptive 1080p frames ----------------------------------------------
     catalogue = catalogue_paths(dev, sky, dense_a)
     del dense_a
     fourth_cli = cli_catalogue_a(dev)
@@ -2577,7 +2604,7 @@ def main(argv=None) -> int:
         launch cut to ``DENSE_PLAIN_DEPTH`` trial iterations where a ray
         takes more (``measured_at``); its 480x270 launch under ``small``,
         its 1080p one under ``full``, the cut one under ``depth``; for
-        catalogue slices A and B, ``launches`` and ``paths`` of phase 26's
+        catalogue slices A, B and C, ``launches`` and ``paths`` of phase 26's
         adaptive 1080p frames."""
         r = per_metric[mname]
         at = r["depth"] or r["full"]

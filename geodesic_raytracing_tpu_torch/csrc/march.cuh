@@ -101,6 +101,15 @@ GRT_HD GRT_INLINE float origin_distance(const M& m, const float x[4],
   }
 }
 
+// A Kerr-Schild metric (g = eta + f l l): M::fl(x, y, z) gives the
+// decomposition, and the march takes the rank-1 acceleration.
+template <class M, class = void>
+struct HasRank1 : std::false_type {};
+template <class M>
+struct HasRank1<M, std::void_t<decltype(std::declval<const M&>().fl(
+                       std::declval<Dual<1u>>(), std::declval<Dual<2u>>(),
+                       std::declval<Dual<4u>>()))>> : std::true_type {};
+
 // jnp.maximum / jnp.minimum on finite operands.
 GRT_HD GRT_INLINE float fmax2(float a, float b) { return a > b ? a : b; }
 GRT_HD GRT_INLINE float fmin2(float a, float b) { return a < b ? a : b; }
@@ -212,12 +221,63 @@ GRT_HD GRT_INLINE float inverse_row(float inv_det, C0 c0, T0 s0, C1 c1, T1 s1,
       pmul(pmul(c3, inv_det), s3))));
 }
 
-// Geodesic acceleration a = -g^{-1} S, partials by one dual pass of the
+// The rank-1 acceleration of a Kerr-Schild metric g = eta + f l l
+// (ops/geometry.py::acceleration_batched_rank1, term for term): f and l with
+// their partials by x, y, z from one dual pass of M::fl (tangent k is
+// coordinate k + 1; l_0 = 1 carries none), the contractions in that
+// function's order, then Sherman-Morrison.
+template <class M, bool PLANAR>
+GRT_HD GRT_INLINE void rank1_acceleration(const M& m, const float x[4],
+                                          const float v[4], float out[4]) {
+  static_assert(M::n_deps == 3 && M::dep(0) == 1 && M::dep(1) == 2 &&
+                    M::dep(2) == 3,
+                "a decomposition in the spatial coordinates");
+  const auto d = m.fl(coordinate<M, PLANAR, 1>(x[1]),
+                      coordinate<M, PLANAR, 2>(x[2]),
+                      coordinate<M, PLANAR, 3>(x[3]));
+  const float f = d.f.v;
+  const float l[4] = {1.0f, d.l1.v, d.l2.v, d.l3.v};
+  // df[k] and dl[k][b] (b = 1, 2, 3): the partials by coordinate k + 1.
+  float df[3], dl[3][4];
+  for (int k = 0; k < 3; ++k) {
+    df[k] = d.f.d[k];
+    dl[k][0] = 0.0f;
+    dl[k][1] = d.l1.d[k];
+    dl[k][2] = d.l2.d[k];
+    dl[k][3] = d.l3.d[k];
+  }
+  const float Df = (v[1] * df[0] + v[2] * df[1]) + v[3] * df[2];
+  float w[4];
+  w[0] = 0.0f;
+  for (int b = 1; b < 4; ++b)
+    w[b] = (v[1] * dl[0][b] + v[2] * dl[1][b]) + v[3] * dl[2][b];
+  const float lv = ((v[0] + l[1] * v[1]) + l[2] * v[2]) + l[3] * v[3];
+  const float q = (w[1] * v[1] + w[2] * v[2]) + w[3] * v[3];
+  const float flv = f * lv;
+  const float half_lv2 = 0.5f * lv * lv;
+  const float c = lv * Df + f * q;
+  float S[4];
+  S[0] = c;
+  for (int k = 0; k < 3; ++k) {
+    const float vdl = (v[1] * dl[k][1] + v[2] * dl[k][2]) + v[3] * dl[k][3];
+    const float term2 = half_lv2 * df[k] + flv * vdl;
+    S[k + 1] = (c * l[k + 1] + flv * w[k + 1]) - term2;
+  }
+  // lt = eta^-1 l = (-1, l1, l2, l3); l.eta.l is 0 but for rounding.
+  const float l_eta_l = ((-1.0f + l[1] * l[1]) + l[2] * l[2]) + l[3] * l[3];
+  const float scale = f * (1.0f / (1.0f + f * l_eta_l));
+  const float k_lts =
+      scale * (((-S[0] + l[1] * S[1]) + l[2] * S[2]) + l[3] * S[3]);
+  out[0] = S[0] - k_lts;
+  for (int a = 1; a < 4; ++a) out[a] = k_lts * l[a] - S[a];
+}
+
+// The dense acceleration a = -g^{-1} S: partials by one dual pass of the
 // metric function, the inverse by the reference's cofactor algebra
 // (ops/geometry.py::_inv44_sym_entries, letter for letter).
 template <class M, bool PLANAR>
-GRT_HD GRT_INLINE void acceleration(const M& m, const float x[4],
-                                    const float v[4], float out[4]) {
+GRT_HD GRT_INLINE void dense_acceleration(const M& m, const float x[4],
+                                          const float v[4], float out[4]) {
   const auto G = m.g(coordinate<M, PLANAR, 0>(x[0]),
                      coordinate<M, PLANAR, 1>(x[1]),
                      coordinate<M, PLANAR, 2>(x[2]),
@@ -273,6 +333,18 @@ GRT_HD GRT_INLINE void acceleration(const M& m, const float x[4],
   out[1] = inverse_row(inv_det, C01, S0, C11, S1, C12, S2, C13, S3);
   out[2] = inverse_row(inv_det, C02, S0, C12, S1, C22, S2, C23, S3);
   out[3] = inverse_row(inv_det, C03, S0, C13, S1, C23, S2, C33, S3);
+}
+
+// Geodesic acceleration: the rank-1 path for a Kerr-Schild metric, else the
+// dense one.
+template <class M, bool PLANAR>
+GRT_HD GRT_INLINE void acceleration(const M& m, const float x[4],
+                                    const float v[4], float out[4]) {
+  if constexpr (HasRank1<M>::value) {
+    rank1_acceleration<M, PLANAR>(m, x, v, out);
+  } else {
+    dense_acceleration<M, PLANAR>(m, x, v, out);
+  }
 }
 
 // cl.cl:3400-3429: error estimate `diff` and ideal step with the chart's

@@ -12,7 +12,8 @@ from .base import (
 
 # Importing the catalogue modules populates the registry with the ported
 # metrics; any other name is a KeyError from get_metric.
-from . import catalogue_exotic, catalogue_kerr, catalogue_simple  # noqa: F401
+from . import (  # noqa: F401
+    catalogue_exotic, catalogue_kerr, catalogue_multibody, catalogue_simple)
 
 __all__ = [
     "BASE_CONFIGS",

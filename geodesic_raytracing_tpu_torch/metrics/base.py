@@ -169,7 +169,11 @@ class Metric:
     ``depends_on``: coordinates g depends on (partials for the others are
     never taken).  ``structure``: structurally nonzero upper-triangle
     entries, or None = dense; the integrator drops the absent entries'
-    terms from the inverse and the Christoffel contraction.
+    terms from the inverse and the Christoffel contraction.  ``rank1``:
+    a Kerr-Schild decomposition ``(x, params) -> (f, l)`` with
+    ``fn(x, p) == minkowski_plus(*rank1(x, p))`` and l eta-null, or None;
+    the integrator then takes the rank-1 acceleration
+    (``ops.geometry.acceleration_batched_rank1``).
     """
 
     name: str
@@ -180,6 +184,7 @@ class Metric:
     spherically_symmetric: bool = False
     depends_on: tuple = (0, 1, 2, 3)
     structure: frozenset | None = None
+    rank1: Callable | None = None
 
     def params(self, **overrides) -> dict:
         """``{name: float32 value}`` (as Python floats) with overrides."""
@@ -236,11 +241,11 @@ def register(metric: Metric) -> Metric:
 
 
 def get_metric(name: str) -> Metric:
-    """The registered metric; a KeyError names the ported ones."""
+    """The registered metric; a KeyError names the registered ones."""
     try:
         return REGISTRY[name]
     except KeyError:
-        raise KeyError(f"metric {name!r} is not ported yet "
+        raise KeyError(f"unknown metric {name!r} "
                        f"(available: {list_metrics()})") from None
 
 
@@ -279,3 +284,14 @@ def sym_metric(entries: Mapping[tuple[int, int], Tensor], *,
         if i != j:
             grid[j][i] = v
     return torch.stack([torch.stack(row) for row in grid])
+
+
+def minkowski_plus(f: Tensor, lv: Tensor) -> Tensor:
+    """eta_ab + f l_a l_b, the Kerr-Schild form: ``f`` of shape ``B`` and
+    ``lv`` of shape (4, *B) give (4, 4, *B)."""
+    g = f * lv[:, None] * lv[None, :]
+    # eta from the identity on g's device (neither an upload nor a scalar
+    # write, which would wait for the device in a frame): 1 - 2 e0 e0.
+    eye = torch.eye(4, dtype=g.dtype, device=g.device)
+    eta = eye - 2.0 * eye[:, :1] * eye[:1, :]
+    return g + eta.reshape((4, 4) + (1,) * (g.ndim - 2))

@@ -1,13 +1,16 @@
 """Kerr family (port of ``geodesic_raytracing_tpu.metrics.catalogue_kerr``):
-``kerr_boyer``, ``kerr_ingoing_ef``, ``kerr_newman_boyer`` and
-``kerr_rational_polynomial``.
+``kerr_boyer``, ``kerr_ingoing_ef``, ``kerr_newman_boyer``,
+``kerr_rational_polynomial`` and, in Kerr-Schild cartesian coordinates,
+``kerr_schild`` and ``kerr_newman_schild``, whose decompositions
+g = eta + f l l (``Metric.rank1``) the integrator's rank-1 acceleration
+takes.
 
-The same expressions, term for term, are written once more as the C++
-metric structs of ``csrc/kerr_boyer.cuh`` for the ray-march kernel; a change
-here must be made there too (the kernel-vs-plain checks in
-``tests/test_torch_raymarch_host.py`` and ``chip_smoke.py`` catch a drift).
-Quotients are ``c * recip(x)`` and squares ``q * q``, as in
-``catalogue_simple``.  A product of three or more parameters is evaluated by
+The same expressions, term for term, are written once more as the C++ metric
+structs of ``csrc/kerr_boyer.cuh`` and ``csrc/kerr_schild.cuh`` for the ray-
+march kernel; a change here must be made there too (the kernel-vs-plain
+checks in ``tests/test_torch_raymarch_host.py`` and ``chip_smoke.py`` catch
+a drift). Quotients are ``c * recip(x)`` and squares ``q * q``, as in
+``catalogue_simple``. A product of three or more parameters is evaluated by
 Python in double precision and rounded once to float32 where it meets a
 tensor; the C++ structs write such a product out in double the same way.
 """
@@ -16,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.geometry import recip
-from .base import Metric, make_config, register, sym_metric
+from ..ops.geometry import param32, param64, recip
+from .base import Metric, make_config, minkowski_plus, register, sym_metric
 
 
 def kerr_boyer_fn(x, params):
@@ -57,6 +60,64 @@ kerr_boyer = register(
         defaults={"rs": 1.0, "a": -0.5},
         depends_on=(1, 2),
         structure=frozenset({(0, 0), (1, 1), (2, 2), (3, 3), (0, 3)}),
+    )
+)
+
+
+def _kerr_schild_r(x, a):
+    """The Kerr-Schild radius r (r^2 and r) of the cartesian events and the
+    null vector l, shared by the two Kerr-Schild metrics."""
+    a64 = param64(a)
+    aa = a64 * a64
+    xx, y, z = x[1], x[2], x[3]
+    R2 = xx * xx + y * y + z * z
+    Rm2 = xx * xx + y * y - z * z
+    r2 = (param32(-aa) + torch.sqrt(param32(aa * aa) - param32(2.0 * aa) * Rm2
+                                    + R2 * R2) + R2) * 0.5
+    r = torch.sqrt(r2)
+    inv_ra = recip(r2 + param32(aa))
+    inv_r = recip(r)
+    lv = torch.stack([
+        torch.ones_like(r),
+        (r * xx + a * y) * inv_ra,
+        (r * y - a * xx) * inv_ra,
+        z * inv_r,
+    ])
+    return r2, r, lv, param32(aa)
+
+
+def kerr_schild_fl(x, params):
+    """Kerr-Schild decomposition (f, l) of scripts/kerr_schild.js: the
+    metric is eta + f l l with l eta-null."""
+    rs = params["rs"]
+    z = x[3]
+    r2, r, lv, aa = _kerr_schild_r(x, params["a"])
+    f = rs * r2 * r * recip(r2 * r2 + aa * z * z)
+    return f, lv
+
+
+def kerr_schild_fn(x, params):
+    """scripts/kerr_schild.js — Kerr in Kerr-Schild cartesian coordinates
+    (arXiv:0706.0622): g = eta + f l l."""
+    return minkowski_plus(*kerr_schild_fl(x, params))
+
+
+kerr_schild = register(
+    Metric(
+        name="kerr_schild",
+        fn=kerr_schild_fn,
+        config=make_config(
+            "cartesian_base",
+            name="kerr_schild",
+            adaptive_precision=True,
+            detect_singularities=True,
+            use_prepass=True,
+            max_acceleration_change=1e-6,
+            description="Kerr in Kerr-Schild cartesian coordinates",
+        ),
+        defaults={"a": -0.5, "rs": 1.0},
+        depends_on=(1, 2, 3),
+        rank1=kerr_schild_fl,
     )
 )
 
@@ -153,6 +214,41 @@ kerr_newman_boyer = register(
         defaults={"rs": 1.0, "r2q": 0.51, "a": -0.51},
         depends_on=(1, 2),
         structure=frozenset({(0, 0), (1, 1), (2, 2), (3, 3), (0, 3)}),
+    )
+)
+
+
+def kerr_newman_schild_fl(x, params):
+    """Kerr-Schild decomposition (f, l) of scripts/kerr_newman_schild.js
+    (f gains the -Q^2 charge term); see :func:`kerr_schild_fl`."""
+    rs, Q = params["rs"], params["Q"]
+    z = x[3]
+    r2, r, lv, aa = _kerr_schild_r(x, params["a"])
+    f = (rs * r - Q * Q) * r * r * recip(r2 * r2 + aa * z * z)
+    return f, lv
+
+
+def kerr_newman_schild_fn(x, params):
+    """scripts/kerr_newman_schild.js — Kerr-Newman in Kerr-Schild cartesian
+    coordinates (f gains the -Q^2 charge term)."""
+    return minkowski_plus(*kerr_newman_schild_fl(x, params))
+
+
+kerr_newman_schild = register(
+    Metric(
+        name="kerr_newman_schild",
+        fn=kerr_newman_schild_fn,
+        config=make_config(
+            "cartesian_base",
+            name="kerr_newman_schild",
+            adaptive_precision=True,
+            detect_singularities=True,
+            use_prepass=True,
+            max_acceleration_change=1e-6,
+        ),
+        defaults={"a": -0.51, "rs": 1.0, "Q": 0.51},
+        depends_on=(1, 2, 3),
+        rank1=kerr_newman_schild_fl,
     )
 )
 

@@ -416,6 +416,62 @@ def acceleration_batched(g, x: Tensor, v: Tensor, params,
     return torch.stack(out)
 
 
+def rank1_partials_batched(h, x: Tensor, params):
+    """``(f, l, df, dl)`` of a Kerr-Schild decomposition ``h(x, params) ->
+    (f, l)`` at ``x`` of shape (4, N): ``f`` (N,), ``l`` (4, N), and the
+    partials by x^1, x^2, x^3 (``df[k]`` (N,), ``dl[k]`` (4, N) for the
+    coordinate k + 1), from one ``torch.func.jvp`` of the three coordinate
+    tangents over the batch repeated three times (the decomposition does
+    not depend on x^0)."""
+    n = x.shape[-1]
+    xs = x.repeat(1, 3)
+    seed = torch.zeros_like(xs)
+    for k in range(3):
+        seed[k + 1, k * n:(k + 1) * n] = 1.0
+    (f, lv), (df, dl) = torch.func.jvp(lambda y: h(y, params), (xs,),
+                                       (seed,))
+    return (f[:n], lv[:, :n], [df[k * n:(k + 1) * n] for k in range(3)],
+            [dl[:, k * n:(k + 1) * n] for k in range(3)])
+
+
+def acceleration_batched_rank1(h, x: Tensor, v: Tensor, params) -> Tensor:
+    """Geodesic acceleration of a Kerr-Schild metric g = eta + f l l
+    (``h(x, params) -> (f, l)``, l eta-null), x and v of shape (4, N):
+
+        S_n = (Df lv + f q) l_n + f lv w_n - d_n(1/2 f lv^2)|_v,
+        a   = -eta^-1 S + (f / (1 + f l.eta.l)) lt (lt . S)
+
+    with lv = l.v, Df = v^n d_n f, w_b = v^n d_n l_b, q = w.v and
+    lt = eta^-1 l (Sherman-Morrison; l.eta.l is 0 but for rounding).  The
+    reference's rank-1 path forms the gradient term by transposing one
+    linearisation; here the partials come from one forward pass with the
+    three coordinate tangents and every sum runs in a fixed order, as
+    ``csrc/march.cuh``'s rank-1 branch writes it:
+    d_n(1/2 f lv^2) = (1/2 lv^2) d_n f + f lv (v^b d_n l_b)."""
+    f, l, df, dl = rank1_partials_batched(h, x, params)
+
+    def dot4(a, b):
+        return ((a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]) + a[3] * b[3]
+
+    Df = (v[1] * df[0] + v[2] * df[1]) + v[3] * df[2]
+    w = (v[1] * dl[0] + v[2] * dl[1]) + v[3] * dl[2]
+    lv = dot4(l, v)
+    q = dot4(w, v)
+    flv = f * lv
+    half_lv2 = 0.5 * lv * lv
+    c = lv * Df + f * q
+    S = [c * l[0] + flv * w[0]]
+    for k in range(3):
+        term2 = half_lv2 * df[k] + flv * dot4(v, dl[k])
+        S.append((c * l[k + 1] + flv * w[k + 1]) - term2)
+    lt = [-l[0], l[1], l[2], l[3]]
+    l_eta_l = dot4(lt, l)
+    scale = f * recip(1.0 + f * l_eta_l)
+    k_lts = scale * dot4(lt, S)
+    return torch.stack([S[0] + k_lts * lt[0]]
+                       + [k_lts * lt[a] - S[a] for a in range(1, 4)])
+
+
 def fix_null_batched(gab: Tensor, v: Tensor) -> Tensor:
     """Rescale v^t so that g(v, v) = 0, keeping the root closest to the
     original v^t (gab (4, 4, N), v (4, N))."""

@@ -143,8 +143,13 @@ def schedule_constants(features: Features) -> tuple[float, float]:
 
 
 def metric_acceleration(metric: Metric, pos, vel, params, deps=None):
-    """Sparsity-pruned geodesic acceleration of a component-first batch
-    (``deps``: the coordinates to differentiate, default the metric's)."""
+    """Geodesic acceleration of a component-first batch: the rank-1
+    Kerr-Schild path where the metric declares a decomposition
+    (``Metric.rank1``), else the sparsity-pruned contraction (``deps``: the
+    coordinates to differentiate, default the metric's)."""
+    if metric.rank1 is not None:
+        return geometry.acceleration_batched_rank1(metric.rank1, pos, vel,
+                                                   params)
     if deps is None:
         deps = metric.depends_on
     return geometry.acceleration_batched(metric.fn, pos, vel, params,
@@ -361,8 +366,12 @@ def _march_graphed(step, work: _StateT, ids: Tensor, fx: Tensor, params,
     ray takes iterations that change nothing (inactive, its step is 0 and
     never commits, as in ``trace_rays_scan``).  The status is read every
     ``GRAPH_CHUNK`` iterations.  On CPU tensors each replay is an eager
-    step (how the tests hold this march to the eager one).  Returns the
-    working set and its ray indices after ``max_steps`` iterations."""
+    step (how the tests hold this march to the eager one).  At its end the
+    march returns its graphs' memory pools to the device
+    (``torch.cuda.empty_cache``): the caching allocator keeps a dead graph's
+    private pool reserved until then, and a 1080p march of a complex
+    two-body metric leaves several GiB.  Returns the working set and its
+    ray indices after ``max_steps`` iterations."""
     capture = work.position.is_cuda
     its = 0
     while its < max_steps and ids.numel():
@@ -399,6 +408,8 @@ def _march_graphed(step, work: _StateT, ids: Tensor, fx: Tensor, params,
         write_back(_take(static, done), ids[done])
         keep = ~done
         work, ids, fx = _take(static, keep), ids[keep], fx[keep]
+    if capture:
+        torch.cuda.empty_cache()
     return work, ids
 
 

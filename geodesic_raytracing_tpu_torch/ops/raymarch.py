@@ -88,6 +88,13 @@ INSTANCES = {
     "krasnikov_tube": ("KrasnikovTube", ("e", "D", "pmax", "littled")),
     "krasnikov_cylindrical": ("KrasnikovCylindrical", ("e", "D", "pmax")),
     "godel_cylindrical": ("GodelCylindrical", ("a",)),
+    "kerr_schild": ("KerrSchild", ("a", "rs")),
+    "kerr_newman_schild": ("KerrNewmanSchild", ("a", "rs", "Q")),
+    "double_schwarzschild": ("DoubleSchwarzschild", ("M1", "M2", "z")),
+    "double_kerr": ("DoubleKerr", ("R", "M", "a")),
+    "double_kerr_alt": ("DoubleKerrAlt", ("R", "M", "q")),
+    "double_unequal_kerr": ("DoubleUnequalKerr",
+                            ("m1", "m2", "fa1", "fa2", "R")),
 }
 
 # What a metric struct of csrc/ has compiled in besides the metric function:
@@ -196,6 +203,7 @@ def _instance(name: str) -> tuple:
 def check_compiled_metric(metric: Metric) -> None:
     """Raise NotImplementedError unless ``metric`` is what the kernel
     instance of its name was written from: the registered metric's function,
+    its rank-1 decomposition (which picks the acceleration path),
     ``depends_on``, symmetry flag (it sets the precision weights) and every
     ``COMPILED_CONFIG`` field.  A metric whose config was replaced has no
     instance, whatever its name."""
@@ -204,7 +212,7 @@ def check_compiled_metric(metric: Metric) -> None:
     _instance(metric.name)
     known = REGISTRY.get(metric.name)
     differs = ["(not registered)"] if known is None else [
-        f for f in ("fn", "depends_on", "spherically_symmetric")
+        f for f in ("fn", "rank1", "depends_on", "spherically_symmetric")
         if getattr(metric, f) != getattr(known, f)] + [
         f"config.{f}" for f in COMPILED_CONFIG
         if getattr(metric.config, f) != getattr(known.config, f)]

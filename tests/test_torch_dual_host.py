@@ -32,6 +32,7 @@ import torch
 from geodesic_raytracing_tpu.metrics import get_metric as jax_get_metric
 from geodesic_raytracing_tpu.ops import geometry as jgeometry
 from geodesic_raytracing_tpu_torch import metrics
+from geodesic_raytracing_tpu_torch.ops import complexify as cx
 from geodesic_raytracing_tpu_torch.ops import geometry as tgeometry
 from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
 from test_integrator import make_rays
@@ -145,8 +146,83 @@ extern "C" int grt_host_metric(const char* metric, const float* mparams,
   TRY(KrasnikovTube)
   TRY(KrasnikovCylindrical)
   TRY(GodelCylindrical)
+  TRY(DoubleSchwarzschild)
+  TRY(DoubleKerr)
+  TRY(DoubleKerrAlt)
+  TRY(DoubleUnequalKerr)
 #undef TRY
   return 1;
+}
+
+// A Kerr-Schild struct's decomposition: out[16 i + 4 j] = (f, l1, l2,
+// l3)[j], out[16 i + 4 j + 1 + k] its partial by coordinate k + 1.
+template <class M>
+void eval_rank1(const float* mparams, int n, const float* x, float* out) {
+  const M m = M::from_params(mparams);
+  for (int i = 0; i < n; ++i) {
+    const float* xi = x + 4 * i;
+    const auto d = m.fl(grt::coordinate<M, false, 1>(xi[1]),
+                        grt::coordinate<M, false, 2>(xi[2]),
+                        grt::coordinate<M, false, 3>(xi[3]));
+    const grt::Dual<7u> parts[4] = {grt::widen<7u>(d.f), grt::widen<7u>(d.l1),
+                                    grt::widen<7u>(d.l2),
+                                    grt::widen<7u>(d.l3)};
+    for (int j = 0; j < 4; ++j) {
+      out[16 * i + 4 * j] = parts[j].v;
+      for (int k = 0; k < 3; ++k) out[16 * i + 4 * j + 1 + k] = parts[j].d[k];
+    }
+  }
+}
+
+extern "C" int grt_host_rank1(const char* metric, const float* mparams,
+                              int n, const float* x, float* out) {
+#define TRY(M)                                  \
+  if (strcmp(metric, #M) == 0) {                \
+    eval_rank1<grt::M>(mparams, n, x, out);     \
+    return 0;                                   \
+  }
+  TRY(KerrSchild)
+  TRY(KerrNewmanSchild)
+#undef TRY
+  return 1;
+}
+
+// Each pair op of complex.cuh on duals of four live tangents: a = (x[4 i],
+// x[4 i + 1]), b = (x[4 i + 2], x[4 i + 3]), tangent k of input j at
+// t[16 i + 4 j + k]; out[10 i] the real part, out[10 i + 1 + k] its tangent
+// k, out[10 i + 5] the imaginary part, out[10 i + 6 + k] its tangent k.
+extern "C" int grt_host_pair_op(const char* op, int n, const float* x,
+                                const float* t, float* out) {
+  using namespace grt;
+  for (int i = 0; i < n; ++i) {
+    Dual<kAllTangents> v[4];
+    for (int j = 0; j < 4; ++j) {
+      v[j].v = x[4 * i + j];
+      for (int k = 0; k < kTangents; ++k) v[j].d[k] = t[16 * i + 4 * j + k];
+    }
+    const auto a = make_cx(v[0], v[1]);
+    const auto b = make_cx(v[2], v[3]);
+    Cx<Dual<kAllTangents>, Dual<kAllTangents>> r;
+    if (strcmp(op, "cadd") == 0) r = cadd(a, b);
+    else if (strcmp(op, "csub") == 0) r = csub(a, b);
+    else if (strcmp(op, "cmul") == 0) r = cmul(a, b);
+    else if (strcmp(op, "cdiv") == 0) r = cdiv(a, b);
+    else if (strcmp(op, "conj") == 0) r = conj(a);
+    else if (strcmp(op, "csqrt") == 0) r = csqrt(a);
+    else if (strcmp(op, "scm") == 0)
+      r = make_cx(scm(a), dual_constant(0.0f) * v[0]);
+    else if (strcmp(op, "cdiv_real") == 0) {
+      const auto q = cdiv(a, v[2]);
+      r = make_cx(q.re, q.im);
+    } else return 1;
+    out[10 * i] = r.re.v;
+    out[10 * i + 5] = r.im.v;
+    for (int k = 0; k < kTangents; ++k) {
+      out[10 * i + 1 + k] = r.re.d[k];
+      out[10 * i + 6 + k] = r.im.d[k];
+    }
+  }
+  return 0;
 }
 
 // Each op of a dual of four live tangents, seeded with t (4 floats a
@@ -342,6 +418,12 @@ def host_b(tmp_path_factory):
         so.grt_host_metric.restype = ctypes.c_int
         so.grt_host_metric.argtypes = [ctypes.c_char_p] + [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        for fn in (so.grt_host_rank1, so.grt_host_pair_op):
+            fn.restype = ctypes.c_int
+        so.grt_host_rank1.argtypes = [ctypes.c_char_p] + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        so.grt_host_pair_op.argtypes = [ctypes.c_char_p, ctypes.c_int] + [
+            ctypes.c_void_p] * 3
         so.grt_host_op.restype = ctypes.c_int
         so.grt_host_op.argtypes = [ctypes.c_char_p, ctypes.c_double,
                                    ctypes.c_float, ctypes.c_int,
@@ -505,3 +587,142 @@ def test_catalogue_b_host_partials_match_torch_jvp(host_b, name):
                 dg[c].reshape(4, 4, -1), (4, 4, n))[i, j].numpy()
     scale = np.maximum(np.abs(want).max(0), 1.0)
     assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6 * scale).all()
+
+
+# ---------------------------------------------------------------------------
+# Catalogue slice C: the complex pairs, the Kerr-Schild decompositions, the
+# two-body structs
+# ---------------------------------------------------------------------------
+
+CATALOGUE_C_DENSE = ("double_schwarzschild", "double_kerr", "double_kerr_alt",
+                     "double_unequal_kerr")
+RANK1 = ("kerr_schild", "kerr_newman_schild")
+
+_PAIR_OPS = {
+    "cadd": lambda a, b: cx.cadd(a, b),
+    "csub": lambda a, b: cx.csub(a, b),
+    "cmul": lambda a, b: cx.cmul(a, b),
+    "cdiv": lambda a, b: cx.cdiv(a, b),
+    "cdiv_real": lambda a, b: cx.cdiv(a, (b[0], None)),
+    "conj": lambda a, b: cx.conj(a),
+    "csqrt": lambda a, b: cx.csqrt(a),
+    "scm": lambda a, b: (cx.scm(a), 0.0 * a[0]),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_PAIR_OPS))
+def test_pair_op_matches_torch_jvp(host_b, op):
+    """Each pair op of ``csrc/complex.cuh`` on duals of four live tangents,
+    on the host build, against ``torch.func.jvp`` of the port's torch form
+    (``ops.complexify``), tangent by tangent: rtol 1e-6 and atol 1e-6 of the
+    largest |value| (glibc's sqrtf is correctly rounded, torch's CPU sqrt
+    not always; ``csqrt``'s cancelling part is held to 1e-5 of the largest
+    |value|, the half-angle form's cancellation amplifying that ulp)."""
+    rng = np.random.default_rng(13)
+    n = 2048
+    x = (np.exp(rng.uniform(-3, 3, (n, 4))) * rng.choice([-1.0, 1.0], (n, 4))
+         ).astype(np.float32)
+    x[:8, 1] = 0.0
+    t = rng.normal(size=(n, 4, 4)).astype(np.float32)
+    out = np.zeros((n, 10), np.float32)
+    assert host_b[0].grt_host_pair_op(op.encode(), n, x.ctypes.data,
+                                      t.ctypes.data, out.ctypes.data) == 0
+    assert np.isfinite(out).all()
+    fn = _PAIR_OPS[op]
+
+    def torch_fn(ar, ai, br, bi):
+        re, im = fn((ar, ai), (br, bi))
+        return re, im
+
+    cols = tuple(torch.from_numpy(np.ascontiguousarray(x[:, j]))
+                 for j in range(4))
+    atol = 1e-5 if op == "csqrt" else 1e-6
+    for k in range(4):
+        tan = tuple(torch.from_numpy(np.ascontiguousarray(t[:, j, k]))
+                    for j in range(4))
+        (re, im), (dre, dim) = torch.func.jvp(torch_fn, cols, tan)
+        for got, want in ((out[:, 0], re), (out[:, 1 + k], dre),
+                          (out[:, 5], im), (out[:, 6 + k], dim)):
+            want = want.numpy()
+            scale = max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(got, want, rtol=1e-6,
+                                       atol=atol * scale, err_msg=op)
+
+
+def _c_events(name, n=512, seed=11):
+    from test_torch_metrics_catalogue_c import events
+
+    return np.ascontiguousarray(events(name, n, seed).T)
+
+
+@pytest.mark.parametrize("name", CATALOGUE_C_DENSE)
+def test_catalogue_c_pruned_equals_unpruned(host_b, name):
+    """Each two-body struct's entries and partials with pruned tangents
+    (the pairs' parts carry only their own) equal the unpruned computation,
+    bit for bit, and both tangents are live."""
+    x = _c_events(name)
+    pruned, full = (_host_metric(so, name, x) for so in host_b)
+    assert np.isfinite(pruned).all()
+    np.testing.assert_array_equal(pruned, full)
+    for c in (1, 3):
+        assert np.abs(pruned[:, 10 * (1 + c):10 * (2 + c)]).max() > 0, c
+
+
+@pytest.mark.parametrize("name", CATALOGUE_C_DENSE)
+def test_catalogue_c_host_partials_match_torch_jvp(host_b, name):
+    """Each two-body struct's 10 entries and their partials against
+    ``torch.func.jvp`` of the torch metric: rtol 1e-5 and atol 1e-6 of the
+    largest magnitude of the entry (its value and partials; glibc's sqrtf
+    against torch's CPU sqrt), times ``double_schwarzschild``'s condition
+    number where its Y_k cancel (``test_torch_metrics_catalogue_c``)."""
+    from test_torch_metrics_catalogue_c import double_schwarzschild_kappa
+
+    m = metrics.get_metric(name)
+    x = _c_events(name)
+    got = _host_metric(host_b[0], name, x)
+    gab, dg = tgeometry.metric_and_partials_batched(
+        m.fn, torch.from_numpy(np.ascontiguousarray(x.T)), m.params(),
+        deps=m.depends_on)
+    n = len(x)
+    want = np.zeros_like(got)
+    for e, (i, j) in enumerate(_IDX):
+        want[:, e] = gab[i, j].numpy()
+        for c in m.depends_on:
+            want[:, 10 * (1 + c) + e] = dg[c][i, j].numpy()
+    scale = np.tile(np.maximum(np.abs(want[:, :10]).max(0), 1.0), 5)
+    scale = scale[None, :] * np.ones((n, 1))
+    if name == "double_schwarzschild":
+        scale = scale * double_schwarzschild_kappa(
+            np.ascontiguousarray(x.T), m.params())[:, None]
+    assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("name", RANK1)
+def test_rank1_decomposition_host_matches_torch_jvp(host_b, name):
+    """Each Kerr-Schild struct's f and l with their partials by x, y, z:
+    pruned equal to unpruned bit for bit, and against ``torch.func.jvp`` of
+    the torch decomposition (``geometry.rank1_partials_batched``): rtol 1e-5
+    and atol 1e-6 of the largest magnitude of each part."""
+    struct, names = raymarch.INSTANCES[name]
+    m = metrics.get_metric(name)
+    params = m.params()
+    x = _c_events(name)
+    mp = np.array([params[k] for k in names] + [0.0], np.float32)
+    outs = []
+    for so in host_b:
+        out = np.zeros((len(x), 16), np.float32)
+        assert so.grt_host_rank1(struct.encode(), mp.ctypes.data, len(x),
+                                 x.ctypes.data, out.ctypes.data) == 0
+        outs.append(out)
+    np.testing.assert_array_equal(*outs)
+    f, lv, df, dl = tgeometry.rank1_partials_batched(
+        m.rank1, torch.from_numpy(np.ascontiguousarray(x.T)), params)
+    want = np.zeros_like(outs[0])
+    for j, (v, d) in enumerate([(f, df)] + [
+            (lv[b], [dl[k][b] for k in range(3)]) for b in (1, 2, 3)]):
+        want[:, 4 * j] = v.numpy()
+        for k in range(3):
+            want[:, 4 * j + 1 + k] = d[k].numpy()
+    scale = np.repeat(np.maximum(np.abs(want[:, ::4]).max(0), 1.0), 4)
+    assert (np.abs(outs[0] - want)
+            <= 1e-5 * np.abs(want) + 1e-6 * scale[None, :]).all()

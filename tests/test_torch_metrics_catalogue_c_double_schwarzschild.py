@@ -1,0 +1,41 @@
+"""Port parity of catalogue slice C: two Schwarzschild black holes on a strut
+(real, a cylindrical terminator), and the golden of ``double_kerr_alt``.
+
+The 64-ray march against JAX's ``while`` driver and the 64x64 frame of
+``double_schwarzschild``, and the 128^2 goldens of it and of
+``double_kerr_alt`` (spread here from that metric's file), on the CPU. The
+helpers and their tolerances are those of
+``test_torch_metrics_catalogue_b.py`` (the 64-ray march from JAX's launch
+state, the port's own held to it first; the 64x64 frame, sRGB RMSE < 0.5 and
+< 0.5% of pixels off by more than 32; the 128^2 golden gate, RMSE < 4 and <
+1% of pixels off by more than 32) and of
+``test_torch_metrics_catalogue_c.py`` (``assert_march_parity_c``: fates and
+step counts equal on every ray and escaped positions within 1e-4, but on the
+ill-conditioned classes it names).
+"""
+
+import pytest
+import torch
+
+from test_torch_metrics_catalogue_b import (
+    assert_frame_matches_jax, assert_golden, march_both)
+from test_torch_metrics_catalogue_c import assert_march_parity_c
+
+torch.set_num_threads(1)
+
+NAMES = ('double_schwarzschild',)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_march_matches_jax(name):
+    assert_march_parity_c(name, *march_both(name))
+
+
+@pytest.mark.parametrize("key", NAMES)
+def test_frame_matches_jax(key):
+    assert_frame_matches_jax(key)
+
+
+@pytest.mark.parametrize("key", ('double_schwarzschild', 'double_kerr_alt'))
+def test_catalogue_golden(key):
+    assert_golden(key)

@@ -37,6 +37,8 @@ CATALOGUE_B = ("janis_newman_winicour", "schwarzschild_ingoing_ef_hawking",
                "configurable_wormhole", "ellis_drainhole",
                "symmetric_warp_drive", "alcubierre", "krasnikov_tube",
                "krasnikov_cylindrical", "godel_cylindrical")
+CATALOGUE_C = ("kerr_schild", "kerr_newman_schild", "double_schwarzschild",
+               "double_kerr", "double_kerr_alt", "double_unequal_kerr")
 # The eight metrics of catalogue slice A (tests/test_torch_metrics_catalogue_a.py).
 CATALOGUE_A = ("wormhole (morris-thorne)", "black_hole_cosmic_string", "ernst",
                "kerr_newman_boyer", "kerr_ingoing_ef",
@@ -177,8 +179,11 @@ def test_diag_metric_matches_jax():
 
 
 def test_unported_metric_is_a_key_error():
-    with pytest.raises(KeyError, match="not ported yet"):
-        tmetrics.get_metric("kerr_schild")
+    """A name neither package registers is a KeyError; the port registers
+    all 31 of the reference's metrics."""
+    with pytest.raises(KeyError, match="unknown metric"):
+        tmetrics.get_metric("kerr_schild_spinless")
     assert set(SEVEN) | {"kerr_boyer"} | set(CATALOGUE_A) | set(
-        CATALOGUE_B) == set(tmetrics.list_metrics())
+        CATALOGUE_B) | set(CATALOGUE_C) == set(tmetrics.list_metrics())
+    assert set(tmetrics.list_metrics()) == set(jmetrics.REGISTRY)
     assert jax.default_backend() == "cpu"

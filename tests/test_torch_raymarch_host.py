@@ -156,6 +156,12 @@ extern "C" int grt_host_march(const char* metric, const float* mparams,
   TRY(grt::KrasnikovTube, "KrasnikovTube")
   TRY(grt::KrasnikovCylindrical, "KrasnikovCylindrical")
   TRY(grt::GodelCylindrical, "GodelCylindrical")
+  TRY(grt::KerrSchild, "KerrSchild")
+  TRY(grt::KerrNewmanSchild, "KerrNewmanSchild")
+  TRY(grt::DoubleSchwarzschild, "DoubleSchwarzschild")
+  TRY(grt::DoubleKerr, "DoubleKerr")
+  TRY(grt::DoubleKerrAlt, "DoubleKerrAlt")
+  TRY(grt::DoubleUnequalKerr, "DoubleUnequalKerr")
   TRY(CylindricalSchwarzschild, "CylindricalSchwarzschild")
   TRY(NonsingularSchwarzschild, "NonsingularSchwarzschild")
 #undef TRY
@@ -290,23 +296,36 @@ def generic_rays(m, params, n=64, tilt=0.0):
             m.from_polar_velocity(p, v, params).T.contiguous())
 
 
-def _assert_same_march(host, ref, min_escaped):
+def _assert_same_march(host, ref, min_escaped, dead_velocity_rtol=1e-4):
     np.testing.assert_array_equal(host.status.numpy(), ref.status.numpy())
     np.testing.assert_array_equal(host.steps.numpy(), ref.steps.numpy())
     assert (ref.status.numpy() == integrate.ESCAPED).sum() >= min_escaped
+    dead = ref.status.numpy() == integrate.DEAD
     for name in ("position", "velocity", "next_ds", "running_dlambda_dnew"):
-        np.testing.assert_allclose(getattr(host, name).numpy(),
-                                   getattr(ref, name).numpy(), rtol=1e-4,
-                                   atol=1e-4, err_msg=name)
+        a, b = getattr(host, name).numpy(), getattr(ref, name).numpy()
+        if name == "velocity":
+            np.testing.assert_allclose(a[dead], b[dead],
+                                       rtol=dead_velocity_rtol, atol=1e-4,
+                                       err_msg="velocity of DEAD rays")
+            a, b = a[~dead], b[~dead]
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
 
 
 # The Kerr family is held as kerr_boyer is (test_host_kerr_family below).
 KERR_FAMILY = ("kerr_boyer", "kerr_newman_boyer", "kerr_ingoing_ef",
-               "kerr_rational_polynomial")
+               "kerr_rational_polynomial", "kerr_schild", "kerr_newman_schild")
 INSTANCE_CASES = [(n, False) for n in sorted(raymarch.INSTANCES)
                   if n not in KERR_FAMILY]
 INSTANCE_CASES += [(n, True) for n in sorted(raymarch.INSTANCES)
                    if metrics.get_metric(n).spherically_symmetric]
+
+
+# Metrics whose rays the blow-up test stops at a horizon, where |v^t| has
+# grown past 1000 within the last steps and carries an ulp of torch's CPU
+# sqrt (not correctly rounded) against glibc's sqrtf, amplified by that
+# growth: double_schwarzschild's velocities of 4 such rays differ by up to
+# 2.8e-4 of themselves (positions, fates and step counts agree).
+BLOW_UP_DEAD_VELOCITY_RTOL = {"double_schwarzschild": 1e-3}
 
 
 # Metrics whose rays cross a tanh wall (the Alcubierre bubble, the forming
@@ -357,7 +376,8 @@ def test_host_instance_matches_plain_torch(host_march_any, name, planar):
     if name in TANH_WALL:
         _assert_same_march_tanh_wall(host, ref, m, st, params, feats, opts)
     else:
-        _assert_same_march(host, ref, 16)
+        _assert_same_march(host, ref, 16, BLOW_UP_DEAD_VELOCITY_RTOL.get(
+            name, 1e-4))
     if name == "godel_cylindrical":
         # The rays launched next to the axis and aimed at it die at the
         # cylindrical terminator.
@@ -381,8 +401,11 @@ def test_host_kerr_family_matches_plain_torch(host_march_any, name):
     median step count of the escaped rays: it lingered near the photon
     sphere, where the last ulp grows by about a bit a step
     (kerr_newman_boyer's boundary ray, 884 steps against a median of 480,
-    ends 7.2e-3 apart).  On the card every instance equals the plain march
-    bit for bit (chip_smoke.py phase 14)."""
+    ends 7.2e-3 apart; kerr_newman_schild's ray of 1,726 steps against a
+    median of 840, 0.025).  The Kerr-Schild instances (the rank-1
+    acceleration) are held so too: their chain takes two square roots.  On
+    the card every instance equals the plain march bit for bit
+    (chip_smoke.py phase 14)."""
     m = metrics.get_metric(name)
     params = m.params()
     feats = integrate.Features.for_metric(m)

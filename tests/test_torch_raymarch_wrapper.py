@@ -147,6 +147,22 @@ def test_metric_of_the_kernel_is_registered():
         assert struct.isidentifier()
 
 
+def test_smoke_counts_every_instance_it_marches():
+    """``chip_smoke.py`` phase 19 bounds every instance's 1080p launch by its
+    own operations per trial iteration: each metric has its 4-D count, and a
+    planar one where the pipeline traces it planar; phase 26 drives the
+    catalogue slices, which are the instances but for the eight of PRs 1-4."""
+    for name in raymarch.INSTANCES:
+        assert chip_smoke.OPS_BY_INSTANCE[name, False] > 0
+        if metrics.get_metric(name).spherically_symmetric:
+            assert chip_smoke.OPS_BY_INSTANCE[name, True] > 0
+    first = {"kerr_boyer", "schwarzschild", "schwarzschild_fast",
+             "schwarzschild_skewed", "schwarzschild_ingoing_ef", "de_sitter",
+             "minkowski", "minkowski_skew"}
+    assert set(chip_smoke.CATALOGUES) == set(raymarch.INSTANCES) - first
+    assert len(chip_smoke.CATALOGUES) == len(set(chip_smoke.CATALOGUES)) == 23
+
+
 def test_ptxas_instances_reads_every_option_instance():
     """A library's report holds one block per option instance, keyed by the
     mangled name's StepOptions<planar, euler, reparameterisation>."""
