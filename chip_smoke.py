@@ -174,21 +174,23 @@ OPS_BY_INSTANCE = {
     # 170 with the charge term), the rank-1 contraction and Sherman-Morrison
     # of csrc/march.cuh (97), the step with the cartesian chart's r (117).
     # The two-body instances: double_schwarzschild's metric by hand (260);
-    # the complex potentials' metric with its two tangents counted from the
-    # torch form, every elementwise arithmetic op of the value and of each
-    # tangent sweep (torch.func.jvp under a dispatch-mode count), less the
-    # square of z + c that the kernel's pruned tangents skip (32): an upper
-    # estimate within 5%; the contraction and the pruned inverse of the five
-    # entries, each carrying both tangents, by march.cuh's folding (92; 62
-    # for the diagonal); the step with the cylindrical chart's r (115, and
-    # 116 with the cylindrical terminator).  The double-Kerr instances spill
-    # (PERF.md section 6): their local-memory traffic is not counted here.
+    # the complex potentials' metric with its two tangents counted by the
+    # same rule by scripts/torch_opcount.py from the kernel's own code
+    # (multibody.cuh and complex.cuh after inlining, the dead tangents and
+    # the Zero imaginary parts folded away, common terms shared: 984, 1,563,
+    # 1,182; the script gives 0.90-1.02 of the hand counts of the Kerr
+    # family, double_schwarzschild and ernst); the contraction and the
+    # pruned inverse of the five entries, each carrying both tangents, by
+    # march.cuh's folding (92; 62 for the diagonal); the step with the
+    # cylindrical chart's r (115, and 116 with the cylindrical terminator).
+    # The double-Kerr instances spill (PERF.md section 6): their
+    # local-memory traffic is not counted here.
     ("kerr_schild", False): 159 + 97 + 117,
     ("kerr_newman_schild", False): 170 + 97 + 117,
     ("double_schwarzschild", False): 260 + 62 + 116,
-    ("double_kerr", False): 1322 + 92 + 115,
-    ("double_kerr_alt", False): 2153 + 92 + 115,
-    ("double_unequal_kerr", False): 1569 + 92 + 115,
+    ("double_kerr", False): 984 + 92 + 115,
+    ("double_kerr_alt", False): 1563 + 92 + 115,
+    ("double_unequal_kerr", False): 1182 + 92 + 115,
 }
 # The metrics of catalogue slice A, the fourth path (phase 26).
 CATALOGUE_A = ("black_hole_cosmic_string", "cosmic_string_spinning", "ernst",

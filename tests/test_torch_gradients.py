@@ -86,10 +86,11 @@ def _grad_and_fd(loss, x0, eps):
     return float(g), float(fd)
 
 
-def _check(name, pos, vel, remat, params_of, x0, eps, fd_tol):
-    jopts = jint.TraceOptions(max_steps=256, method="scan",
+def _check(name, pos, vel, remat, params_of, x0, eps, fd_tol,
+           max_steps=256):
+    jopts = jint.TraceOptions(max_steps=max_steps, method="scan",
                               remat_every=remat)
-    topts = tint.TraceOptions(max_steps=256, method="scan",
+    topts = tint.TraceOptions(max_steps=max_steps, method="scan",
                               remat_every=remat)
     jg = jax.grad(_endpoint_loss_jax(name, pos, vel, jopts, params_of))(
         jnp.float32(x0))

@@ -16,9 +16,12 @@ Tolerances:
   (``double_schwarzschild_kappa``): near the axis beyond a rod's end Y_k
   cancels (p = 0.58, z = 4.95: kappa 760, and both packages are 1.5e-5 and
   2.5e-5 from the float64 partial -0.0055); where the packages differ by
-  more, the port must be nearer its own float64 evaluation than JAX is
-  (``double_unequal_kerr``'s g_tphi at p = 7.9, z = 1.3: JAX's float32 cube
-  root for its constant a leaves it 1.0e-6 off, the port 4.5e-10);
+  more, the port must be at least as near as JAX's float32 to the
+  reference's own formulas evaluated in float64 (``reference_float64``),
+  still within 1e-5 of the scale, on at most ``FALLBACK_ENTRIES`` entries
+  of an array (``double_unequal_kerr``'s g_tphi, 2 entries of 4,096, near
+  p = 7.9, z = 1.3: JAX's float32 cube root for its constant a leaves it
+  1.0e-6 of the scale off; no other metric needs it);
 - ``minkowski_plus(*rank1) == fn``: equal (the port defines ``fn`` so); l is
   eta-null within 2e-5, the reference's bound;
 - the rank-1 acceleration: against JAX's ``acceleration_batched_rank1``
@@ -39,7 +42,9 @@ Tolerances:
   where the half-angle form cancels (see the test).
 """
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -49,6 +54,8 @@ import jax
 import jax.numpy as jnp
 
 from geodesic_raytracing_tpu import metrics as jmetrics
+from geodesic_raytracing_tpu.metrics import base as jmbase
+from geodesic_raytracing_tpu.metrics import catalogue_multibody as jmulti
 from geodesic_raytracing_tpu.ops import complexify as jcx
 from geodesic_raytracing_tpu.ops import geometry as jgeometry
 from geodesic_raytracing_tpu.ops import integrate as jint
@@ -66,6 +73,12 @@ torch.set_num_threads(1)
 CATALOGUE_C = ("kerr_schild", "kerr_newman_schild", "double_schwarzschild",
                "double_kerr", "double_kerr_alt", "double_unequal_kerr")
 RANK1 = ("kerr_schild", "kerr_newman_schild")
+# The most entries of one array (of 4 x 4 x 256) on which the metric test
+# takes the float64 witness instead of the tolerance.
+FALLBACK_ENTRIES = 8
+# The most escaped rays of a 64-ray march that the march tests hold to the
+# float64 witness instead of the tolerance.
+FALLBACK_RAYS = 8
 
 
 def events(name, n=256, seed=0):
@@ -98,6 +111,38 @@ def double_schwarzschild_kappa(x, params):
     return ((R + np.abs(z - aks)) / np.abs(R + aks - z)).max(0)
 
 
+class _Jnp64:
+    """``jax.numpy`` with its ``float32`` and ``complex64`` read as
+    ``float64`` and ``complex128``."""
+
+    def __getattr__(self, name):
+        wide = {"float32": jnp.float64, "complex64": jnp.complex128}
+        return wide.get(name) or getattr(jnp, name)
+
+
+# The double-Kerr formulas of the reference before ``realify`` (native
+# complex arithmetic, which JAX's forward mode differentiates directly).
+_COMPLEX_FNS = {"double_kerr": jmulti.double_kerr_fn,
+                "double_kerr_alt": jmulti.double_kerr_alt_fn,
+                "double_unequal_kerr": jmulti.double_unequal_kerr_fn}
+
+
+@contextlib.contextmanager
+def reference_float64(name):
+    """The JAX package's metric ``name`` and its parameters, evaluated in
+    float64: a witness of the reference's own formulas, independent of the
+    port.  Under ``jax.enable_x64``, with the float32 and complex64 casts of
+    its ``metrics/base.py`` and ``catalogue_multibody.py`` read as float64
+    and complex128 for the duration, and the double-Kerr formulas on native
+    complex128 rather than ``realify``'s float32 pairs."""
+    jm = jmetrics.get_metric(name)
+    if name in _COMPLEX_FNS:
+        jm = dataclasses.replace(jm, fn=_COMPLEX_FNS[name])
+    with jax.enable_x64(), mock.patch.object(jmbase, "jnp", _Jnp64()), \
+            mock.patch.object(jmulti, "jnp", _Jnp64()):
+        yield jm, {k: jnp.asarray(float(v)) for k, v in jm.params().items()}
+
+
 # ---------------------------------------------------------------------------
 # Helpers of the march tests
 # ---------------------------------------------------------------------------
@@ -113,14 +158,17 @@ def assert_march_parity_c(name, tst, jfin, tfin, min_escaped=16):
     r < ``RING_R``, where 1 / r and z / r grow without bound): there within
     2% (``kerr_schild``: 37 rays die at |x| = 0.5000-0.5003, 8 of them one
     step apart).  Escaped positions within 1e-4 (rtol and atol); where an
-    escaped ray is further apart, the escaped rays are held to the port's
-    float64 march from the same launch state (``tst``): the port's largest
-    position error no larger than JAX's largest (or 1e-4 of the scale).
-    Those are rays that lingered near the photon sphere, where the last ulp
-    grows by about a bit a step (``kerr_newman_schild``: 7 rays of 931-1,726
-    steps, against a median of 840, end up to 0.015 apart; the port is up
-    to 0.020 from the float64 march, JAX up to 0.034).  Returns the number of
-    rays at the ring and of escaped rays further apart than 1e-4."""
+    escaped ray is further apart, the escaped rays are held to the
+    reference's float64 march from the same launch state (``tst``, JAX's
+    ``while`` driver on ``reference_float64``): the port's largest position
+    error no larger than JAX's largest (or 1e-4 of the scale), no ray
+    further apart than 5e-4 of the scale and at most ``FALLBACK_RAYS`` rays
+    apart.  Those are rays that lingered near the photon sphere, where the
+    last ulp grows by about a bit a step (``kerr_newman_schild``: 7 rays of
+    931-1,726 steps, against a median of 840, end up to 0.015 apart, 2.6e-4
+    of the scale 57; the port is up to 0.020 from the float64 march, JAX up
+    to 0.034).  Returns the number of rays at the ring and of escaped rays
+    further apart than 1e-4."""
     m = tmetrics.get_metric(name)
     rs = np.asarray(jfin.status)
     np.testing.assert_array_equal(tfin.status.numpy(), rs)
@@ -137,19 +185,28 @@ def assert_march_parity_c(name, tst, jfin, tfin, min_escaped=16):
     got, want = tfin.position.numpy()[esc], np.asarray(jfin.position)[esc]
     apart = (np.abs(got - want) > 1e-4 + 1e-4 * np.abs(want)).any(axis=1)
     if apart.any():
-        st64 = tint.RayState(*(t.double() if t.dtype == torch.float32 else t
-                               for t in tst))
-        f64 = tint.trace_rays(m, st64, m.params(),
-                              tint.Features.for_metric(m),
-                              tint.TraceOptions(max_steps=4096))
-        np.testing.assert_array_equal(f64.status.numpy(), rs)
-        truth = f64.position.numpy()[esc]
+        with reference_float64(name) as (jm64, p64):
+            st64 = jint.RayState(*(
+                jnp.asarray(t.numpy().astype(np.float64)
+                            if t.dtype == torch.float32 else t.numpy())
+                for t in tst))
+            f64 = jint.trace_rays(jm64, st64, p64,
+                                  features=jint.Features.for_metric(jm64),
+                                  opts=jint.TraceOptions(max_steps=4096))
+            status64, truth = np.asarray(f64.status), np.asarray(f64.position)
+        assert truth.dtype == np.float64
+        np.testing.assert_array_equal(status64, rs)
+        truth = truth[esc]
+        scale = max(1.0, np.abs(truth).max())
         port_err = np.abs(got - truth).max()
         jax_err = np.abs(want - truth).max()
         print(f"{name}: {int(apart.sum())} escaped rays apart by more than "
-              f"1e-4; largest position error against the float64 march: "
-              f"port {port_err:.3g}, JAX {jax_err:.3g}")
-        assert port_err <= max(jax_err, 1e-4 * max(1.0, np.abs(truth).max()))
+              f"1e-4, by up to {np.abs(got - want).max():.3g}; largest "
+              f"position error against the reference's float64 march: port "
+              f"{port_err:.3g}, JAX {jax_err:.3g}")
+        assert port_err <= max(jax_err, 1e-4 * scale)
+        assert np.abs(got - want).max() <= 5e-4 * scale
+        assert apart.sum() <= FALLBACK_RAYS
     return int(ring.sum()), int(apart.sum())
 
 
@@ -176,16 +233,24 @@ def test_metric_and_partials_match_jax(name):
         assert (td[c] is None) == (jd[c] is None) == (c not in tm.depends_on)
         if td[c] is not None:
             pairs.append((f"d{c} g", td[c].numpy(), np.asarray(jd[c])))
-    # Where the packages differ by more, the port must be the nearer of the
-    # two to its own float64 evaluation.
-    g64, d64 = tgeometry.metric_and_partials_batched(
-        tm.fn, torch.from_numpy(x).double(), tm.params(), deps=tm.depends_on)
-    truth = [g64.numpy()] + [d64[c].numpy() for c in tm.depends_on]
+    # Where the packages differ by more, the port must be at least as near
+    # as JAX to the reference's formulas in float64, within 1e-5 of the
+    # scale, on at most FALLBACK_ENTRIES entries.
+    with reference_float64(name) as (jm64, p64):
+        g64, d64 = jgeometry.metric_and_partials_batched(
+            jm64.fn, jnp.asarray(x, jnp.float64), p64, deps=jm.depends_on)
+        truth = [np.asarray(g64).reshape(4, 4, -1)] + [
+            np.asarray(d64[c]) for c in tm.depends_on]
     for (what, got, want), f64 in zip(pairs, truth):
+        assert f64.dtype == np.float64, what
+        f64 = np.broadcast_to(f64, got.shape)
         assert np.isfinite(got).all(), what
-        bad = np.abs(got - want) > 1e-5 * np.abs(want) + 1e-6 * scale
-        bad &= np.abs(got - f64) > np.abs(want - f64)
-        assert not bad.any(), (what, np.argwhere(bad)[:8])
+        off = np.abs(got - want)
+        bad = off > 1e-5 * np.abs(want) + 1e-6 * scale
+        nearer = np.abs(got - f64) <= np.abs(want - f64)
+        assert (nearer | ~bad).all(), (what, np.argwhere(bad & ~nearer)[:8])
+        assert (off <= 1e-5 * scale).all(), (what, (off / scale).max())
+        assert bad.sum() <= FALLBACK_ENTRIES, (what, int(bad.sum()))
 
 
 @pytest.mark.parametrize("name", CATALOGUE_C)

@@ -2,7 +2,7 @@
 the CPU, at the golden gate of ``test_torch_metrics_catalogue_b.py`` (RMSE <
 4 and < 1% of pixels off by more than 32). It has a file of its own: the
 scene's trapped rays run the whole 8,192-step budget in the eager march
-(~130 s on one core).
+(~80 s on one core).
 """
 
 import pytest

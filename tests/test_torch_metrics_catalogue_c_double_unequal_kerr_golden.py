@@ -1,0 +1,17 @@
+"""Port parity of catalogue slice C: the 128^2 golden of
+``double_unequal_kerr``, on the CPU, at the golden gate of
+``test_torch_metrics_catalogue_b.py`` (RMSE < 4 and < 1% of pixels off by
+more than 32). A file of its own (~35 s on one core).
+"""
+
+import pytest
+import torch
+
+from test_torch_metrics_catalogue_b import assert_golden
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("key", ("double_unequal_kerr",))
+def test_catalogue_golden(key):
+    assert_golden(key)
