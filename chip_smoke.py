@@ -2028,6 +2028,369 @@ def geodesic_camera_path(dev, sky) -> dict:
             "record_gap": gap}, err
 
 
+# ---------------------------------------------------------------------------
+# The seventh path: GR triangles
+# ---------------------------------------------------------------------------
+
+# The recorded march of the CLI's triangle layer: 64 slots of 8 trial
+# iterations, 4-D camera rays; held bit for bit to the plain recorded march
+# for every slot at 480x270 and for the first TRI_SLOTS_1080 at 1920x1080.
+TRI_SLOTS, TRI_PER, TRI_SLOTS_1080 = 64, 8, 8
+TRI_SMALL = (480, 270)
+TRI_CUBES = ((-6.0, 0.0, -3.0, 0.0), (-6.0, 0.0, 3.0, 0.0))
+TRI_CLI_CROP = 64  # compact against dense on this square of the CLI frame
+# scripts/triangle_bench.py's 12-cube scene around schwarzschild: 12 cubes of
+# scale 0.6 subdivided to edges <= 1.5 / 32 (147,456 triangles), worldlines
+# of 512 steps in 8 segments, 960x540 camera rays (planar settings, as the
+# script's RenderSettings default: the rays are rotated into the equator)
+# recorded in 32 slots of 8, compact at obj_budget 8, pair_budget 2^19,
+# tri_budget 2^20, patch_size 128, patch_slots 8 over the full frame.  The
+# TPU's hit count there (BENCH_NOTES.md:593-601) is the witness.
+BENCH_SIZE, BENCH_SLOTS = (960, 540), 32
+BENCH_TPU_HITS, BENCH_HITS_TOL = 185_232, 0.005
+BENCH_CROP = 32
+BENCH_DENSE = 8  # the dense oracle's square, the centre of the crop
+BENCH_COMPACT = dict(block=256, obj_budget=8, pair_budget=1 << 19,
+                     tri_budget=1 << 20, patch_size=128, patch_slots=8)
+
+
+def bench_scene():
+    """The 12 objects of scripts/triangle_bench.py (restated)."""
+    from geodesic_raytracing_tpu_torch.triangles import (make_cube,
+                                                         subtriangulate)
+
+    per_obj = 100_000 // 12
+    depth = max(0, int(np.ceil(np.log(per_obj / 12) / np.log(4))))
+    base = make_cube([0, 0, 0, 0], scale=0.6)
+    v, t = subtriangulate(base.vertices, base.triangles,
+                          max_edge=1.5 / (2 ** depth) + 1e-6)
+    objs = []
+    for i in range(12):
+        ang = 2 * np.pi * i / 12
+        o = make_cube([-6.0, 4 * np.cos(ang), 4 * np.sin(ang), 0.0],
+                      scale=0.6, velocity=(0.408 * -np.sin(ang),
+                                           0.408 * np.cos(ang), 0))
+        o.vertices, o.triangles = v, t
+        objs.append(o)
+    return objs
+
+
+def crop_path(path, width, x0, y0, size):
+    """The recorded path of the ``size`` x ``size`` pixels from (x0, y0)."""
+    s, n, _ = path.shape
+    img = path.reshape(s, n // width, width, 4)
+    return img[:, y0:y0 + size, x0:x0 + size].reshape(s, -1, 4).contiguous()
+
+
+def crop_at_edges(hit, size):
+    """(x0, y0) of a ``size`` square centred on an edge pixel of the hit
+    mask (a hit with a miss among its 4 neighbours; the middle one in
+    row-major order), so that the square holds hits, misses and the edges
+    between them."""
+    import torch
+
+    h, w = hit.shape
+    inner = hit.clone()
+    inner[1:] &= hit[:-1]
+    inner[:-1] &= hit[1:]
+    inner[:, 1:] &= hit[:, :-1]
+    inner[:, :-1] &= hit[:, 1:]
+    ys, xs = torch.nonzero(hit & ~inner, as_tuple=True)
+    assert ys.numel(), "no hit edge to centre a crop on"
+    cy, cx = int(ys[ys.numel() // 2]), int(xs[xs.numel() // 2])
+    return (min(max(cx - size // 2, 0), w - size),
+            min(max(cy - size // 2, 0), h - size))
+
+
+def recorded_vs_plain(what, metric, state, params, feats, n_slots, width):
+    """``trace_rays_recorded_cuda`` against the plain recorded march (its
+    step graphed) on ``state``: every slot's positions and every final
+    field bit for bit.  Returns (kernel ms, plain ms)."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+
+    opts = integrate.TraceOptions(max_steps=4096)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    k_fin, k_path = raymarch.trace_rays_recorded_cuda(
+        metric, state, params, feats, opts, n_slots, TRI_PER,
+        image_width=width)
+    ev[1].record()
+    p_fin, p_path = integrate.trace_rays_recorded_reference(
+        metric, state, params, feats, opts, n_slots, TRI_PER)
+    ev[2].record()
+    torch.cuda.synchronize()
+    k_ms, p_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    same_path = torch.equal(k_path.view(torch.int32),
+                            p_path.view(torch.int32))
+    dpos = float((k_path - p_path).abs().nan_to_num(0.0).max())
+    same = same_bits(k_fin, p_fin)
+    n = state.status.numel()
+    print(f"{what}: {n} rays, {n_slots} slots x {TRI_PER}: slot launches "
+          f"{k_ms:.3f} ms, plain recorded march (graphed) {p_ms:.1f} ms; "
+          f"every slot's positions same bits {same_path} (max |dpos| "
+          f"{dpos:.3g}), final state same bits {same}; status "
+          f"{torch.bincount(k_fin.status.long(), minlength=3).tolist()}")
+    assert same_path and same and dpos == 0.0, what
+    return k_ms, p_ms
+
+
+def slot_work(metric, state, params, feats, n_slots, width):
+    """Each slot launch of the recorded march timed alone (CUDA events) with
+    its trial iterations counted.  Returns (per-slot ms, per-slot trial
+    iterations, launch count)."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+
+    opts = integrate.TraceOptions(max_steps=TRI_PER)
+    fx = torch.abs(state.velocity[:, 0]).contiguous()
+    ms, trials = [], []
+    for _ in range(n_slots):
+        t = torch.zeros_like(state.status)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state = raymarch.trace_rays_cuda(metric, state, params, feats, opts,
+                                         f_in_x=fx, trials=t,
+                                         image_width=width)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        trials.append(int(t.sum(dtype=torch.int64)))
+    return ms, trials
+
+
+def triangle_path(dev) -> dict:
+    """Phase 27, the seventh path: GR triangles.  (a) The recorded march of
+    the CLI's triangle layer as slot launches of the kernel against the
+    plain recorded march, bit for bit: 480x270 for all 64 slots, 1920x1080
+    for the first TRI_SLOTS_1080; each 1080p slot launch timed with its
+    work against the bound.  (b) The CLI's 1920x1080 triangle frame
+    (two cubes, ``--tri-intersector compact``): its split, hits, drops and
+    launches; compact against dense on a TRI_CLI_CROP square of its
+    recorded path that holds hits.  (c) The 12-cube scene of
+    scripts/triangle_bench.py: drops, hits against the TPU's, ms of phases
+    A, B and C (by ``stage``), survivors, peak memory; compact against
+    grouped and dense on a BENCH_CROP square.  Returns the schwarzschild
+    row's ``paths.triangles``."""
+    import torch
+    from geodesic_raytracing_tpu_torch import cli, metrics, triangles
+    from geodesic_raytracing_tpu_torch.camera import Camera
+    from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+    from geodesic_raytracing_tpu_torch.triangles import render as tri
+
+    metric = metrics.get_metric("schwarzschild")
+    params = metric.params()
+    feats = integrate.Features.for_metric(metric)
+    cam = Camera.default(device=dev).rotate(pitch=-math.pi / 2)
+    out = {}
+
+    def rays(w, h, planar=False):
+        st, _, _ = pl.init_camera_rays(
+            metric, cam, params, pl.RenderSettings(width=w, height=h,
+                                                   planar=planar),
+            feats, device=dev)
+        return st
+
+    # -- (a) slot launches against the plain recorded march ----------------
+    small = rays(*TRI_SMALL)
+    k_small, p_small = recorded_vs_plain(
+        f"[27 recorded] {TRI_SMALL[0]}x{TRI_SMALL[1]}", metric, small,
+        params, feats, TRI_SLOTS, TRI_SMALL[0])
+    full = rays(1920, 1080)
+    k_8, p_8 = recorded_vs_plain("[27 recorded] 1920x1080", metric, full,
+                                 params, feats, TRI_SLOTS_1080, 1920)
+    slot_ms, slot_trials = slot_work(metric, full, params, feats, TRI_SLOTS,
+                                     1920)
+    ops = OPS_BY_INSTANCE["schwarzschild", False]
+    bounds = [bound_ms(full.status.numel(), t, ops) for t in slot_trials]
+    bound_all = sum(b[0] for b in bounds)
+    by = "operations" if sum(b[1] for b in bounds) >= sum(
+        b[2] for b in bounds) else "bytes"
+    print(f"[27 recorded] 1920x1080 slot launches one by one: {TRI_SLOTS} "
+          f"launches, {sum(slot_ms):.3f} ms in all (median "
+          f"{statistics.median(slot_ms):.3f}, first {slot_ms[0]:.3f}, last "
+          f"{slot_ms[-1]:.3f}), trial iterations {sum(slot_trials):,}, bound "
+          f"{bound_all:.3f} ms by {by} ({ops} operations a trial), share "
+          f"{bound_all / sum(slot_ms):.4f}")
+    out["recorded"] = {
+        "slots": TRI_SLOTS, "steps_per_slot": TRI_PER,
+        "small_ms": k_small, "small_plain_ms": p_small,
+        "first_slots_1080": TRI_SLOTS_1080, "first_slots_ms": k_8,
+        "first_slots_plain_ms": p_8, "slot_ms": slot_ms,
+        "ms": sum(slot_ms), "trial_iterations": sum(slot_trials),
+        "bound_ms": bound_all, "bound_by": by,
+        "share_of_bound": bound_all / sum(slot_ms)}
+
+    # -- (b) the CLI's 1080p triangle frame ----------------------------------
+    png = ROOT / "build" / "chip_smoke" / "triangles_cli.png"
+    png.parent.mkdir(parents=True, exist_ok=True)
+    argv = ["--metric", "schwarzschild", "--width", "1920", "--height",
+            "1080", "--pitch", "-90"]
+    for c in TRI_CUBES:
+        argv += ["--cube", *(str(v) for v in c)]
+    argv += ["--tri-intersector", "compact", "--device", "cuda", "--out",
+             str(png)]
+    layers = []
+    real_layer = cli.triangle_layer
+
+    def keep_layer(*a, **k):
+        layers.append(real_layer(*a, **k))
+        return layers[-1]
+
+    buf = io.StringIO()
+    cli.triangle_layer = keep_layer
+    try:
+        raymarch.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = dict(raymarch.LAUNCHES_BY_METRIC)
+    finally:
+        cli.triangle_layer = real_layer
+    layer = layers[0]
+    text = buf.getvalue().strip().splitlines()
+    print(f"[27 cli] {' '.join(argv)}: exit {rc} in {seconds:.1f} s, kernel "
+          f"launches {counts} (1 dense frame + {TRI_SLOTS} slots)")
+    for line in text:
+        print(f"[27 cli] {line}")
+    img = cli.read_png(png)
+    hits = int(layer.hit.sum())
+    drops = float(layer.stats["dropped"])
+    assert rc == 0 and img.shape == (1080, 1920, 3), (rc, img.shape)
+    assert counts == {"schwarzschild": 1 + TRI_SLOTS}, counts
+    assert hits > 0 and drops == 0.0, (hits, drops)
+    x0, y0 = crop_at_edges(layer.hit, TRI_CLI_CROP)
+    cpath = crop_path(layer.path, 1920, x0, y0, TRI_CLI_CROP)
+    t0 = time.perf_counter()
+    hc, cc = tri.intersect_scene_compact(metric, cpath, layer.scene,
+                                         layer.geos, params, obj_budget=64,
+                                         pair_budget=None, tri_budget=None)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hd, cd = tri.intersect_scene(metric, cpath, layer.scene, layer.geos,
+                                 params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    frame_hits = layer.hit[y0:y0 + TRI_CLI_CROP, x0:x0 + TRI_CLI_CROP]
+    both = hc & hd
+    col_err = float((cc - cd)[both].abs().max()) if bool(both.any()) else 0.0
+    print(f"[27 cli] crop {TRI_CLI_CROP}x{TRI_CLI_CROP} at ({x0}, {y0}): "
+          f"compact {int(hc.sum())} hits ({(t1 - t0) * 1e3:.1f} ms), dense "
+          f"{int(hd.sum())} ({(t2 - t1) * 1e3:.1f} ms), masks differ on "
+          f"{int((hc != hd).sum())}, colours max |d| {col_err:.3g}; the "
+          f"frame's compact hits there {int(frame_hits.sum())} (differ on "
+          f"{int((frame_hits.reshape(-1) != hc).sum())})")
+    assert bool(hd.any()) and torch.equal(hc, hd) and col_err <= 1e-6
+    out["cli"] = {"launches": counts["schwarzschild"],
+                  "slot_launches": TRI_SLOTS, "seconds": seconds,
+                  "ms": layer.ms, "hits": hits, "dropped": drops,
+                  "sphere_pass": float(layer.stats["sphere_pass"]),
+                  "patch_pass": float(layer.stats["patch_pass"]),
+                  "crop": [x0, y0, TRI_CLI_CROP], "crop_hits": int(hd.sum()),
+                  "crop_dense_ms": (t2 - t1) * 1e3}
+
+    # -- (c) the 12-cube scene -------------------------------------------------
+    objs = bench_scene()
+    scene = triangles.TriangleScene.build(objs)
+    torch.cuda.synchronize()
+    tw0 = time.perf_counter()
+    geos = triangles.precompute_objects(metric, objs, params, feats,
+                                        n_steps=512, segments=8, device=dev)
+    torch.cuda.synchronize()
+    tw1 = time.perf_counter()
+    bstate = rays(*BENCH_SIZE, planar=True)
+    raymarch.reset_launch_counts()
+    _, bpath = integrate.trace_rays_recorded(
+        metric, bstate, params, feats, integrate.TraceOptions(max_steps=256),
+        n_slots=BENCH_SLOTS, steps_per_slot=TRI_PER,
+        image_width=BENCH_SIZE[0])
+    torch.cuda.synchronize()
+    tw2 = time.perf_counter()
+    blaunches = raymarch.launches()
+    assert blaunches == BENCH_SLOTS, blaunches
+
+    def compact(stage=4):
+        return tri.intersect_scene_compact(metric, bpath, scene, geos,
+                                           params, with_stats=True,
+                                           stage=stage, **BENCH_COMPACT)
+
+    compact()  # warm-up: first use of every op at these shapes
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stage_ms = {}
+    for stage in (0, 2, 4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bh, bc, bstats = compact(stage)
+        torch.cuda.synchronize()
+        stage_ms[stage] = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    phase_ms = {"A": stage_ms[0], "B": stage_ms[2] - stage_ms[0],
+                "C": stage_ms[4] - stage_ms[2]}
+    bhits, bdrops = int(bh.sum()), float(bstats["dropped"])
+    gap = (bhits - BENCH_TPU_HITS) / BENCH_TPU_HITS
+    print(f"[27 bench] 12 cubes, {len(scene.v0):,} triangles, worldlines "
+          f"{tw1 - tw0:.2f} s; {BENCH_SIZE[0]}x{BENCH_SIZE[1]} rays recorded "
+          f"in {BENCH_SLOTS} slot launches {(tw2 - tw1) * 1e3:.1f} ms; compact "
+          f"{stage_ms[4]:.1f} ms (A {phase_ms['A']:.1f}, B "
+          f"{phase_ms['B']:.1f}, C {phase_ms['C']:.1f}), hits {bhits:,} "
+          f"(TPU {BENCH_TPU_HITS:,}: {bhits - BENCH_TPU_HITS:+,}, "
+          f"{gap:+.5f}), dropped {bdrops:g}, sphere_pass "
+          f"{float(bstats['sphere_pass']):.0f}, patch_pass "
+          f"{float(bstats['patch_pass']):.0f}, peak memory "
+          f"{peak / 2 ** 30:.3f} GiB over the inputs")
+    assert bdrops == 0.0 and abs(gap) <= BENCH_HITS_TOL, (bdrops, gap)
+    hit2 = bh.reshape(BENCH_SIZE[1], BENCH_SIZE[0])
+    x0, y0 = crop_at_edges(hit2, BENCH_CROP)
+    cpath = crop_path(bpath, BENCH_SIZE[0], x0, y0, BENCH_CROP)
+    kw = {k: v for k, v in BENCH_COMPACT.items() if k != "patch_slots"}
+    t0 = time.perf_counter()
+    hc, cc = tri.intersect_scene_compact(metric, cpath, scene, geos, params,
+                                         **BENCH_COMPACT)
+    hg, cg = tri.intersect_scene_grouped(
+        metric, cpath, scene, geos, params, block=kw["block"],
+        obj_budget=kw["obj_budget"], patch_size=kw["patch_size"],
+        patch_budget=int(np.ceil(12_288 / kw["patch_size"])))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # The dense oracle on the centre BENCH_DENSE x BENCH_DENSE of the crop.
+    d0 = (BENCH_CROP - BENCH_DENSE) // 2
+    dpath = crop_path(cpath, BENCH_CROP, d0, d0, BENCH_DENSE)
+    hd, cd = tri.intersect_scene(metric, dpath, scene, geos, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hcd = hc.reshape(BENCH_CROP, BENCH_CROP)[d0:d0 + BENCH_DENSE,
+                                              d0:d0 + BENCH_DENSE].reshape(-1)
+    crop_frame = hit2[y0:y0 + BENCH_CROP, x0:x0 + BENCH_CROP].reshape(-1)
+    both = hc & hg
+    cg_err = float((cc - cg)[both].abs().max()) if bool(both.any()) else 0.0
+    print(f"[27 bench] crop {BENCH_CROP}x{BENCH_CROP} at ({x0}, {y0}): "
+          f"compact {int(hc.sum())} hits (the frame's {int(crop_frame.sum())}"
+          f", differ on {int((hc != crop_frame).sum())}), grouped "
+          f"{int(hg.sum())} (masks differ on {int((hc != hg).sum())}, colours "
+          f"max |d| {cg_err:.3g}; {(t1 - t0) * 1e3:.1f} ms both); dense on its "
+          f"centre {BENCH_DENSE}x{BENCH_DENSE}: {int(hd.sum())} hits against "
+          f"compact's {int(hcd.sum())} ({(t2 - t1) * 1e3:.1f} ms): dense-only "
+          f"{int((hd & ~hcd).sum())}, compact-only {int((hcd & ~hd).sum())}")
+    assert torch.equal(hc, hg) and cg_err <= 1e-6
+    out["bench"] = {
+        "triangles": len(scene.v0), "rays": BENCH_SIZE[0] * BENCH_SIZE[1],
+        "worldlines_s": tw1 - tw0, "slot_launches": blaunches,
+        "march_ms": (tw2 - tw1) * 1e3, "compact_ms": stage_ms[4],
+        "phase_ms": phase_ms, "hits": bhits, "tpu_hits": BENCH_TPU_HITS,
+        "dropped": bdrops, "sphere_pass": float(bstats["sphere_pass"]),
+        "patch_pass": float(bstats["patch_pass"]), "peak_gib": peak / 2 ** 30,
+        "crop": [x0, y0, BENCH_CROP], "crop_compact_hits": int(hc.sum()),
+        "dense_crop": BENCH_DENSE, "dense_hits": int(hd.sum()),
+        "dense_compact_hits": int(hcd.sum()),
+        "dense_only": int((hd & ~hcd).sum()),
+        "compact_only": int((hcd & ~hd).sum()),
+        "crop_dense_ms": (t2 - t1) * 1e3}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one GPU.")
@@ -2038,6 +2401,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", nargs="?", const=";".join(SWEEP),
                     help="time kernel variants, one per ';'-separated set of "
                     "nvcc flags, and stop")
+    ap.add_argument("--triangles", action="store_true",
+                    help="run the seventh path (phase 27, GR triangles) "
+                    "alone, print its JSON and stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -2075,6 +2441,15 @@ def main(argv=None) -> int:
               f"{torch.version.cuda}")
         sweep([v.strip() for v in args.sweep.split(";")], metric, params,
               camera, settings, feats)
+        return 0
+
+    if args.triangles:
+        print(f"[27 device] {smi} | torch {torch.__version__} cuda "
+              f"{torch.version.cuda} | {name}")
+        tri = triangle_path(dev)
+        took("27")
+        print(json.dumps(tri))
+        print(smi)
         return 0
 
     # -- 1. device and build ------------------------------------------------
@@ -2599,6 +2974,10 @@ def main(argv=None) -> int:
     fourth_cli = cli_catalogue_a(dev)
     took("26")
 
+    # -- 27. the seventh path: GR triangles ------------------------------------
+    tri_path = triangle_path(dev)
+    took("27")
+
     def instance_row(mname):
         """The row of an instance other than ``kerr_boyer``: ms, plain_ms and
         bound_ms of its dense 1080p launch through ``render_frame`` (the
@@ -2648,7 +3027,7 @@ def main(argv=None) -> int:
         if mname == "schwarzschild":
             row["max_abs_err"] = max(row["max_abs_err"], options_err,
                                      schw["max_abs_err"])
-            row["paths"] = schw
+            row["paths"] = {**schw, "triangles": tri_path}
             row["planar_vs_4d"] = planar
         return row
 

@@ -8,6 +8,9 @@ Usage:
     python -m geodesic_raytracing_tpu_torch.cli --metric kerr_boyer \
         --speed -0.3 0 0 --geodesic-camera 2 --adaptive --width 1920 \
         --height 1080 --pitch -90 --device cuda --out infall.png
+    python -m geodesic_raytracing_tpu_torch.cli --metric schwarzschild \
+        --width 1920 --height 1080 --pitch -90 --cube -6 0 -3 0 \
+        --cube -6 0 3 0 --tri-intersector compact --device cuda --out tri.png
     python -m geodesic_raytracing_tpu_torch.cli --bench kerr_boyer --frames 5
     python -m geodesic_raytracing_tpu_torch.cli --list
 
@@ -20,6 +23,14 @@ the reference CLI's protocol line ``Frametime Elapsed: <ms>``, after one
 warm-up frame, or four when adaptive (the refinement budget settles first).
 A spherically symmetric metric is traced in planar mode (every ray rotated
 into the equator, theta pinned) unless ``--no-planar`` is given.
+
+``--cube`` and ``--obj`` place objects for GR triangle rendering: each
+object's worldline is traced and transported (1,024 steps, 48 segments), the
+camera rays are marched with their paths recorded (64 slots of 8 trial
+iterations: on the card 64 launches of the ray-march kernel, 4-D), the
+``--tri-intersector`` intersects them, and the hit colour is composited over
+the frame.  The split (worldlines, recorded march, intersect, composite) and
+the hit and dropped counts are printed.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import struct
 import sys
 import time
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 
@@ -131,6 +143,98 @@ def geodesic_camera(metric, cam, params, tau: float, n_steps: int = 4096):
     return cam.on_geodesic(pos, frame)
 
 
+def triangle_objects(cubes, obj_specs):
+    """The objects of ``--cube T X Y Z`` and ``--obj path,t,x,y,z[,scale]``
+    arguments, cubes first."""
+    from .triangles import make_cube, object_from_obj
+
+    objects = [make_cube(c) for c in cubes]
+    for spec in obj_specs:
+        parts = spec.split(",")
+        rest = [float(v) for v in parts[1:]]
+        scale = rest[4] if len(rest) > 4 else 1.0
+        objects.append(object_from_obj(parts[0], rest[:4], scale=scale))
+    return objects
+
+
+class TriangleLayer(NamedTuple):
+    """What :func:`triangle_layer` made: the hit mask (H, W) and colour
+    (H, W, 3), the intersector's counters (empty for dense), the
+    milliseconds of each stage, the recorded path (65, H * W, 4), the
+    objects' worldlines and the scene."""
+
+    hit: object
+    colour: object
+    stats: dict
+    ms: dict
+    path: object
+    geos: list
+    scene: object
+
+
+def triangle_layer(metric, cam, params, settings, features, objects,
+                   intersector: str, max_steps: int, *, device):
+    """GR triangle rendering of ``objects`` seen by ``cam`` (the reference
+    CLI's triangle mode): worldlines of 1,024 steps subsampled to 48
+    segments, dense 4-D camera rays recorded in 64 slots of 8 trial
+    iterations, then ``intersector`` (dense, binned, grouped or compact;
+    the budget 64 of ``render_triangles``; compact's pair and item budgets
+    sized to the frame's survivors, so that it drops nothing).  Returns a
+    :class:`TriangleLayer`."""
+    import dataclasses
+
+    import torch
+
+    from .ops import integrate
+    from .render.pipeline import init_camera_rays
+    from .triangles import TriangleScene, precompute_objects
+    from .triangles import render as tri
+
+    def clock():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    ms = {}
+    t0 = clock()
+    geos = precompute_objects(metric, objects, params, features,
+                              n_steps=1024, segments=48, device=device)
+    scene = TriangleScene.build(objects)
+    t1 = clock()
+    ms["worldlines"] = (t1 - t0) * 1e3
+    tsettings = dataclasses.replace(settings, adaptive_sampling=False,
+                                    planar=False)
+    state, _, _ = init_camera_rays(metric, cam, params, tsettings, features,
+                                   device=device)
+    t2 = clock()
+    ms["ray init"] = (t2 - t1) * 1e3
+    _, path = integrate.trace_rays_recorded(
+        metric, state, params, features=features,
+        opts=integrate.TraceOptions(max_steps=min(max_steps, 4096)),
+        n_slots=64, steps_per_slot=8, image_width=settings.width)
+    t3 = clock()
+    ms["recorded march"] = (t3 - t2) * 1e3
+    block, budget = 256, 64
+    stats = {}
+    if intersector == "dense":
+        hit, colour = tri.intersect_scene(metric, path, scene, geos, params)
+    else:
+        fn = {"binned": tri.intersect_scene_binned,
+              "grouped": tri.intersect_scene_grouped,
+              "compact": tri.intersect_scene_compact}[intersector]
+        kw = {"budget": budget} if intersector == "binned" else {
+            "obj_budget": budget}
+        if intersector == "compact":
+            kw.update(pair_budget=None, tri_budget=None)
+        hit, colour, stats = fn(metric, path, scene, geos, params,
+                                block=block, with_stats=True, **kw)
+    t4 = clock()
+    ms["intersect"] = (t4 - t3) * 1e3
+    H, W = settings.height, settings.width
+    return TriangleLayer(hit.reshape(H, W), colour.reshape(H, W, 3), stats,
+                         ms, path, geos, scene)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--metric", default="kerr_boyer")
@@ -181,6 +285,21 @@ def main(argv=None) -> int:
                          "transport its tetrad and render from proper time "
                          "TAU")
     ap.add_argument("--max-steps", type=int, default=16384)
+    ap.add_argument("--cube", type=float, nargs=4, action="append",
+                    default=[], metavar=("T", "X", "Y", "Z"),
+                    help="place a unit cube object at this spacetime point "
+                         "(GR triangle rendering).  T must lie in the "
+                         "camera's past (e.g. -6): camera rays integrate "
+                         "backwards in time and the object's worldline is "
+                         "traced forward from T")
+    ap.add_argument("--obj", action="append", default=[], metavar="SPEC",
+                    help="place an .obj mesh: path,t,x,y,z[,scale]")
+    ap.add_argument("--tri-intersector", default="dense",
+                    choices=("dense", "binned", "grouped", "compact"),
+                    help="triangle intersector: dense (exact, small "
+                         "scenes), binned (reference-style chunk bins), "
+                         "grouped (two-level object/patch), compact "
+                         "(worklist-compacted: dense orbital scenes)")
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the ray march as the CUDA kernel; cpu "
@@ -255,6 +374,22 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     img = frame()
+    if args.cube or args.obj:
+        objects = triangle_objects(args.cube, args.obj)
+        layer = triangle_layer(metric, cam, params, settings, features,
+                               objects, args.tri_intersector, args.max_steps,
+                               device=device)
+        hit, tri_col, stats, ms = layer[:4]
+        t_c = time.perf_counter()
+        img = torch.where(hit[..., None], tri_col, img)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms["composite"] = (time.perf_counter() - t_c) * 1e3
+        drops = float(stats["dropped"]) if "dropped" in stats else 0.0
+        print(f"triangles: {len(objects)} objects, "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f"; intersector {args.tri_intersector}, hits "
+              f"{int(hit.sum())}, dropped {drops:g}")
     dt = time.perf_counter() - t0
     srgb = colour.lin_to_srgb(img).cpu().numpy()
     write_png(args.out, (np.clip(srgb, 0, 1) * 255).astype(np.uint8))

@@ -11,6 +11,9 @@ are one ``torch.func.jvp``.  Canonical polar coordinates are
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..ops.geometry import arccos, arctan2
@@ -194,6 +197,49 @@ def get_transform(name: str):
     if not name:
         return polar_to_polar
     return TRANSFORMS[name]
+
+
+# ---------------------------------------------------------------------------
+# Periodicity functions: the period of each coordinate (0 = aperiodic), a
+# (4,) float32 tensor on ``device``
+# ---------------------------------------------------------------------------
+
+def polar_periodicity(params, *, device):
+    """scripts/coordinates/polar_periodicity.js: theta has period pi, phi
+    2 pi."""
+    return torch.tensor([0.0, 0.0, math.pi, 2 * math.pi],
+                        dtype=torch.float32, device=device)
+
+
+def cylindrical_periodicity(params, *, device):
+    """scripts/coordinates/cylindrical_periodicity.js: (t, p, phi, z), phi
+    has period 2 pi."""
+    return torch.tensor([0.0, 0.0, 2 * math.pi, 0.0], dtype=torch.float32,
+                        device=device)
+
+
+def misner_periodicity(params, *, device):
+    """scripts/coordinates/misner_periodicity.js: phi has period phi0 (as
+    float32)."""
+    return torch.tensor([0.0, float(np.float32(params["phi0"])), 0.0, 0.0],
+                        dtype=torch.float32, device=device)
+
+
+def _aperiodic(params, *, device):
+    return torch.zeros(4, dtype=torch.float32, device=device)
+
+
+PERIODICITY = {
+    "polar_periodicity": polar_periodicity,
+    "cylindrical_periodicity": cylindrical_periodicity,
+    "misner_periodicity": misner_periodicity,
+}
+
+
+def get_periodicity(name: str):
+    if not name:
+        return _aperiodic
+    return PERIODICITY[name]
 
 
 def velocity_transform(fn, x: Tensor, v: Tensor, params) -> Tensor:

@@ -220,6 +220,12 @@ class Metric:
     def origin_distance(self, polar: Tensor, params) -> Tensor:
         return ORIGINS[self.config.origin_distance](polar, params)
 
+    def periods(self, params, *, device) -> Tensor:
+        """Per-coordinate periodicity (0 = aperiodic), (4,) float32 on
+        ``device``."""
+        return _tr.get_periodicity(self.config.coordinate_periodicity)(
+            params, device=device)
+
     def precision_weights(self) -> tuple[float, float, float, float]:
         """The reference's W_V1..4 per-coordinate error weights."""
         cs = self.config.coordinate_system

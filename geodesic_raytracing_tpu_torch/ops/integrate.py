@@ -416,21 +416,24 @@ def _march_graphed(step, work: _StateT, ids: Tensor, fx: Tensor, params,
 def trace_rays_reference(metric: Metric, state: RayState, params,
                          features: Features = Features(),
                          opts: TraceOptions = TraceOptions(),
-                         graphed: bool | None = None) -> RayState:
+                         graphed: bool | None = None,
+                         f_in_x: Tensor | None = None) -> RayState:
     """Eager port of the reference's ``while`` driver: every active ray
     takes trial iterations until it leaves ACTIVE or ``opts.max_steps``
     iterations have run.  Finished rays leave the working set (the step is
     per-ray elementwise, so this changes no number).  The blow-up test's
-    baseline is the launch |v^t| of ``state``.  ``graphed`` (by default on
-    CUDA tensors) replays the step from a CUDA graph, ``_march_graphed``;
-    otherwise every iteration is an eager step."""
+    baseline ``f_in_x`` is the launch |v^t| of each ray (default: taken from
+    ``state``).  ``graphed`` (by default on CUDA tensors) replays the step
+    from a CUDA graph, ``_march_graphed``; otherwise every iteration is an
+    eager step."""
     pos = state.position.T.contiguous()
     vel = state.velocity.T.contiguous()
     acc = state.acceleration.T.contiguous()
     full = _StateT(pos, vel, acc, state.next_ds.clone(),
                    state.running_dlambda_dnew.clone(), state.status.clone(),
                    state.steps.clone())
-    f_in_x = torch.abs(full.velocity[0])
+    if f_in_x is None:
+        f_in_x = torch.abs(full.velocity[0])
     step = make_step_fn(metric, features, opts)
 
     ids = torch.nonzero(full.status == ACTIVE).flatten()
@@ -541,3 +544,57 @@ def trace_rays(metric: Metric, state: RayState, params,
         return trace_rays_cuda(metric, state, params, features, opts,
                                image_width=image_width)
     return trace_rays_reference(metric, state, params, features, opts)
+
+
+def trace_rays_recorded_reference(metric: Metric, state: RayState, params,
+                                  features: Features = Features(),
+                                  opts: TraceOptions = TraceOptions(),
+                                  n_slots: int = 16,
+                                  steps_per_slot: int = 64
+                                  ) -> tuple[RayState, Tensor]:
+    """The plain recorded march, twin of the kernel's
+    (``ops.raymarch.trace_rays_recorded_cuda``): ``n_slots`` marches of
+    ``steps_per_slot`` trial iterations by :func:`trace_rays_reference`
+    (graphed on CUDA tensors), every one with the launch state's |v^t| as
+    the blow-up test's baseline (as the reference's scan of slots, which
+    takes it once).  Returns ``(final RayState, path (n_slots+1, N, 4))``."""
+    f_in_x = torch.abs(state.velocity[:, 0]).contiguous()
+    slot = dataclasses.replace(opts, max_steps=steps_per_slot)
+    n = state.position.shape[0]
+    path = torch.empty((n_slots + 1, n, 4), dtype=state.position.dtype,
+                       device=state.position.device)
+    path[0] = state.position
+    for j in range(n_slots):
+        state = trace_rays_reference(metric, state, params, features, slot,
+                                     f_in_x=f_in_x)
+        path[j + 1] = state.position
+    return state, path
+
+
+def trace_rays_recorded(metric: Metric, state: RayState, params,
+                        features: Features = Features(),
+                        opts: TraceOptions = TraceOptions(),
+                        n_slots: int = 16, steps_per_slot: int = 64,
+                        image_width: int | None = None
+                        ) -> tuple[RayState, Tensor]:
+    """Trace while recording the ray paths every ``steps_per_slot``
+    iterations: the triangle-mode path recording of ``do_generic_rays``
+    (cl.cl:4181-4232, ``ray_skip``).
+
+    Returns ``(final RayState, path (n_slots+1, N, 4))``: slot 0 is the
+    launch position and slot j the position after ``j * steps_per_slot``
+    trial iterations (terminated rays repeat their last position, so their
+    later segments are degenerate and never hit).  ``opts.max_steps`` is
+    not read: every ray has ``n_slots * steps_per_slot`` trial iterations.
+
+    A state on a CUDA device is marched by ``n_slots`` launches of the
+    ray-march kernel (``ops.raymarch.trace_rays_recorded_cuda``), which
+    launch or raise; a state on the CPU by the plain recorded march."""
+    if state.position.is_cuda:
+        from .raymarch import trace_rays_recorded_cuda
+
+        return trace_rays_recorded_cuda(metric, state, params, features,
+                                        opts, n_slots, steps_per_slot,
+                                        image_width=image_width)
+    return trace_rays_recorded_reference(metric, state, params, features,
+                                         opts, n_slots, steps_per_slot)

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import hashlib
 import os
 import re
@@ -409,3 +410,29 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     LAUNCHES_BY_METRIC[metric.name] = LAUNCHES_BY_METRIC.get(metric.name,
                                                              0) + 1
     return out
+
+
+def trace_rays_recorded_cuda(metric: Metric, state: RayState, params,
+                             features: Features, opts: TraceOptions,
+                             n_slots: int, steps_per_slot: int,
+                             image_width: int | None = None
+                             ) -> tuple[RayState, torch.Tensor]:
+    """The recorded march (``integrate.trace_rays_recorded``) as ``n_slots``
+    launches of the ray-march kernel, each with a budget of
+    ``steps_per_slot`` trial iterations a ray (the kernel's ``max_steps``)
+    and the launch state's |v^t| as every launch's ``f_in_x``.  Each
+    launch's positions are copied into a ``(n_slots+1, N, 4)`` tensor on the
+    card; nothing waits for the device between launches.  Returns ``(final
+    RayState, path)``.  Its plain twin is
+    ``integrate.trace_rays_recorded_reference``."""
+    f_in_x = torch.abs(state.velocity[:, 0]).contiguous()
+    slot = dataclasses.replace(opts, max_steps=steps_per_slot)
+    n = state.position.shape[0]
+    path = torch.empty((n_slots + 1, n, 4), dtype=state.position.dtype,
+                       device=state.position.device)
+    path[0].copy_(state.position)
+    for j in range(n_slots):
+        state = trace_rays_cuda(metric, state, params, features, slot,
+                                f_in_x=f_in_x, image_width=image_width)
+        path[j + 1].copy_(state.position)
+    return state, path

@@ -6,6 +6,7 @@ from .geodesics import (
     parallel_transport_quantity,
     parallel_transport_tetrads,
     record_geodesic,
+    record_geodesics,
     tetrad_inverses_along_path,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "parallel_transport_quantity",
     "parallel_transport_tetrads",
     "record_geodesic",
+    "record_geodesics",
     "tetrad_inverses_along_path",
 ]

@@ -3,6 +3,7 @@ a geodesic (port of ``geodesic_raytracing_tpu.physics.geodesics``):
 
 * ``record_geodesic``: integrate one ray and record its position, velocity
   and step at every iteration (``get_geodesic_path`` cl.cl:4735-4940);
+  ``record_geodesics`` does it for a batch of rays at once;
 * ``parallel_transport_quantity``: Heun transport of a 4-vector along a
   recorded path (cl.cl:2569-2637);
 * ``parallel_transport_tetrads``: all four legs, re-orthonormalised against
@@ -63,8 +64,24 @@ def record_geodesic(metric: Metric, x0: Tensor, v0: Tensor, params,
     its last state with ds = 0, as the full loop would record them.
     ``count`` runs to the LAST committed node: rejected adaptive trials
     record duplicate nodes, so the commit count would fall short."""
-    state = integrate.init_ray_state(metric, x0[None, :], v0[None, :], params,
-                                     features, fix_null_velocity=False)
+    p = record_geodesics(metric, x0[None], v0[None], params, features,
+                         n_steps)
+    return GeodesicPath(positions=p.positions[:, 0],
+                        velocities=p.velocities[:, 0], ds=p.ds[:, 0],
+                        proper_time=p.proper_time[:, 0], count=p.count[0])
+
+
+def record_geodesics(metric: Metric, x0: Tensor, v0: Tensor, params,
+                     features: Features = Features(),
+                     n_steps: int = OBJECT_PATH_STEPS) -> GeodesicPath:
+    """:func:`record_geodesic` of B rays at once (``x0``, ``v0``: (B, 4)),
+    one eager step for all of them: each ray's nodes are those its own
+    recording has (the step is elementwise per ray; a ray that ended takes
+    no-op iterations until the last one ends, and the loop stops once none
+    is ACTIVE).  Every field gains a ray axis after the node axis: positions
+    (T+1, B, 4), ds and proper_time (T+1, B), count (B,)."""
+    state = integrate.init_ray_state(metric, x0, v0, params, features,
+                                     fix_null_velocity=False)
     s = integrate._StateT(state.position.T, state.velocity.T,
                           state.acceleration.T, state.next_ds,
                           state.running_dlambda_dnew, state.status,
@@ -76,27 +93,29 @@ def record_geodesic(metric: Metric, x0: Tensor, v0: Tensor, params,
     pos, vel, ds, committed = [], [], [], []
     for i in range(n_steps):
         s2, d = step(s, f_in_x, params)
-        pos.append(s2.position[:, 0])
-        vel.append(s2.velocity[:, 0])
-        ds.append(d[0])
-        committed.append((s2.steps > s.steps)[0])
+        pos.append(s2.position.T)
+        vel.append(s2.velocity.T)
+        ds.append(d)
+        committed.append(s2.steps > s.steps)
         s = s2
-        if (i + 1) % _STATUS_EVERY == 0 and int(s.status[0]) != \
-                integrate.ACTIVE:
+        if (i + 1) % _STATUS_EVERY == 0 and not bool(
+                (s.status == integrate.ACTIVE).any()):
             break
     rest = n_steps - len(pos)
+    b = x0.shape[0]
     dev = x0.device
-    pos = torch.cat([state.position[0][None], torch.stack(pos),
-                     s.position[:, 0].expand(rest, 4)])
-    vel = torch.cat([state.velocity[0][None], torch.stack(vel),
-                     s.velocity[:, 0].expand(rest, 4)])
+    pos = torch.cat([state.position[None], torch.stack(pos),
+                     s.position.T.expand(rest, b, 4)])
+    vel = torch.cat([state.velocity[None], torch.stack(vel),
+                     s.velocity.T.expand(rest, b, 4)])
     committed = torch.cat([torch.stack(committed),
-                           torch.zeros(rest, dtype=torch.bool, device=dev)])
-    # (The step's ds is already 0 wherever it did not commit.)
-    ds = torch.cat([torch.stack(ds), torch.zeros(rest + 1, device=dev)])
+                           torch.zeros((rest, b), dtype=torch.bool,
+                                       device=dev)])
+    ds = torch.cat([torch.stack(ds), torch.zeros((rest + 1, b), device=dev)])
     idxs = torch.arange(1, n_steps + 1, dtype=torch.int32, device=dev)
-    count = torch.max(torch.where(committed, idxs, 0)) + 1
-    tau = torch.cat([torch.zeros(1, device=dev), torch.cumsum(ds[:-1], 0)])
+    count = torch.amax(torch.where(committed, idxs[:, None], 0), dim=0) + 1
+    tau = torch.cat([torch.zeros((1, b), device=dev),
+                     torch.cumsum(ds[:-1], 0)])
     return GeodesicPath(positions=pos, velocities=vel, ds=ds,
                         proper_time=tau, count=count)
 

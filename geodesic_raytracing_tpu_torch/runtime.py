@@ -1,6 +1,7 @@
 """Host runtime helpers (port of ``geodesic_raytracing_tpu.runtime``): the
 mip-pyramid build, as the reference's numpy path (which mirrors its native
-box-filter chain exactly)."""
+box-filter chain exactly), and the OBJ mesh parser, as the reference's
+Python parser."""
 
 from __future__ import annotations
 
@@ -29,3 +30,25 @@ def build_mips(image: np.ndarray, max_levels: int = 10):
         cur = pad.reshape(nh, 2, nw, 2, c).mean(axis=(1, 3))
     return (atlas, np.asarray(lw, np.int32), np.asarray(lh, np.int32),
             np.asarray(lx, np.int32))
+
+
+def load_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Parse an OBJ file -> (positions (V, 3) float32, indices (T, 3) int32).
+    ``v`` lines give positions; each ``f`` line (1-based or negative
+    indices, ``i/t/n`` tokens read as ``i``) is fanned into triangles from
+    its first vertex."""
+    positions, indices = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                positions.append([float(v) for v in parts[1:4]])
+            elif line.startswith("f "):
+                face = []
+                for tok in line.split()[1:]:
+                    i = int(tok.split("/")[0])
+                    face.append(i - 1 if i > 0 else len(positions) + i)
+                for k in range(2, len(face)):
+                    indices.append([face[0], face[k - 1], face[k]])
+    return (np.asarray(positions, dtype=np.float32),
+            np.asarray(indices, dtype=np.int32))

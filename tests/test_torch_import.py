@@ -28,7 +28,8 @@ def test_port_imports_without_jax():
                 "metrics.catalogue_exotic",
                 "render.colour", "render.cie1931_data", "carry", "fit",
                 "parallel", "parallel.mesh", "physics", "physics.geodesics",
-                "utils", "utils.checkpoint"):
+                "utils", "utils.checkpoint", "triangles", "triangles.scene",
+                "triangles.physics", "triangles.render"):
         assert f"geodesic_raytracing_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
