@@ -28,9 +28,10 @@ into the equator, theta pinned) unless ``--no-planar`` is given.
 object's worldline is traced and transported (1,024 steps, 48 segments), the
 camera rays are marched with their paths recorded (64 slots of 8 trial
 iterations: on the card 64 launches of the ray-march kernel, 4-D), the
-``--tri-intersector`` intersects them, and the hit colour is composited over
-the frame.  The split (worldlines, recorded march, intersect, composite) and
-the hit and dropped counts are printed.
+``--tri-intersector`` intersects them (``render_triangles``), and the hit
+colour is composited over the frame.  The split (worldlines, ray init,
+recorded march + intersect, composite) and the hit and dropped counts are
+printed.
 """
 
 from __future__ import annotations
@@ -160,14 +161,12 @@ def triangle_objects(cubes, obj_specs):
 class TriangleLayer(NamedTuple):
     """What :func:`triangle_layer` made: the hit mask (H, W) and colour
     (H, W, 3), the intersector's counters (empty for dense), the
-    milliseconds of each stage, the recorded path (65, H * W, 4), the
-    objects' worldlines and the scene."""
+    milliseconds of each stage, the objects' worldlines and the scene."""
 
     hit: object
     colour: object
     stats: dict
     ms: dict
-    path: object
     geos: list
     scene: object
 
@@ -176,19 +175,18 @@ def triangle_layer(metric, cam, params, settings, features, objects,
                    intersector: str, max_steps: int, *, device):
     """GR triangle rendering of ``objects`` seen by ``cam`` (the reference
     CLI's triangle mode): worldlines of 1,024 steps subsampled to 48
-    segments, dense 4-D camera rays recorded in 64 slots of 8 trial
-    iterations, then ``intersector`` (dense, binned, grouped or compact;
-    the budget 64 of ``render_triangles``; compact's pair and item budgets
-    sized to the frame's survivors, so that it drops nothing).  Returns a
-    :class:`TriangleLayer`."""
+    segments, then ``render_triangles`` on dense 4-D camera rays, recorded
+    in 64 slots of 8 trial iterations, with ``intersector`` (dense, binned,
+    grouped or compact; the budget 64 of ``render_triangles``; compact's
+    pair and item budgets sized to the frame's survivors, so that it drops
+    nothing).  Returns a :class:`TriangleLayer`."""
     import dataclasses
 
     import torch
 
     from .ops import integrate
     from .render.pipeline import init_camera_rays
-    from .triangles import TriangleScene, precompute_objects
-    from .triangles import render as tri
+    from .triangles import TriangleScene, precompute_objects, render_triangles
 
     def clock():
         if device.type == "cuda":
@@ -208,31 +206,18 @@ def triangle_layer(metric, cam, params, settings, features, objects,
                                    device=device)
     t2 = clock()
     ms["ray init"] = (t2 - t1) * 1e3
-    _, path = integrate.trace_rays_recorded(
-        metric, state, params, features=features,
-        opts=integrate.TraceOptions(max_steps=min(max_steps, 4096)),
-        n_slots=64, steps_per_slot=8, image_width=settings.width)
-    t3 = clock()
-    ms["recorded march"] = (t3 - t2) * 1e3
-    block, budget = 256, 64
-    stats = {}
-    if intersector == "dense":
-        hit, colour = tri.intersect_scene(metric, path, scene, geos, params)
-    else:
-        fn = {"binned": tri.intersect_scene_binned,
-              "grouped": tri.intersect_scene_grouped,
-              "compact": tri.intersect_scene_compact}[intersector]
-        kw = {"budget": budget} if intersector == "binned" else {
-            "obj_budget": budget}
-        if intersector == "compact":
-            kw.update(pair_budget=None, tri_budget=None)
-        hit, colour, stats = fn(metric, path, scene, geos, params,
-                                block=block, with_stats=True, **kw)
-    t4 = clock()
-    ms["intersect"] = (t4 - t3) * 1e3
+    budgets = ({"pair_budget": None, "tri_budget": None}
+               if intersector == "compact" else {})
+    _, hit, colour, stats = render_triangles(
+        metric, state, params, scene, geos, features,
+        integrate.TraceOptions(max_steps=min(max_steps, 4096)),
+        n_slots=64, steps_per_slot=8, binned=intersector == "binned",
+        grouped=intersector == "grouped", compact=intersector == "compact",
+        image_width=settings.width, with_stats=True, **budgets)
+    ms["recorded march + intersect"] = (clock() - t2) * 1e3
     H, W = settings.height, settings.width
     return TriangleLayer(hit.reshape(H, W), colour.reshape(H, W, 3), stats,
-                         ms, path, geos, scene)
+                         ms, geos, scene)
 
 
 def main(argv=None) -> int:

@@ -27,7 +27,7 @@ port sorts with ``stable=True`` and slices.  ``jnp.nonzero(size=W,
 fill_value=0)`` becomes :func:`_nonzero_static`, a cumulative count and a
 binary search, which never reads the count on the host.  Nearest hits
 resolve with ``scatter_reduce_(..., "amin")`` on the key, then on the item
-index among equal keys.  ``chunk`` bounds the elements of one batch of
+index among equal keys.  :data:`CHUNK` bounds the elements of one batch of
 intersection tests (rays x candidates x triangles); no result depends on it.
 """
 
@@ -292,15 +292,14 @@ def _tri_tensors(scene: TriangleScene, mask, device):
 # ---------------------------------------------------------------------------
 
 def intersect_scene(metric: Metric, path: Tensor, scene: TriangleScene,
-                    geos: list[ObjectGeodesic], params,
-                    chunk: int = CHUNK):
+                    geos: list[ObjectGeodesic], params):
     """Test every recorded ray segment against every object's swept
     triangles.
 
     ``path``: (S+1, N, 4).  Returns ``(hit (N,), colour (N, 3))``: the
     earliest-segment nearest hit, shaded by local-frame normal.  Each
     (segment, object) batch runs in chunks of rays and triangles of at most
-    ``chunk`` tests; within a chunk the first minimum wins, across chunks
+    ``CHUNK`` tests; within a chunk the first minimum wins, across chunks
     the lower (object segment, triangle) index, as one argmin over all.  A
     ray whose segment is a point (a terminated ray) cannot hit, and is not
     tested."""
@@ -331,8 +330,8 @@ def intersect_scene(metric: Metric, path: Tensor, scene: TriangleScene,
             p2 = geo.positions[1:][None, :, None, :]
             ier = geo.inv_tetrads[:-1][None, :, None]
             ien = geo.inv_tetrads[1:][None, :, None]
-            t_chunk = min(T, max(1, chunk // K))
-            r_chunk = max(1, chunk // (K * t_chunk))
+            t_chunk = min(T, max(1, CHUNK // K))
+            r_chunk = max(1, CHUNK // (K * t_chunk))
             for r0, r1 in _chunks(live.numel(), r_chunk):
                 rays = live[r0:r1]
                 ga = ga_all[rays][:, None, None, :]
@@ -456,8 +455,7 @@ def intersect_scene_binned(metric: Metric, path: Tensor,
                            scene: TriangleScene,
                            geos: list[ObjectGeodesic], params,
                            block: int = 256, budget: int = 64,
-                           pad: float = 0.0, with_stats: bool = False,
-                           chunk: int = CHUNK):
+                           pad: float = 0.0, with_stats: bool = False):
     """Binned twin of :func:`intersect_scene`: per (ray block x ray segment)
     chunk, only the ``budget`` swept triangles whose AABBs overlap the
     chunk's AABB run the toblerone solve (``generate_clip_regions`` ->
@@ -481,7 +479,7 @@ def intersect_scene_binned(metric: Metric, path: Tensor,
     colour = torch.zeros((n_pad, 3), device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
     max_overlap = torch.zeros((), dtype=torch.int64, device=dev)
-    per = max(1, chunk // max(block * B, M))
+    per = max(1, CHUNK // max(block * B, M))
 
     for s in range(S):
         ga_all = path_p[s].reshape(nb, block, 4)
@@ -691,7 +689,7 @@ def intersect_scene_grouped(metric: Metric, path: Tensor,
                             chunk_budget: int | None = None,
                             patch_budget: int = 8, patch_size: int = 32,
                             pad: float = 0.0, with_stats: bool = False,
-                            stage: int = 3, chunk: int = CHUNK):
+                            stage: int = 3):
     """Two-level intersector for dense scenes: budgeted binning at
     object-segment granularity, then per (ray x object-segment candidate)
     one object-level fixed point, a bounding-sphere test, patch-AABB slab
@@ -723,7 +721,7 @@ def intersect_scene_grouped(metric: Metric, path: Tensor,
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     dropped_cand = dropped_chunks = max_overlap = zero
     sphere_pass = patch_pass = torch.zeros((), device=dev)
-    per = max(1, chunk // (block * max(P, PB * patch_size)))
+    per = max(1, CHUNK // (block * max(P, PB * patch_size)))
     ray_iota = torch.arange(block, device=dev)
 
     for s in range(S):
@@ -833,63 +831,32 @@ def intersect_scene_grouped(metric: Metric, path: Tensor,
 # The compact intersector
 # ---------------------------------------------------------------------------
 
-def intersect_scene_compact(metric: Metric, path: Tensor,
-                            scene: TriangleScene,
-                            geos: list[ObjectGeodesic], params,
-                            block: int = 256, obj_budget: int = 8,
-                            pair_budget: int | None = 1 << 17,
-                            tri_budget: int | None = 1 << 18,
-                            patch_size: int = 128,
-                            patch_slots: int = 8,
-                            pad: float = 0.0, with_stats: bool = False,
-                            stage: int = 4, chunk: int = CHUNK):
-    """Worklist-compacted two-level intersector: the grouped intersector's
-    tests as three fixed-budget phases with static-size compaction
-    (:func:`_nonzero_static`) between them.
+class _Pairs(NamedTuple):
+    """Phase B's worklist: per kept (ray segment x object segment) pair,
+    its ray segment, ray, object and the object-local ray of the re-solved
+    fixed point."""
 
-    A. dense binning + object-local fixed point + bounding-sphere test for
-       every (ray x object-segment candidate) pair -> bitmask;
-    B. surviving pairs (<= ``pair_budget``; blocks of ``block`` pairs that
-       hold one compacted first, at most max(pair_budget / 8, 1024) of them)
-       re-solve and run the patch slab tests -> (pair x patch) bitmask;
-    C. the first ``patch_slots`` patches hit of each pair (0 = every patch)
-       become items (<= ``tri_budget``), each gathers ONE patch's triangles
-       and runs Moller-Trumbore; hits resolve to the nearest per ray by a
-       deterministic two-pass scatter-min (key, then item index on equal
-       keys).
+    s: Tensor        # (n_p,) ray segment
+    ray: Tensor      # (n_p,) ray (of the block-padded rays)
+    obj: Tensor      # (n_p,) object
+    pos: Tensor      # (n_p, 4) local ray origin
+    dirv: Tensor     # (n_p, 4) local ray direction
+    o_start: Tensor  # (n_p,) object time window
+    o_end: Tensor
 
-    Exact whenever the budgets cover the survivor counts; ``with_stats``
-    reports ``sphere_pass``, ``patch_pass`` and the dropped pairs and items.
-    A budget of None is sized to its survivors: the blocks and pairs of
-    phase B, the items of C, so that nothing is dropped.
 
-    Of the reference's fixed-size lists only the kept entries (a prefix) are
-    computed, the fill is not: one read of the kept count on the host for
-    the pairs and one for the items, and one for the number of valid
-    (chunk, candidate) entries in each chunk of blocks of phase A.
-    ``stage`` (cost decomposition): 0 = phase A, 1 = + pair compaction and
-    re-solve, 2 = + patch slab tests, 3 = + item compaction and triangle
-    gathers, 4 = full; stages < 4 return no hits.  Each phase runs in
-    chunks (of ray blocks, pairs, items) of at most ``chunk`` tests."""
-    dev = path.device
-    periods = metric.periods(params, device=dev)
-    patches = build_patches(scene, len(geos), patch_size=patch_size,
-                            device=dev)
-    swept = build_swept_objects(scene, geos, pad=pad)
-    Mo = swept.lo.shape[0]
-    OB = min(obj_budget, Mo)
-    P = patches.lo.shape[1]
-    S, n = path.shape[0] - 1, path.shape[1]
-    path_p, nb = _pad_path(path, block)
-    n_pad = nb * block
-    f32 = torch.float32
-
-    # --- Phase A: dense bin + solve + sphere test ------------------------
-    # Only the valid (chunk, candidate) entries are solved (one read of
-    # their count a chunk of blocks); the others' bits are False, as the
-    # reference masks them.
+def _bin_and_sphere(path_p: Tensor, nb: int, block: int,
+                    swept: SweptObjects, OB: int, periods: Tensor):
+    """Phase A: dense binning of every (ray block x ray segment) against the
+    swept objects, the object-local fixed point and the bounding-sphere
+    test of each (ray x object-segment candidate) pair.  Only the valid
+    (block, candidate) entries are solved (one read of their count a chunk
+    of blocks); the others' bits are False, as the reference masks them.
+    Returns ``(near (S, nb, OB, block) bool, cand (S, nb, OB))``."""
+    dev = path_p.device
+    S = path_p.shape[0] - 1
     near_s, cand_s = [], []
-    per_a = max(1, chunk // (OB * block))
+    per_a = max(1, CHUNK // (OB * block))
     for s in range(S):
         ga_all = path_p[s].reshape(nb, block, 4)
         gb_all = path_p[s + 1].reshape(nb, block, 4)
@@ -899,7 +866,7 @@ def intersect_scene_compact(metric: Metric, path: Tensor,
             ov = _periodic_aabb_overlap(lo_c[:, None], hi_c[:, None],
                                         swept.lo[None], swept.hi[None],
                                         periods)  # (G, Mo)
-            vals, cand = _topk_stable(ov.to(f32), OB)  # (G, OB)
+            vals, cand = _topk_stable(ov.to(torch.float32), OB)  # (G, OB)
             near = torch.zeros(cand.shape + (block,), dtype=torch.bool,
                                device=dev)
             g, j = torch.nonzero(vals > 0.0, as_tuple=True)
@@ -911,32 +878,22 @@ def intersect_scene_compact(metric: Metric, path: Tensor,
                 near[g, j] = _sphere_near(pos, dirv, co.radius[:, None])
             near_s.append(near)  # (G, OB, block)
             cand_s.append(cand)
-    near_all = torch.cat(near_s).reshape(S, nb, OB, block)
-    cand_all = torch.cat(cand_s).reshape(S, nb, OB)
-    del near_s, cand_s
-    sphere_pass = near_all.sum().to(f32)
+    return (torch.cat(near_s).reshape(S, nb, OB, block),
+            torch.cat(cand_s).reshape(S, nb, OB))
 
-    def cut(*counters):
-        z = torch.zeros((), dtype=f32, device=dev)
-        names = ["sphere_pass", "patch_pass", "pairs_dropped",
-                 "items_dropped", "dropped"]
-        stats = dict(zip(names, counters))
-        for k in names:
-            stats.setdefault(k, z)
-        stats["max_overlap"] = torch.zeros((), dtype=torch.int64,
-                                           device=dev)
-        out = (torch.zeros((n,), dtype=torch.bool, device=dev),
-               torch.zeros((n, 3), dtype=f32, device=dev))
-        return out + (stats,) if with_stats else out
 
-    if stage <= 0:
-        return cut(sphere_pass)
-
-    # --- Phase B: pair compaction + patch culling ------------------------
-    # Non-empty (segment, chunk, candidate) blocks first, then the pairs
-    # among their rows.
+def _compact_pairs(near: Tensor, cand: Tensor, path_p: Tensor,
+                   swept: SweptObjects, periods: Tensor,
+                   pair_budget: int | None):
+    """Phase B, first half: the (ray x candidate) pairs that passed the
+    sphere test, compacted (the non-empty (segment, block, candidate) rows
+    first, then the pairs among them) and re-solved.  Returns ``(pairs,
+    kept, Wp)``: the kept pairs (a :class:`_Pairs`), the count of pairs
+    that fit the row budget (a tensor) and the pair budget."""
+    dev = near.device
+    S, nb, OB, block = near.shape
     n_blocks = S * nb * OB
-    rows = near_all.reshape(n_blocks, block)
+    rows = near.reshape(n_blocks, block)
     blk_any = rows.any(dim=1)
     if pair_budget is None:
         WB = max(int(blk_any.sum()), 1)
@@ -945,15 +902,14 @@ def intersect_scene_compact(metric: Metric, path: Tensor,
     bidx = _nonzero_static(blk_any, WB)
     rows_b = rows[bidx] & (torch.arange(WB, device=dev)
                            < blk_any.sum())[:, None]  # (WB, block)
-    del near_all, rows
-    kept_pairs = rows_b.sum().to(f32)
-    Wp = max(int(kept_pairs), 1) if pair_budget is None else pair_budget
+    kept = rows_b.sum().to(torch.float32)
+    Wp = max(int(kept), 1) if pair_budget is None else pair_budget
     # The pairs kept are the first min(kept, Wp) of the reference's
     # fixed-size list (the rest is its fill); only they are solved.
-    n_p = min(int(kept_pairs), Wp)
+    n_p = min(int(kept), Wp)
     p2 = _nonzero_static(rows_b, n_p)
     pidx = bidx[p2 // block] * block + p2 % block
-    # Decode (s, chunk, j, ray in block) from the flat index.
+    # Decode (s, block, j, ray in block) from the flat index.
     per_s = nb * OB * block
     s_of = pidx // per_s
     rem = pidx % per_s
@@ -962,69 +918,89 @@ def intersect_scene_compact(metric: Metric, path: Tensor,
     j_of = rem // block
     ray_of = cb_of * block + rem % block  # global ray
 
+    n_pad = nb * block
     path_flat = path_p.reshape((S + 1) * n_pad, 4)
-    ep = _take(swept, cand_all[s_of, cb_of, j_of])  # (n_p, ...)
-    pos_p, dir_p, ostart_p, oend_p = _object_local_ray(
+    ep = _take(swept, cand[s_of, cb_of, j_of])  # (n_p, ...)
+    pos, dirv, o_start, o_end = _object_local_ray(
         path_flat[s_of * n_pad + ray_of],
         path_flat[(s_of + 1) * n_pad + ray_of],
         ep.p1, ep.p2, ep.ier, ep.ien, periods)  # (n_p, 4) ...
-    obj_p = ep.obj
-    if stage <= 1:
-        return cut(sphere_pass, torch.zeros((), dtype=f32, device=dev),
-                   sphere_pass - torch.clamp(kept_pairs, max=float(Wp)))
-    phit = torch.cat([torch.zeros((0, P), dtype=torch.bool, device=dev)] + [
-        _ray_aabb(pos_p[a:b, None, 1:], dir_p[a:b, None, 1:],
-                  patches.lo[obj_p[a:b]], patches.hi[obj_p[a:b]])[0]
-        for a, b in _chunks(n_p, chunk // P)])  # (n_p, P)
-    patch_pass = phit.sum().to(f32)
-    if stage <= 2:
-        return cut(sphere_pass, patch_pass)
+    return _Pairs(s_of, ray_of, ep.obj, pos, dirv, o_start, o_end), kept, Wp
 
-    # --- Phase C: (pair, patch) compaction + Moller-Trumbore -------------
+
+def _patch_tests(pairs: _Pairs, patches: Patches) -> Tensor:
+    """Phase B, second half: the slab test of every kept pair's local ray
+    against its object's patch AABBs.  Returns the (n_p, P) bitmask."""
+    P = patches.lo.shape[1]
+    n_p = pairs.obj.shape[0]
+    return torch.cat(
+        [torch.zeros((0, P), dtype=torch.bool, device=patches.lo.device)] + [
+            _ray_aabb(pairs.pos[a:b, None, 1:], pairs.dirv[a:b, None, 1:],
+                      patches.lo[pairs.obj[a:b]],
+                      patches.hi[pairs.obj[a:b]])[0]
+            for a, b in _chunks(n_p, CHUNK // P)])  # (n_p, P)
+
+
+def _compact_items(phit: Tensor, patch_slots: int, tri_budget: int | None):
+    """Phase C, first half: the (pair, patch) items, the first
+    ``patch_slots`` patches hit of each pair (0 = every patch hit), in
+    pair-major, patch-ascending order.  Returns ``(pair, patch, kept,
+    Wt)``: each kept item's pair and patch, the count of items (a tensor)
+    and the item budget."""
+    dev = phit.device
+    n_p, P = phit.shape
     if patch_slots:
-        # The first K patches hit of each pair: slot k is where the pair's
-        # running count of hit patches first reaches k + 1, items in
-        # pair-major, patch-ascending order.
+        # Slot k is where the pair's running count of hit patches first
+        # reaches k + 1.
         K = min(patch_slots, P)
         count = torch.cumsum(phit, dim=1, dtype=torch.int64)  # (n_p, P)
         want = torch.arange(1, K + 1, device=dev).expand(n_p, K).contiguous()
         slot_v = count[:, -1:] >= want  # (n_p, K)
         slot_pa = torch.searchsorted(count, want)
-        kept_items = slot_v.sum().to(f32)
+        kept = slot_v.sum().to(torch.float32)
     else:
-        K, slot_v, kept_items = P, phit, patch_pass
-    del phit
-    Wt = max(int(kept_items), 1) if tri_budget is None else tri_budget
+        K, slot_v, kept = P, phit, phit.sum().to(torch.float32)
+    Wt = max(int(kept), 1) if tri_budget is None else tri_budget
     # As the pairs: the first min(kept, Wt) items of the fixed-size list.
-    n_t = min(int(kept_items), Wt)
-    tidx = _nonzero_static(slot_v, n_t)
+    tidx = _nonzero_static(slot_v, min(int(kept), Wt))
     pr_of = tidx // K
     pa_of = slot_pa[pr_of, tidx % K] if patch_slots else tidx % K
+    return pr_of, pa_of, kept, Wt
 
-    # The patch tables (O, P, 3, ps): the item axis leads, triangles minor.
-    v0t, v1t, v2t, nmt = (torch.swapaxes(x, -1, -2) for x in (
+
+def _patch_tables(patches: Patches):
+    """The patch tables (O, P, 3, ps) of v0, v1, v2 and the normals: the
+    item axis leads, triangles minor."""
+    return tuple(torch.swapaxes(x, -1, -2) for x in (
         patches.v0, patches.v1, patches.v2, patches.normal))
-    if stage <= 3:
-        objt = obj_p[pr_of]
-        gathered = sum(x[objt, pa_of].sum() for x in (v0t, v1t, v2t, nmt))
-        return cut(sphere_pass, patch_pass, torch.zeros((), dtype=f32,
-                                                        device=dev),
-                   0.0 * (gathered + patches.valid[objt, pa_of].sum()))
 
+
+def _nearest_hits(pairs: _Pairs, pr_of: Tensor, pa_of: Tensor,
+                  patches: Patches, n_pad: int):
+    """Phase C, second half: Moller-Trumbore of each item's local ray
+    against its patch's triangles, then the nearest hit per ray by a
+    deterministic two-pass scatter-min (the key, then the item index among
+    equal keys).  Returns ``(key (n_pad,), colour (n_pad, 3))``, the key
+    inf where no hit."""
+    dev = pr_of.device
+    f32 = torch.float32
+    n_t, ps = pr_of.shape[0], patches.v0.shape[2]
+    v0t, v1t, v2t, nmt = _patch_tables(patches)
     t_item = torch.full((n_t,), torch.inf, dtype=f32, device=dev)
     nrm_item = torch.zeros((max(n_t, 1), 3), dtype=f32, device=dev)
-    for a, b in _chunks(n_t, chunk // patch_size):
+    for a, b in _chunks(n_t, CHUNK // ps):
         pr, pa = pr_of[a:b], pa_of[a:b]
-        objt = obj_p[pr]
-        o3, d3 = pos_p[pr, 1:], dir_p[pr, 1:]
+        objt = pairs.obj[pr]
+        o3, d3 = pairs.pos[pr, 1:], pairs.dirv[pr, 1:]
         tv = [x[objt, pa] for x in (v0t, v1t, v2t)]  # (c, 3, ps)
         hit, t = _moller_trumbore_cf(
             tuple(o3[:, i:i + 1] for i in range(3)),
             tuple(d3[:, i:i + 1] for i in range(3)),
             *(tuple(x[:, i] for i in range(3)) for x in tv))  # (c, ps)
-        end_t = pos_p[pr, 0][:, None] + dir_p[pr, 0][:, None] * t
-        lo_w = torch.minimum(ostart_p[pr], oend_p[pr])[:, None]
-        hi_w = torch.maximum(ostart_p[pr], oend_p[pr])[:, None]
+        end_t = (pairs.pos[pr, 0][:, None]
+                 + pairs.dirv[pr, 0][:, None] * t)
+        lo_w = torch.minimum(pairs.o_start[pr], pairs.o_end[pr])[:, None]
+        hi_w = torch.maximum(pairs.o_start[pr], pairs.o_end[pr])[:, None]
         hit = (hit & patches.valid[objt, pa]
                & (end_t >= lo_w) & (end_t <= hi_w) & (t >= 0) & (t <= 1))
         t = torch.where(hit, t, torch.inf)
@@ -1034,9 +1010,9 @@ def intersect_scene_compact(metric: Metric, path: Tensor,
                                          ..., 0]
 
     key_item = torch.where(torch.isfinite(t_item),
-                           s_of[pr_of].to(f32)
+                           pairs.s[pr_of].to(f32)
                            + torch.clamp(t_item, 0.0, 1.0), torch.inf)
-    ray_item = ray_of[pr_of]
+    ray_item = pairs.ray[pr_of]
     best_key = torch.full((n_pad,), torch.inf, device=dev).scatter_reduce_(
         0, ray_item, key_item, "amin", include_self=True)
     tie = torch.where(torch.isfinite(key_item)
@@ -1049,18 +1025,108 @@ def intersect_scene_compact(metric: Metric, path: Tensor,
     colour = torch.where(
         has[:, None],
         torch.abs(nrm_item[torch.clamp(winner, 0, max(n_t - 1, 0))]), 0.0)
+    return best_key, colour
 
-    if with_stats:
-        # Overflow counts against the budgets (fill indices may repeat
-        # entry 0); kept_pairs accounts for the block budget too.
-        pairs_dropped = sphere_pass - torch.clamp(kept_pairs, max=float(Wp))
-        items_dropped = patch_pass - torch.clamp(kept_items, max=float(Wt))
-        return torch.isfinite(best_key[:n]), colour[:n], {
-            "sphere_pass": sphere_pass, "patch_pass": patch_pass,
-            "pairs_dropped": pairs_dropped, "items_dropped": items_dropped,
-            "dropped": pairs_dropped + items_dropped,
-            "max_overlap": torch.zeros((), dtype=torch.int64, device=dev)}
-    return torch.isfinite(best_key[:n]), colour[:n]
+
+def intersect_scene_compact(metric: Metric, path: Tensor,
+                            scene: TriangleScene,
+                            geos: list[ObjectGeodesic], params,
+                            block: int = 256, obj_budget: int = 8,
+                            pair_budget: int | None = 1 << 17,
+                            tri_budget: int | None = 1 << 18,
+                            patch_size: int = 128,
+                            patch_slots: int = 8,
+                            pad: float = 0.0, with_stats: bool = False,
+                            stage: int = 4):
+    """Worklist-compacted two-level intersector: the grouped intersector's
+    tests as three fixed-budget phases with static-size compaction
+    (:func:`_nonzero_static`) between them.
+
+    A. dense binning + object-local fixed point + bounding-sphere test for
+       every (ray x object-segment candidate) pair -> bitmask
+       (:func:`_bin_and_sphere`);
+    B. surviving pairs (<= ``pair_budget``; blocks of ``block`` pairs that
+       hold one compacted first, at most max(pair_budget / 8, 1024) of them)
+       re-solve and run the patch slab tests -> (pair x patch) bitmask
+       (:func:`_compact_pairs`, :func:`_patch_tests`);
+    C. the first ``patch_slots`` patches hit of each pair (0 = every patch)
+       become items (<= ``tri_budget``), each gathers ONE patch's triangles
+       and runs Moller-Trumbore; hits resolve to the nearest per ray by a
+       deterministic two-pass scatter-min (key, then item index on equal
+       keys) (:func:`_compact_items`, :func:`_nearest_hits`).
+
+    Exact whenever the budgets cover the survivor counts; ``with_stats``
+    reports ``sphere_pass``, ``patch_pass`` and the dropped pairs and items.
+    A budget of None is sized to its survivors: the blocks and pairs of
+    phase B, the items of C, so that nothing is dropped.
+
+    Of the reference's fixed-size lists only the kept entries (a prefix) are
+    computed, the fill is not: one read of the kept count on the host for
+    the pairs and one for the items, and one for the number of valid
+    (block, candidate) entries in each chunk of blocks of phase A.
+    ``stage`` (cost decomposition): 0 = phase A, 1 = + pair compaction and
+    re-solve, 2 = + patch slab tests, 3 = + item compaction and triangle
+    gathers, 4 = full; stages < 4 return no hits.  Each phase runs in
+    chunks (of ray blocks, pairs, items) of at most ``CHUNK`` tests."""
+    dev = path.device
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    periods = metric.periods(params, device=dev)
+    patches = build_patches(scene, len(geos), patch_size=patch_size,
+                            device=dev)
+    swept = build_swept_objects(scene, geos, pad=pad)
+    OB = min(obj_budget, swept.lo.shape[0])
+    n = path.shape[1]
+    path_p, nb = _pad_path(path, block)
+
+    def result(hit, colour, *counters):
+        names = ["sphere_pass", "patch_pass", "pairs_dropped",
+                 "items_dropped", "dropped"]
+        stats = dict(zip(names, counters))
+        for k in names:
+            stats.setdefault(k, zero)
+        stats["max_overlap"] = torch.zeros((), dtype=torch.int64, device=dev)
+        return (hit, colour, stats) if with_stats else (hit, colour)
+
+    def no_hits(*counters):  # a stage's early out
+        return result(torch.zeros((n,), dtype=torch.bool, device=dev),
+                      torch.zeros((n, 3), dtype=f32, device=dev), *counters)
+
+    # --- Phase A: dense bin + solve + sphere test ------------------------
+    near, cand = _bin_and_sphere(path_p, nb, block, swept, OB, periods)
+    sphere_pass = near.sum().to(f32)
+    if stage <= 0:
+        return no_hits(sphere_pass)
+
+    # --- Phase B: pair compaction + patch culling ------------------------
+    pairs, kept_pairs, Wp = _compact_pairs(near, cand, path_p, swept,
+                                           periods, pair_budget)
+    del near
+    pairs_dropped = sphere_pass - torch.clamp(kept_pairs, max=float(Wp))
+    if stage <= 1:
+        return no_hits(sphere_pass, zero, pairs_dropped)
+    phit = _patch_tests(pairs, patches)
+    patch_pass = phit.sum().to(f32)
+    if stage <= 2:
+        return no_hits(sphere_pass, patch_pass)
+
+    # --- Phase C: (pair, patch) compaction + Moller-Trumbore -------------
+    pr_of, pa_of, kept_items, Wt = _compact_items(phit, patch_slots,
+                                                  tri_budget)
+    del phit
+    if stage <= 3:
+        objt = pairs.obj[pr_of]
+        gathered = sum(x[objt, pa_of].sum() for x in _patch_tables(patches))
+        return no_hits(sphere_pass, patch_pass, zero,
+                       0.0 * (gathered + patches.valid[objt, pa_of].sum()))
+    items_dropped = patch_pass - torch.clamp(kept_items, max=float(Wt))
+    best_key, colour = _nearest_hits(pairs, pr_of, pa_of, patches,
+                                     nb * block)
+    # Overflow counts against the budgets (fill indices may repeat entry
+    # 0); the kept pairs account for the block budget too.
+    return result(torch.isfinite(best_key[:n]), colour[:n], sphere_pass,
+                  patch_pass, pairs_dropped, items_dropped,
+                  pairs_dropped + items_dropped)
 
 
 def render_triangles(metric: Metric, state: RayState, params,
@@ -1070,34 +1136,41 @@ def render_triangles(metric: Metric, state: RayState, params,
                      n_slots: int = 64, steps_per_slot: int = 8,
                      binned: bool = False, block: int = 256,
                      budget: int = 64, grouped: bool = False,
-                     compact: bool = False):
+                     compact: bool = False, *,
+                     image_width: int | None = None,
+                     with_stats: bool = False, **intersect_kw):
     """Trace rays with path recording (on a CUDA device: ``n_slots``
-    launches of the ray-march kernel), then intersect the scene.
+    launches of the ray-march kernel, warp tiles of the row-major image of
+    ``image_width`` if given), then intersect the scene.
 
     ``binned`` switches to the AABB-binned intersector, ``grouped`` to the
     two-level object/patch intersector, ``compact`` to its worklist form;
-    ``budget`` is the binned budget or the object-segment budget.  Returns
-    ``(final RayState, hit (N,), colour (N, 3))``.  The recorded segments
-    must be short where the field is strong: the toblerone solve
-    interpolates the ray linearly within one, and (64, 8) records 512
-    iterations in segments that still see near-field objects."""
+    ``budget`` is the binned budget or the object-segment budget, and
+    ``intersect_kw`` further arguments of the chosen intersector (compact's
+    ``pair_budget=None, tri_budget=None`` size them to the survivors).
+    Returns ``(final RayState, hit (N,), colour (N, 3))``, and with
+    ``with_stats`` the intersector's counters after them (empty for the
+    dense one).  The recorded segments must be short where the field is
+    strong: the toblerone solve interpolates the ray linearly within one,
+    and (64, 8) records 512 iterations in segments that still see
+    near-field objects."""
     if features is None:
         features = Features.for_metric(metric)
     final, path = integrate.trace_rays_recorded(
         metric, state, params, features=features, opts=opts,
-        n_slots=n_slots, steps_per_slot=steps_per_slot)
+        n_slots=n_slots, steps_per_slot=steps_per_slot,
+        image_width=image_width)
+    args = (metric, path, scene, geos, params)
     if compact:
-        hit, colour = intersect_scene_compact(metric, path, scene, geos,
-                                              params, block=block,
-                                              obj_budget=budget)
+        out = intersect_scene_compact(*args, block=block, obj_budget=budget,
+                                      with_stats=with_stats, **intersect_kw)
     elif grouped:
-        hit, colour = intersect_scene_grouped(metric, path, scene, geos,
-                                              params, block=block,
-                                              obj_budget=budget)
+        out = intersect_scene_grouped(*args, block=block, obj_budget=budget,
+                                      with_stats=with_stats, **intersect_kw)
     elif binned:
-        hit, colour = intersect_scene_binned(metric, path, scene, geos,
-                                             params, block=block,
-                                             budget=budget)
+        out = intersect_scene_binned(*args, block=block, budget=budget,
+                                     with_stats=with_stats, **intersect_kw)
     else:
-        hit, colour = intersect_scene(metric, path, scene, geos, params)
-    return final, hit, colour
+        out = intersect_scene(*args, **intersect_kw) + (
+            ({},) if with_stats else ())
+    return (final,) + tuple(out)

@@ -12,10 +12,11 @@ Where compact and dense part.  The compact (and grouped) intersector solves
 ONE fixed point per (ray segment x object segment), at the ray's closest
 approach to the object's origin, where dense solves one per triangle.  On
 scripts/triangle_bench.py's moving cubes, 8 segments a worldline, the two
-part: on one of its cubes seen by 48x27 rays, dense hits 12 pixels that
-compact does not.  Both packages part there alike (the port's compact
-equals JAX's compact and its dense JAX's dense), so it is the reference's
-design, not the port's."""
+part, both ways: seen by 48x27 rays, dense hits 12 pixels of the sixth cube
+that compact does not, and compact 2 pixels of the tenth that dense does
+not.  Both packages part there alike (the port's compact equals JAX's
+compact and its dense JAX's dense), so it is the reference's design, not
+the port's."""
 
 import numpy as np
 import pytest
@@ -112,9 +113,10 @@ def test_compact_stages(cubes, stage):
 
 
 @pytest.mark.parametrize("chunk", [1, 50])
-def test_compact_does_not_depend_on_the_chunk(cubes, chunk):
+def test_compact_does_not_depend_on_the_chunk(cubes, chunk, monkeypatch):
     ref = _compact(cubes)
-    got = _compact(cubes, chunk=chunk)
+    monkeypatch.setattr(render, "CHUNK", chunk)
+    got = _compact(cubes)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert_same_stats(got[2], ref[2])
 
@@ -164,27 +166,31 @@ def test_nonzero_static_is_jnp_nonzero():
 
 # -- where compact and dense part, in both packages ------------------------
 
-BENCH_CUBE = 5  # the sixth of scripts/triangle_bench.py's 12 cubes
-
-
 @pytest.fixture(scope="module")
-def bench_cube():
-    """One cube of the 12-cube scene (12 triangles), 48x27 planar-rotated
-    camera rays recorded in 32 slots of 8, as the script records them; JAX's
-    worldline, path, dense and compact intersections."""
+def bench_path():
+    """48x27 planar-rotated camera rays of scripts/triangle_bench.py's scene
+    recorded by JAX in 32 slots of 8, as the script records them."""
     jm = jmetrics.get_metric("schwarzschild")
     jp, jf = jm.params(), jintegrate.Features.for_metric(jm)
-    ang = 2 * np.pi * BENCH_CUBE / 12
-    cube = make_cube([-6.0, 4 * np.cos(ang), 4 * np.sin(ang), 0.0],
-                     scale=0.6, velocity=(0.408 * -np.sin(ang),
-                                          0.408 * np.cos(ang), 0))
-    jgeos = [jphysics.precompute_object(jm, cube, jp, jf, n_steps=512,
-                                        segments=8)]
     cam = JCamera.default().rotate(pitch=-np.pi / 2)
     jst, _, _ = jpl.init_camera_rays(
         jm, cam, jp, jpl.RenderSettings(width=48, height=27), jf)
     _, jpath = jax.jit(lambda s: jintegrate.trace_rays_recorded(
         jm, s, jp, features=jf, n_slots=32, steps_per_slot=8))(jst)
+    return jpath
+
+
+def _bench_cube(k, jpath):
+    """Cube ``k`` of the 12-cube scene (12 triangles) on the recorded path
+    ``jpath``: JAX's worldline, dense and compact intersections."""
+    jm = jmetrics.get_metric("schwarzschild")
+    jp, jf = jm.params(), jintegrate.Features.for_metric(jm)
+    ang = 2 * np.pi * k / 12
+    cube = make_cube([-6.0, 4 * np.cos(ang), 4 * np.sin(ang), 0.0],
+                     scale=0.6, velocity=(0.408 * -np.sin(ang),
+                                          0.408 * np.cos(ang), 0))
+    jgeos = [jphysics.precompute_object(jm, cube, jp, jf, n_steps=512,
+                                        segments=8)]
     sc = dict(jm=jm, m=tmetrics.get_metric("schwarzschild"),
               scene=TriangleScene.build([cube]), jgeos=jgeos,
               geos=geos_from_jax(jgeos), jpath=jpath,
@@ -195,8 +201,19 @@ def bench_cube():
     return sc
 
 
-def test_compact_and_dense_part_as_in_the_reference(bench_cube):
-    sc = bench_cube
+@pytest.fixture(scope="module")
+def bench_cube(bench_path):
+    return _bench_cube(5, bench_path)  # the sixth cube
+
+
+@pytest.fixture(scope="module")
+def bench_cube_9(bench_path):
+    return _bench_cube(9, bench_path)
+
+
+def _part(sc):
+    """The port's dense and compact on the scene's path, each held to JAX's;
+    returns (dense-only, compact-only) hit counts."""
     args = (sc["m"], sc["path"], sc["scene"], sc["geos"], sc["m"].params())
     dense = render.intersect_scene(*args)
     hit, col, stats = render.intersect_scene_compact(
@@ -205,8 +222,17 @@ def test_compact_and_dense_part_as_in_the_reference(bench_cube):
     assert_same_image((hit, col), sc["compact"], some_hit=False)
     assert_same_stats(stats, sc["compact"][2])
     assert float(stats["dropped"]) == 0.0
-    dense_only = dense[0] & ~hit
-    assert int(dense_only.sum()) == 12 and not (hit & ~dense[0]).any()
+    return int((dense[0] & ~hit).sum()), int((hit & ~dense[0]).sum())
+
+
+def test_compact_and_dense_part_as_in_the_reference(bench_cube):
+    assert _part(bench_cube) == (12, 0)
+
+
+def test_compact_may_hit_where_dense_does_not(bench_cube_9):
+    """The parting goes the other way too: on the tenth cube compact hits
+    2 pixels that dense misses and misses none that dense hits."""
+    assert _part(bench_cube_9) == (0, 2)
 
 
 # -- the port's twin of tests/test_triangles.py ----------------------------

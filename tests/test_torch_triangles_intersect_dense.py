@@ -142,11 +142,12 @@ def test_dense_equals_reference(cubes):
 
 
 @pytest.mark.parametrize("chunk", [1, 7, 200])
-def test_dense_does_not_depend_on_the_chunk(cubes, chunk):
+def test_dense_does_not_depend_on_the_chunk(cubes, chunk, monkeypatch):
     args = (cubes["m"], cubes["path"], cubes["scene"], cubes["geos"],
             cubes["m"].params())
     ref = render.intersect_scene(*args)
-    got = render.intersect_scene(*args, chunk=chunk)
+    monkeypatch.setattr(render, "CHUNK", chunk)
+    got = render.intersect_scene(*args)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
@@ -176,12 +177,12 @@ def test_binned_counters_equal_reference(overflow, budget):
 
 
 @pytest.mark.parametrize("chunk", [1, 3000])
-def test_binned_does_not_depend_on_the_chunk(overflow, chunk):
+def test_binned_does_not_depend_on_the_chunk(overflow, chunk, monkeypatch):
     args = (overflow["m"], overflow["path"], overflow["scene"],
             overflow["geos"], overflow["m"].params())
     ref = render.intersect_scene_binned(*args, budget=2, with_stats=True)
-    got = render.intersect_scene_binned(*args, budget=2, with_stats=True,
-                                        chunk=chunk)
+    monkeypatch.setattr(render, "CHUNK", chunk)
+    got = render.intersect_scene_binned(*args, budget=2, with_stats=True)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert_same_stats(got[2], ref[2])
 

@@ -71,9 +71,10 @@ def test_grouped_equals_reference(cubes, case):
 
 
 @pytest.mark.parametrize("chunk", [1, 100])
-def test_grouped_does_not_depend_on_the_chunk(cubes, chunk):
+def test_grouped_does_not_depend_on_the_chunk(cubes, chunk, monkeypatch):
     ref = _grouped(cubes, obj_budget=4)
-    got = _grouped(cubes, obj_budget=4, chunk=chunk)
+    monkeypatch.setattr(render, "CHUNK", chunk)
+    got = _grouped(cubes, obj_budget=4)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert_same_stats(got[2], ref[2])
 

@@ -79,11 +79,11 @@ def rendered(request):
     got = render_triangles(m, sc["st"], m.params(), sc["scene"], sc["geos"],
                            features=Features.for_metric(m),
                            opts=TraceOptions(max_steps=512), **kw)
-    return request.param, got, want
+    return request.param, got, want, sc
 
 
 def test_render_triangles_equals_reference(rendered):
-    name, got, want = rendered
+    name, got, want, _ = rendered
     np.testing.assert_array_equal(got[0].status.numpy(),
                                   np.asarray(want[0].status))
     np.testing.assert_array_equal(got[0].steps.numpy(),
@@ -91,6 +91,24 @@ def test_render_triangles_equals_reference(rendered):
     assert_same_image(got[1:], want[1:])
     if name == "schwarzschild":  # the cube subtends ~2% of the frame
         assert float(got[1].float().mean()) > 0.005
+
+
+def test_render_triangles_passes_budgets_and_returns_stats(rendered):
+    """Compact with its budgets sized to the survivors (as the CLI runs it)
+    and the counters after the image: the reference's image, nothing
+    dropped; the dense intersector has no counters."""
+    name, _, want, sc = rendered
+    m = sc["m"]
+    args = (m, sc["st"], m.params(), sc["scene"], sc["geos"],
+            Features.for_metric(m), TraceOptions(max_steps=512))
+    slots = CASES[name][1].get("n_slots", 64), CASES[name][1].get(
+        "steps_per_slot", 8)
+    *got, stats = render_triangles(
+        *args, *slots, compact=True, with_stats=True, pair_budget=None,
+        tri_budget=None)
+    assert_same_image(got[1:], want[1:])
+    assert float(stats["dropped"]) == 0.0 and float(stats["sphere_pass"]) > 0
+    assert render_triangles(*args, *slots, with_stats=True)[3] == {}
 
 
 def test_schwarzschild_nearfield_cube_hits():
