@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--profile] [--kernel-flags "..."]
     python3 chip_smoke.py --sweep ["flags; flags; ..."]
+    python3 chip_smoke.py --triangles | --content
 
 Builds the ray-march kernel from ``geodesic_raytracing_tpu_torch/csrc`` (one
 library per metric instance, all at once), checks it against its plain
@@ -44,6 +45,12 @@ scenes take the flagship camera: with them the kernel has all 31 metric
 instances of the JAX registry.  Every plain march on
 the card replays its step from a CUDA graph (``trace_rays_reference``'s
 default there), held bit for bit to the eager march in phases 2 and 14.
+Then the eighth path (phase 28): content packs and hot-swap.  Metric
+structs emitted from torch functions (``ops/emit.py``) against the hand
+structs, the example pack ``examples/pack_torch`` through the frames and the
+CLI, the hot-swap of a baked (static) library behind the dynamic one in a
+stream of adaptive frames, an image sky, and the CLI's extras
+(``content_path``).
 ``--profile`` adds a ``torch.profiler`` trace of one steady frame of each
 kind (kernel counts, device busy time, idle share).  ``--kernel-flags`` appends
 nvcc flags to the kernel's build, to run every check on a variant of it.
@@ -63,6 +70,7 @@ card's ``nvidia-smi`` name and power limit, and last
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -95,8 +103,11 @@ POS_TOL = 1e-4  # rtol and atol
 PLAIN_DEPTH = 2048
 # Phase 14 holds the graphed plain march to the eager one on each
 # instance's 64-ray set for this many trial iterations (phase 2: kerr_boyer's
-# to the end).
-GRAPH_CHECK_STEPS = 64
+# to the end): the eager iteration, the capture and a chunk of replays.  It
+# was 64 before phase 28; halved with DENSE_PLAIN_DEPTH to keep the smoke
+# within half its time limit (the eager marches were 33 s of phase 14 on an H100 80GB
+# HBM3 at 700 W; PERF.md section 5).
+GRAPH_CHECK_STEPS = 32
 # The golden gate of tests/test_parity_images.py on sRGB uint8 images.
 GATE_RMSE = 4.0
 GATE_BAD_FRAC = 0.01
@@ -207,12 +218,64 @@ CATALOGUE_B = ("alcubierre", "configurable_wormhole", "ellis_drainhole",
 CATALOGUE_C = ("double_kerr", "double_kerr_alt", "double_schwarzschild",
                "double_unequal_kerr", "kerr_newman_schild", "kerr_schild")
 CATALOGUES = CATALOGUE_A + CATALOGUE_B + CATALOGUE_C
-# Phase 19 marches each metric's 1080p launch with the plain twin for this
-# many trial iterations, against a kernel launch with that budget (a cut of
-# depth: the longest rays of black_hole_cosmic_string, ernst and the Kerr
-# family take 2,400-16,400, krasnikov_cylindrical's 6,037; every other
-# metric's rays end within it, so those are held to the end).
-DENSE_PLAIN_DEPTH = 1024
+# Phases 19 and 28 march each 1080p launch with the plain twin for this many
+# trial iterations, against a kernel launch with that budget (a cut of depth:
+# the metrics whose rays all end within it are held to the end, the others,
+# the Kerr family and every metric with rays past 512 trial iterations, on
+# the cut launch).  It was 1,024 before phase 28; halved when phase 28 took
+# the whole smoke to 609 s on an H100 80GB HBM3 at 700 W, past half its time
+# limit.
+DENSE_PLAIN_DEPTH = 512
+
+# The eighth path (phase 28): content packs and hot-swap.  The example pack
+# of torch metrics; the hand-written instances whose torch functions the
+# smoke registers again under a pack name (``<name>_pack``), so that the
+# kernel runs the struct ops/emit.py writes for them, as for a pack metric.
+PACK_TORCH = ROOT / "examples" / "pack_torch"
+EMITTED_TWINS = ("schwarzschild", "kerr_boyer")
+# Operations per trial iteration of the emitted and baked instances, by the
+# rule of OPS_BY_INSTANCE: the hand count of the struct they are emitted
+# from, less the difference that ``scripts/torch_opcount.py --emit`` counts
+# between the emitted and the hand struct's acceleration in the kernel's own
+# code (kerr_boyer 142 against 143, baked 140; schwarzschild 62 against 62,
+# baked 60), and reissner_nordstrom as schwarzschild with the 4 operations
+# its acceleration has more (66 against 62; baked 66).
+OPS_EMITTED = {
+    ("kerr_boyer_pack", False): 264,
+    ("kerr_boyer [baked]", False): 262,
+    ("schwarzschild_pack", False): 177,
+    ("schwarzschild_pack", True): 150,
+    ("reissner_nordstrom", False): 181,
+    ("reissner_nordstrom", True): 154,
+    ("reissner_nordstrom [baked]", False): 181,
+    ("reissner_nordstrom [baked]", True): 154,
+}
+# Registers of the 31 hand instances, default and planar option, as measured
+# before the emitted and baked instances were added (PERF.md section 6): they
+# change none of them (phase 1 checks it).
+REGISTERS = {
+    "kerr_boyer": (61, 56), "schwarzschild": (52, 46),
+    "schwarzschild_fast": (51, 54), "schwarzschild_skewed": (53, 47),
+    "schwarzschild_ingoing_ef": (51, 45), "de_sitter": (52, 54),
+    "minkowski": (48, 48), "minkowski_skew": (48, 48),
+    "wormhole (morris-thorne)": (48, 56),
+    "black_hole_cosmic_string": (51, 48), "ernst": (60, 55),
+    "kerr_newman_boyer": (63, 62), "kerr_ingoing_ef": (62, 56),
+    "kerr_rational_polynomial": (64, 61), "misner_4d": (44, 47),
+    "cosmic_string_spinning": (48, 46), "alcubierre": (51, 46),
+    "configurable_wormhole": (53, 48), "ellis_drainhole": (51, 48),
+    "godel_cylindrical": (55, 48), "janis_newman_winicour": (56, 55),
+    "krasnikov_cylindrical": (54, 54), "krasnikov_tube": (56, 56),
+    "schwarzschild_ingoing_ef_hawking": (53, 46),
+    "symmetric_warp_drive": (56, 54), "kerr_schild": (64, 62),
+    "kerr_newman_schild": (64, 56), "double_schwarzschild": (64, 64),
+    "double_kerr": (64, 64), "double_kerr_alt": (64, 64),
+    "double_unequal_kerr": (64, 64),
+}
+# Hot-swap streams (phase 28): adaptive 1080p frames until this many were
+# served by the static program, or the time limit (s) passes (a failure).
+HOTSWAP_STATIC_FRAMES = 6
+HOTSWAP_LIMIT_S = 60.0
 class RaySet(NamedTuple):
     """How phase 14 (and the host tests) adapt ``make_rays``' set to a
     metric: a factor on the phi velocity, the sign of v^t, the polar launch
@@ -387,9 +450,10 @@ def bound_ms(n_rays: int, total_trials: int, ops_per_trial=OPS_PER_TRIAL,
     return max(ops, byt), ops, byt
 
 
-def median_launch_ms(metric, state, params, feats, opts, width, rounds=3):
+def median_launch_ms(metric, state, params, feats, opts, width, rounds=3,
+                     instance=None):
     """Median kernel time (CUDA events) of ``rounds`` launches on
-    ``state``."""
+    ``state`` (of ``instance``, default the metric's)."""
     import torch
     from geodesic_raytracing_tpu_torch.ops import raymarch
 
@@ -398,14 +462,15 @@ def median_launch_ms(metric, state, params, feats, opts, width, rounds=3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         raymarch.trace_rays_cuda(metric, state, params, feats, opts,
-                                 image_width=width)
+                                 image_width=width, instance=instance)
         ev[1].record()
         torch.cuda.synchronize()
         ms.append(ev[0].elapsed_time(ev[1]))
     return statistics.median(ms)
 
 
-def launch_work(metric, state, params, feats, opts, width) -> dict:
+def launch_work(metric, state, params, feats, opts, width,
+                instance=None) -> dict:
     """One kernel launch on ``state`` (the pixels of a row-major image of
     ``width``) that counts its work: ``state`` (the output), ``per_ray``
     and ``trials`` (each ray's and all trial iterations), ``mean_steps``,
@@ -420,7 +485,8 @@ def launch_work(metric, state, params, feats, opts, width) -> dict:
     n = state.position.shape[0]
     trials = torch.zeros(n, dtype=torch.int32, device=state.position.device)
     out = raymarch.trace_rays_cuda(metric, state, params, feats, opts,
-                                   trials=trials, image_width=width)
+                                   trials=trials, image_width=width,
+                                   instance=instance)
     torch.cuda.synchronize()
     rows, tiled = idle_lane_factor(trials), idle_lane_factor(trials, width)
     return {"state": out, "per_ray": trials, "rays": n,
@@ -966,6 +1032,15 @@ def tangent_rules(dev) -> dict:
             "where(x >= 0, t, 0)": lambda x, y: torch.where(
                 x >= 0, t, torch.zeros_like(t))}),
     }
+    # The division of two tensors, as ops/emit.py's grt_div applies it: a
+    # numerator and a denominator that both carry the tangent, a 0-d tensor
+    # (a parameter of an emitted dynamic instance) on either side.
+    c = torch.tensor(3.5, device=dev)
+    cases["x / (x + 2)"] = (lambda x: x / (x + 2.0), pos, {
+        "(t - t q) / (x + 2)": lambda x, y: (t - t * y) / (x + 2.0)})
+    cases["c / x"] = (lambda x: c / x, pos, {
+        "-(t q) / x": lambda x, y: -(t * y) / x})
+    cases["x / c"] = (lambda x: x / c, signed, {"t / c": lambda x, y: t / c})
     for e in (1.5, 4, 0.25, -0.75, 1.25, -1.75):
         cases[f"x ** {e}"] = (lambda x, e=e: x ** e, pos, {
             "t * (e * x ** (e - 1))": lambda x, y, e=e: t * (e * x ** (e - 1)),
@@ -1116,13 +1191,16 @@ def launches_vs_plain(tag, metric, params, feats, launches):
     return worst, plain_ms
 
 
-def work_row(name, metric, s_in, s_out, params, feats, opts, width, ms):
+def work_row(name, metric, s_in, s_out, params, feats, opts, width, ms,
+             instance=None, ops=None):
     """One launch's work and bound (by the instance's own operations per
-    trial iteration) as a dict, printed."""
-    lw = launch_work(metric, s_in, params, feats, opts, width)
+    trial iteration, ``OPS_BY_INSTANCE`` unless ``ops`` is given) as a dict,
+    printed."""
+    lw = launch_work(metric, s_in, params, feats, opts, width, instance)
     assert same_bits(lw.pop("state"), s_out), "two launches disagree"
     del lw["per_ray"]
-    ops = OPS_BY_INSTANCE[metric.name, bool(opts.planar)]
+    if ops is None:
+        ops = OPS_BY_INSTANCE[metric.name, bool(opts.planar)]
     b, b_ops, b_bytes = bound_ms(lw["rays"], lw["trials"], ops)
     row = {"name": name, "rays": lw["rays"], "active_rays": lw["active"],
            "planar": bool(opts.planar), "image_width": width,
@@ -2508,6 +2586,478 @@ def triangle_path(dev) -> dict:
     return out
 
 
+def pack_twin(name: str):
+    """Register the torch function of the hand-written instance ``name``
+    again as ``<name>_pack``, as a content pack would: the kernel then
+    launches the struct that ops/emit.py writes for it."""
+    from geodesic_raytracing_tpu_torch import metrics
+
+    m = metrics.get_metric(name)
+    return metrics.register(dataclasses.replace(
+        m, name=f"{name}_pack",
+        config=dataclasses.replace(m.config, name=f"{name}_pack")))
+
+
+def content_instances() -> list:
+    """Phase 1's part of phase 28: load the example pack (it registers
+    ``reissner_nordstrom``), register the pack twins, and return the
+    instances of the three, emitted from their functions, to build."""
+    from geodesic_raytracing_tpu_torch import content, metrics
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+
+    pack = content.load_pack(PACK_TORCH)
+    assert not pack.broken and list(pack.metrics) == ["reissner_nordstrom"]
+    ms = [pack_twin(n) for n in EMITTED_TWINS]
+    ms.append(metrics.get_metric("reissner_nordstrom"))
+    return [raymarch.instance_of(m) for m in ms]
+
+
+def ptxas_of(inst) -> dict:
+    """Registers, stack and spills of an instance's library: the default
+    and the planar option, and its build's wall seconds."""
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+
+    info = raymarch.BUILD_INFO[inst.label, raymarch.NVCC_FLAGS]
+    per = raymarch.ptxas_instances(info["ptxas"])
+    return {"build_s": info["seconds"],
+            "default": per[(False, False, False)],
+            "planar": per[(True, False, False)]}
+
+
+def sky_png(path, h=1024, w=2048, seed=28) -> None:
+    """A seeded equirect sky (bands of colour and noise, not the checker),
+    written with the port's own PNG writer."""
+    from geodesic_raytracing_tpu_torch import cli
+
+    rng = np.random.default_rng(seed)
+    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                       indexing="ij")
+    base = np.stack([np.sin(9 * u + 2 * k) * np.cos(6 * v - k)
+                     for k in range(3)], -1)
+    px = base * 80 + 120 + rng.integers(-30, 30, (h, w, 3))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    cli.write_png(str(path), px.clip(0, 255).astype(np.uint8))
+
+
+def content_path(dev) -> dict:
+    """Phase 28, the eighth path: content packs and hot-swap.
+
+    (a) The emitter against the hand structs: the torch functions of
+    ``schwarzschild`` and ``kerr_boyer`` registered as pack metrics
+    (``pack_twin``), each one's dense 1080p flagship frame through
+    ``render_frame`` (the emitted dynamic instance), its launch against the
+    hand instance on the same input (bit for bit or not) and, cut to
+    ``DENSE_PLAIN_DEPTH``, against the plain march with the parameters as
+    0-d tensors (the dynamic instance's twin); time, registers, spills and
+    share of the bound beside the hand instance's.
+    (b) The pack path: ``reissner_nordstrom`` of ``examples/pack_torch``, its
+    dense and adaptive 1080p frames, every launch against the plain march,
+    the card's 480x270 frame against the CPU's by the golden gate, the CLI
+    with ``--content`` once.
+    (c) Hot-swap: adaptive 1080p frames of ``kerr_boyer`` and then of
+    ``reissner_nordstrom`` through ``runtime.hotswap.kernel_program``, the
+    static (baked) build requested at frame 0: frames served by each
+    program, the build's seconds, frame times before and after the swap;
+    the baked launch against the dynamic one and against the plain march
+    with float parameters.
+    (d) An image sky: a seeded PNG the smoke writes renders the 1080p
+    frame; its shading against the CPU's of the same rays.
+    (e) The CLI's extras on the card: ``--trace-stats``, ``--supersample
+    2``, ``--profile`` and ``--trace-method``.
+    Returns ``{"rows": [summary rows], ...}``."""
+    import tempfile
+
+    import torch
+    from geodesic_raytracing_tpu_torch import cli, metrics
+    from geodesic_raytracing_tpu_torch.bench_config import flagship_config
+    from geodesic_raytracing_tpu_torch.ops import emit, integrate, raymarch
+    from geodesic_raytracing_tpu_torch.render import background as bg
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+    from geodesic_raytracing_tpu_torch.runtime.hotswap import kernel_program
+
+    sky = bg.checker_background(device=dev)
+    out = {"rows": []}
+    src = "geodesic_raytracing_tpu_torch/csrc/raymarch.cu"
+    rep = "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488"
+
+    def dense(metric):
+        """The dense 1080p flagship frame of ``metric`` through
+        render_frame, launches counted from 0: ``(image, input, output,
+        width, opts, counts)`` of its one launch."""
+        m, params, camera, asettings, feats = flagship_config(
+            device=dev, metric=metric.name)
+        settings = dataclasses.replace(asettings, adaptive_sampling=False)
+        with recorded_launches(integrate, with_opts=True) as launch:
+            raymarch.reset_launch_counts()
+            img = pl.render_frame(m, camera, params, sky, settings, feats,
+                                  device=dev)
+            torch.cuda.synchronize()
+            counts = dict(raymarch.LAUNCHES_BY_METRIC)
+        assert bool(torch.isfinite(img).all())
+        assert tuple(img.shape) == (1080, 1920, 3)
+        (s_in, s_out, width, opts), = launch
+        return img, s_in, s_out, width, opts, counts
+
+    def held(tag, metric, s_in, params, plain_params, feats, opts, width,
+             instance=None):
+        """A launch cut to DENSE_PLAIN_DEPTH against the plain march with
+        ``plain_params`` on all rays.  Returns ``(largest |dpos|, plain
+        ms)``."""
+        cut = dataclasses.replace(opts, max_steps=min(opts.max_steps,
+                                                      DENSE_PLAIN_DEPTH))
+        k_cut = raymarch.trace_rays_cuda(metric, s_in, params, feats, cut,
+                                         image_width=width, instance=instance)
+        err, (plain_ms,) = launches_vs_plain(
+            f"[28 {tag}] {cut.max_steps} trial iterations", metric,
+            plain_params, feats, [(s_in, k_cut, width, cut)])
+        return err, plain_ms
+
+    def row(name, label, launches, r, plain_ms, err, **extra):
+        return {"name": f"raymarch_{label}", "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches, "max_abs_err": err,
+                "ms": r["ms"], "plain_ms": plain_ms,
+                "plain_max_steps": DENSE_PLAIN_DEPTH,
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "share_of_bound": r["share_of_bound"], "library_ms": None,
+                "measured_at": "1920x1080 dense, flagship camera",
+                "work": r, **extra}
+
+    # -- (a) the emitter against the hand structs ------------------------
+    t_a = time.perf_counter()
+    hand_inputs = {}
+    for base in EMITTED_TWINS:
+        hand = metrics.get_metric(base)
+        twin = metrics.get_metric(f"{base}_pack")
+        inst = raymarch.instance_of(twin)
+        img, s_in, s_out, width, opts, counts = dense(twin)
+        assert counts == {twin.name: 1}, counts
+        params, feats = twin.params(), integrate.Features.for_metric(twin)
+        k_hand = raymarch.trace_rays_cuda(hand, s_in, params, feats, opts,
+                                          image_width=width)
+        torch.cuda.synchronize()
+        same = same_bits(k_hand, s_out)
+        differ = int(sum((a.view(torch.int32) != b.view(torch.int32))
+                         .reshape(a.shape[0], -1).any(1).int()
+                         for a, b in zip(k_hand, s_out)).bool().sum())
+        err, plain_ms = held(f"emitted {base}", twin, s_in, params,
+                             emit.tensor_params(params, dev), feats, opts,
+                             width)
+        ms_e = median_launch_ms(twin, s_in, params, feats, opts, width)
+        ms_h = median_launch_ms(hand, s_in, params, feats, opts, width)
+        r_e = work_row(f"1080p dense {twin.name} (emitted)", twin, s_in,
+                       s_out, params, feats, opts, width, ms_e,
+                       ops=OPS_EMITTED[twin.name, bool(opts.planar)])
+        r_h = work_row(f"1080p dense {base} (hand struct)", hand, s_in,
+                       k_hand, params, feats, opts, width, ms_h)
+        p_e = ptxas_of(inst)
+        p_h = ptxas_of(raymarch.hand_instance(base))
+        print(f"[28 emitted] {base}: frame launches {counts}; the emitted "
+              f"launch against the hand struct's on the same "
+              f"{s_in.status.numel()} rays: same bits {same} ({differ} rays "
+              f"differ); emitted {ms_e:.3f} ms (share "
+              f"{r_e['share_of_bound']:.4f}), hand {ms_h:.3f} ms (share "
+              f"{r_h['share_of_bound']:.4f})"
+              f", ratio {ms_e / ms_h:.4f}; registers / spill bytes emitted "
+              f"{p_e['default']['registers']}/"
+              f"{p_e['default']['spill_store_bytes']} (planar "
+              f"{p_e['planar']['registers']}), hand "
+              f"{p_h['default']['registers']}/"
+              f"{p_h['default']['spill_store_bytes']} (planar "
+              f"{p_h['planar']['registers']})")
+        out["rows"].append(row(base, f"{base} [emitted]", counts[twin.name],
+                               r_e, plain_ms, err, same_bits_as_hand=same,
+                               rays_differing_from_hand=differ,
+                               hand_ms=ms_h, hand=r_h, ptxas=p_e,
+                               hand_ptxas=p_h, struct=inst.struct,
+                               planar=bool(opts.planar)))
+        hand_inputs[base] = (s_in, s_out, width, opts)
+        del img, k_hand
+    out["emitted_s"] = time.perf_counter() - t_a
+
+    # -- (b) the pack path -----------------------------------------------
+    t_b = time.perf_counter()
+    rn = metrics.get_metric("reissner_nordstrom")
+    rn_inst = raymarch.instance_of(rn)
+    img_d, s_in, s_out, width, opts, counts = dense(rn)
+    assert counts == {rn.name: 1}, counts
+    params, feats = rn.params(), integrate.Features.for_metric(rn)
+    tparams = emit.tensor_params(params, dev)
+    err_d, plain_d = held("pack dense reissner_nordstrom", rn, s_in, params,
+                          tparams, feats, opts, width)
+    ms_d = median_launch_ms(rn, s_in, params, feats, opts, width)
+    r_d = work_row("1080p dense reissner_nordstrom (pack)", rn, s_in, s_out,
+                   params, feats, opts, width, ms_d,
+                   ops=OPS_EMITTED[rn.name, bool(opts.planar)])
+    rn_dense = (s_in, s_out, width, opts)
+    _, _, camera, asettings, _ = flagship_config(device=dev,
+                                                 metric=rn.name)
+    controller = pl.RefineBudgetController()
+    alaunches, err_a = [], 0.0
+    for i in range(3):
+        with recorded_launches(integrate, with_opts=True) as launch:
+            raymarch.reset_launch_counts()
+            aimg = pl.render_frame(rn, camera, params, sky, asettings, feats,
+                                   controller=controller, device=dev)
+            torch.cuda.synchronize()
+            alaunches.append(dict(raymarch.LAUNCHES_BY_METRIC))
+        assert bool(torch.isfinite(aimg).all())
+        if i == 0:
+            for j, (a_in, _, a_w, a_opts) in enumerate(launch):
+                e, _ = held(f"pack adaptive reissner_nordstrom launch {j}",
+                            rn, a_in, params, tparams, feats, a_opts, a_w)
+                err_a = max(err_a, e)
+            first_launches = len(launch)
+        del launch
+    assert all(set(c) == {rn.name} and c[rn.name] >= 2 for c in alaunches)
+    a_rmse, a_bad = golden_gate(to_srgb8(aimg), to_srgb8(img_d))
+    print(f"[28 pack] reissner_nordstrom: dense 1080p frame launches "
+          f"{counts}; adaptive 1080p frames' launches {alaunches} (the first "
+          f"frame's {first_launches} held to the plain march above); "
+          f"adaptive against dense: RMSE {a_rmse:.4f}, pixels off by >32 "
+          f"{a_bad:.5f}")
+    assert a_rmse < GATE_RMSE and a_bad < GATE_BAD_FRAC, (a_rmse, a_bad)
+    small = dataclasses.replace(asettings, adaptive_sampling=False,
+                                width=480, height=270)
+    card = pl.render_frame(rn, camera, params, sky, small, feats, device=dev)
+    _, _, cam_c, _, _ = flagship_config(device="cpu", metric=rn.name)
+    t_cpu = time.perf_counter()
+    cpu = pl.render_frame(rn, cam_c, params,
+                          bg.checker_background(device="cpu"), small, feats,
+                          device="cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    g_rmse, g_bad = golden_gate(to_srgb8(card), to_srgb8(cpu))
+    print(f"[28 pack] reissner_nordstrom 480x270: card frame against the "
+          f"port's CPU frame ({cpu_s:.1f} s): RMSE {g_rmse:.4f}, pixels off "
+          f"by >32 {g_bad:.5f}")
+    assert g_rmse < GATE_RMSE and g_bad < GATE_BAD_FRAC, (g_rmse, g_bad)
+    png = ROOT / "build" / "chip_smoke" / "rn_cli.png"
+    png.parent.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    raymarch.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--content", str(PACK_TORCH), "--metric",
+                       "reissner_nordstrom", "--width", "1920", "--height",
+                       "1080", "--pitch", "-90", "--device", "cuda", "--out",
+                       str(png)])
+    cli_counts = dict(raymarch.LAUNCHES_BY_METRIC)
+    cli_img = cli.read_png(png)
+    black = float((cli_img == 0).all(axis=-1).mean())
+    print(f"[28 pack] CLI --content examples/pack_torch --metric "
+          f"reissner_nordstrom 1920x1080 on cuda: "
+          f"{buf.getvalue().splitlines()[0]!r}; launches {cli_counts}; PNG "
+          f"{cli_img.shape}, shadow fraction {black:.4f}")
+    assert rc == 0 and cli_img.shape == (1080, 1920, 3)
+    assert cli_counts == {rn.name: 1} and 0.0 < black < 0.5, black
+    out["rows"].append(row(
+        "reissner_nordstrom", "reissner_nordstrom", counts[rn.name], r_d,
+        plain_d, max(err_d, err_a), ptxas=ptxas_of(rn_inst),
+        struct=rn_inst.struct, planar=bool(opts.planar),
+        paths={"adaptive_launches": alaunches, "cli_launches": cli_counts,
+               "gate_480x270_cpu": [g_rmse, g_bad],
+               "adaptive_vs_dense": [a_rmse, a_bad]}))
+    out["pack_s"] = time.perf_counter() - t_b
+
+    # -- (c) hot-swap ----------------------------------------------------
+    def stream(metric, s_in, s_out, width, opts):
+        t0 = time.perf_counter()
+        _, params, camera, asettings, feats = flagship_config(
+            device=dev, metric=metric.name)
+        controller = pl.RefineBudgetController()
+
+        def run(mm, p, ctrl):
+            return pl.render_frame(mm, camera, p, sky, asettings, feats,
+                                   controller=ctrl, device=dev)
+
+        prog = kernel_program(metric, run)
+        raymarch.reset_launch_counts()
+        t_req = time.perf_counter()
+        prog.request_static(params)
+        req_ms = (time.perf_counter() - t_req) * 1e3
+        frames, start = [], time.perf_counter()
+        while True:
+            n_static = prog.served["static"]
+            t = time.perf_counter()
+            img = prog(params, controller)
+            torch.cuda.synchronize()
+            kind = "static" if prog.served["static"] > n_static else "dynamic"
+            frames.append((kind, (time.perf_counter() - t) * 1e3))
+            assert bool(torch.isfinite(img).all())
+            if sum(k == "static" for k, _ in frames) >= HOTSWAP_STATIC_FRAMES:
+                break
+            assert prog.static_error is None, prog.static_error
+            assert time.perf_counter() - start < HOTSWAP_LIMIT_S, frames
+        counts = dict(raymarch.LAUNCHES_BY_METRIC)
+        binst = raymarch.baked_instance(metric, params)
+        n_dyn = sum(k == "dynamic" for k, _ in frames)
+        dyn_ms = [ms for k, ms in frames[1:] if k == "dynamic"]
+        sta_ms = [ms for k, ms in frames if k == "static"]
+        worst = max(ms for _, ms in frames[1:])
+        print(f"[28 hotswap] {metric.name}: static build requested at frame "
+              f"0 (the request {req_ms:.1f} ms); {n_dyn} frames served by the "
+              f"dynamic program while nvcc ran ({prog.build_seconds:.2f} s), "
+              f"then {len(sta_ms)} by the static one; frame ms: first "
+              f"{frames[0][1]:.1f}, dynamic median "
+              f"{statistics.median(dyn_ms) if dyn_ms else float('nan'):.1f}, "
+              f"static median {statistics.median(sta_ms):.1f} (first static "
+              f"{sta_ms[0]:.1f}), the largest after the first {worst:.1f}; "
+              f"launches {counts}")
+        assert n_dyn >= 1 and counts.get(binst.label, 0) >= 2
+        assert set(counts) == {metric.name, binst.label}, counts
+        # No frame waited for the build: each took far less than it (where
+        # nvcc ran: a library left by an earlier run loads at once).
+        if raymarch.BUILD_INFO[binst.label, raymarch.NVCC_FLAGS]["seconds"]:
+            assert worst < 0.5 * prog.build_seconds * 1e3, (worst, frames)
+        # The baked launch against the dynamic one and the plain march.
+        params, feats = metric.params(), integrate.Features.for_metric(metric)
+        k_b = raymarch.trace_rays_cuda(metric, s_in, params, feats, opts,
+                                       image_width=width, instance=binst)
+        torch.cuda.synchronize()
+        same = same_bits(k_b, s_out)
+        err, plain_ms = held(f"baked {metric.name}", metric, s_in, params,
+                             params, feats, opts, width, instance=binst)
+        ms_b = median_launch_ms(metric, s_in, params, feats, opts, width,
+                                instance=binst)
+        ms_d = median_launch_ms(metric, s_in, params, feats, opts, width)
+        ops = OPS_EMITTED.get((binst.label, bool(opts.planar)))
+        if ops is None:
+            ops = OPS_EMITTED[("kerr_boyer [baked]", False)]
+        r_b = work_row(f"1080p dense {binst.label}", metric, s_in, k_b,
+                       params, feats, opts, width, ms_b, instance=binst,
+                       ops=ops)
+        print(f"[28 hotswap] {binst.label}: baked launch against the dynamic "
+              f"one on the same {s_in.status.numel()} rays: same bits {same}; "
+              f"baked {ms_b:.3f} ms, dynamic {ms_d:.3f} ms (ratio "
+              f"{ms_b / ms_d:.4f}), bound {r_b['bound_ms']:.3f} ms; "
+              f"registers {ptxas_of(binst)['default']['registers']}")
+        return row(metric.name, binst.label, counts[binst.label], r_b,
+                   plain_ms, err, same_bits_as_dynamic=same, dynamic_ms=ms_d,
+                   ptxas=ptxas_of(binst), planar=bool(opts.planar),
+                   hotswap={"frames": frames, "request_ms": req_ms,
+                            "build_s": prog.build_seconds,
+                            "served": dict(prog.served), "launches": counts,
+                            "stream_s": time.perf_counter() - t0})
+
+    t_c = time.perf_counter()
+    out["rows"].append(stream(metrics.get_metric("kerr_boyer"),
+                              *hand_inputs["kerr_boyer"]))
+    # The CLI loaded the pack again: its metric is the registered one now.
+    out["rows"].append(stream(metrics.get_metric(rn.name), *rn_dense))
+    out["hotswap_s"] = time.perf_counter() - t_c
+    del hand_inputs, rn_dense
+
+    # -- (d) an image sky ------------------------------------------------
+    t_d = time.perf_counter()
+    png = ROOT / "build" / "chip_smoke" / "sky.png"
+    sky_png(png)
+    metric, params, camera, asettings, feats = flagship_config(device=dev)
+    settings = dataclasses.replace(asettings, adaptive_sampling=False)
+    card_sky = bg.load_background(str(png), device=dev)
+    raymarch.reset_launch_counts()
+    state, ku, _ = pl.init_camera_rays(metric, camera, params, settings,
+                                       feats, device=dev)
+    fin = integrate.trace_rays(metric, state, params, feats, settings.trace,
+                               image_width=settings.width)
+    rd = pl.compute_render_data(metric, fin, ku, params, feats)
+    img = pl.shade(rd, card_sky, settings)
+    torch.cuda.synchronize()
+    sky_counts = dict(raymarch.LAUNCHES_BY_METRIC)
+    t_cpu = time.perf_counter()
+    img_cpu = pl.shade(pl.RenderData(*(t.cpu() for t in rd)),
+                       bg.load_background(str(png), device="cpu"), settings)
+    cpu_s = time.perf_counter() - t_cpu
+    d = (img.cpu() - img_cpu).abs()
+    s_rmse, s_bad = golden_gate(to_srgb8(img), to_srgb8(img_cpu))
+    print(f"[28 sky] a seeded 2048x1024 PNG sky, the dense 1080p kerr_boyer "
+          f"frame on the card (launches {sky_counts}, shadow fraction "
+          f"{float((img == 0).all(dim=-1).float().mean()):.4f}, std "
+          f"{float(img.std()):.4f}): its EWA shading against the CPU's of "
+          f"the same rays ({cpu_s:.1f} s): max |d| {float(d.max()):.3g}, "
+          f"pixels with a channel off by >1e-3 "
+          f"{float((d.max(-1).values > 1e-3).float().mean()):.6f}; sRGB RMSE "
+          f"{s_rmse:.4f}, pixels off by >32 {s_bad:.6f}")
+    assert sky_counts == {"kerr_boyer": 1} and float(img.std()) > 0.02
+    assert s_rmse < GATE_RMSE and s_bad < GATE_BAD_FRAC, (s_rmse, s_bad)
+    out["sky"] = {"max_abs": float(d.max()), "rmse": s_rmse, "bad": s_bad,
+                  "cpu_s": cpu_s}
+    del d, img, img_cpu, rd, fin, state
+    out["sky_s"] = time.perf_counter() - t_d
+
+    # -- (e) the CLI's extras on the card ---------------------------------
+    t_e = time.perf_counter()
+    small = ["--width", "480", "--height", "270", "--pitch", "-90",
+             "--device", "cuda"]
+    d = ROOT / "build" / "chip_smoke"
+
+    def run_cli(*args):
+        buf = io.StringIO()
+        raymarch.reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(args))
+        assert rc == 0, buf.getvalue()
+        return buf.getvalue(), dict(raymarch.LAUNCHES_BY_METRIC)
+
+    # One run with --trace-stats, --supersample 2 and --profile: a 960x540
+    # frame box-filtered to 480x270, a dedicated trace of its 518,400 rays,
+    # and a torch.profiler trace of the frame.
+    with tempfile.TemporaryDirectory() as tmp:
+        text, n = run_cli("--metric", "kerr_boyer", *small, "--trace-stats",
+                          "--supersample", "2", "--profile", tmp, "--out",
+                          str(d / "extras.png"))
+        summary = (Path(tmp) / "summary.txt").read_text()
+        has_trace = (Path(tmp) / "trace.json").stat().st_size > 0
+    stats = [ln for ln in text.splitlines() if ln.startswith("rays=")]
+    assert stats and stats[0].startswith("rays=518400 "), text
+    ss = cli.read_png(d / "extras.png")
+    ss_black = float((ss == 0).all(axis=-1).mean())
+    # The profiler's device rows, where it traced the card (untried there
+    # before this phase; printed, not required).
+    kern = [ln for ln in summary.splitlines() if "raymarch_kernel" in ln]
+    _, n_cuda = run_cli("--metric", "schwarzschild", *small,
+                        "--trace-method", "cuda", "--out",
+                        str(d / "tm_cuda.png"))
+    _, n_while = run_cli("--metric", "schwarzschild", *small,
+                         "--trace-method", "while", "--out",
+                         str(d / "tm_while.png"))
+    tm_rmse, tm_bad = golden_gate(cli.read_png(d / "tm_cuda.png"),
+                                  cli.read_png(d / "tm_while.png"))
+    print(f"[28 cli] --trace-stats --supersample 2 --profile at 480x270 "
+          f"(launches {n}): {stats[0]}; PNG {ss.shape} from a 960x540 frame, "
+          f"shadow fraction {ss_black:.4f}; trace.json written {has_trace}, "
+          f"the kernel's row in summary.txt: "
+          f"{' '.join(kern[0].split()) if kern else None}; --trace-method "
+          f"cuda (launches {n_cuda}) against while (the plain march on the "
+          f"card, launches {n_while}): RMSE {tm_rmse:.4f}, off by >32 "
+          f"{tm_bad:.5f}")
+    assert ss.shape == (270, 480, 3) and has_trace
+    assert SHADOW_RANGE[0] <= ss_black <= SHADOW_RANGE[1], ss_black
+    assert n == {"kerr_boyer": 2}, n
+    assert n_cuda == {"schwarzschild": 1} and n_while == {}, (n_cuda, n_while)
+    assert tm_rmse < GATE_RMSE and tm_bad < GATE_BAD_FRAC
+    from geodesic_raytracing_tpu_torch import viewer
+
+    buf = io.StringIO()
+    raymarch.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = viewer.main(["--metric", "schwarzschild", "--device", "cuda",
+                          "--script", "wjpd", "--frames", "4"])
+    n_view = dict(raymarch.LAUNCHES_BY_METRIC)
+    shot = Path("screenshot_001.png")
+    shot_shape = cli.read_png(shot).shape if shot.exists() else None
+    if shot.exists():
+        shot.unlink()
+    print(f"[28 viewer] scripted mode, 4 frames of 160x90 on cuda: "
+          f"{buf.getvalue().strip().splitlines()[-1]!r}, launches {n_view}, "
+          f"ANSI half-blocks {buf.getvalue().count(chr(0x2580))}, the 'p' "
+          f"key's screenshot {shot_shape}")
+    assert rc == 0 and n_view == {"schwarzschild": 4}, n_view
+    assert shot_shape == (90, 160, 3)
+    out["cli"] = {"trace_stats": stats[0], "supersample_black": ss_black,
+                  "trace_method_gate": [tm_rmse, tm_bad],
+                  "viewer_launches": n_view}
+    out["cli_s"] = time.perf_counter() - t_e
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
                                  "one GPU.")
@@ -2521,6 +3071,10 @@ def main(argv=None) -> int:
     ap.add_argument("--triangles", action="store_true",
                     help="run the seventh path (phase 27, GR triangles) "
                     "alone, print its JSON and stop")
+    ap.add_argument("--content", action="store_true",
+                    help="build the libraries (phase 1), run the eighth path "
+                    "(phase 28, content packs and hot-swap) alone, print its "
+                    "JSON and stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -2570,9 +3124,15 @@ def main(argv=None) -> int:
         return 0
 
     # -- 1. device and build ------------------------------------------------
-    # Every metric's library at once, one nvcc each.
+    # Every metric's library at once, one nvcc each, and phase 28's emitted
+    # instances with them.
     raymarch.NVCC_FLAGS = raymarch.with_flags(*shlex.split(args.kernel_flags))
-    build_all_s = raymarch.build_all()
+    # The emission (make_fx of three metrics) runs beside the 31 builds.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        hand_builds = pool.submit(raymarch.build_all)
+        emitted = content_instances()
+        emitted_s = raymarch.build_all(emitted)
+        build_all_s = hand_builds.result()
     t0 = time.perf_counter()
     raymarch.get_lib("kerr_boyer")
     build_s = time.perf_counter() - t0
@@ -2581,7 +3141,9 @@ def main(argv=None) -> int:
     config = raymarch.kernel_config("kerr_boyer")
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {name} | nvcc build of "
-          f"{len(raymarch.INSTANCES)} libraries at once {build_all_s:.2f} s, "
+          f"{len(raymarch.INSTANCES)} libraries at once {build_all_s:.2f} s "
+          f"(and of {len(emitted)} emitted ones beside them, "
+          f"{emitted_s:.2f} s), "
           f"kerr_boyer's {built['seconds']} s (load {build_s:.2f} s)")
     print(f"[1 device] nvcc {' '.join(raymarch.NVCC_FLAGS)} | ptxas {ptxas} "
           f"| {config}")
@@ -2604,7 +3166,31 @@ def main(argv=None) -> int:
                 for k, v in d["instances"].items()
                 if v["spill_store_bytes"] or v["spill_load_bytes"]]
     print(f"[1 build] instances that spill: {spilling or 'none'}")
+    changed = {m: (d["instances"]["default"]["registers"],
+                   d["instances"]["P"]["registers"], REGISTERS[m])
+               for m, d in ptxas_by_metric.items()
+               if (d["instances"]["default"]["registers"],
+                   d["instances"]["P"]["registers"]) != REGISTERS[m]}
+    print(f"[1 build] hand instances whose registers (default, planar) "
+          f"differ from REGISTERS: {changed or 'none'}")
+    for inst in emitted:
+        pe = ptxas_of(inst)
+        print(f"[1 build] emitted {inst.label} ({inst.struct}): nvcc "
+              f"{pe['build_s']} s; registers / spill bytes default "
+              f"{pe['default']['registers']}/"
+              f"{pe['default']['spill_store_bytes']}, planar "
+              f"{pe['planar']['registers']}/"
+              f"{pe['planar']['spill_store_bytes']}")
+    assert not changed, changed
     took("1")
+    if args.content:
+        print(f"[28 device] {smi} | torch {torch.__version__} cuda "
+              f"{torch.version.cuda} | {name}")
+        res = content_path(dev)
+        took("28")
+        print(json.dumps(res))
+        print(smi)
+        return 0
 
     sky = bg.checker_background(device=dev)
 
@@ -3095,6 +3681,10 @@ def main(argv=None) -> int:
     tri_path = triangle_path(dev)
     took("27")
 
+    # -- 28. the eighth path: content packs and hot-swap --------------------
+    content = content_path(dev)
+    took("28")
+
     def instance_row(mname):
         """The row of an instance other than ``kerr_boyer``: ms, plain_ms and
         bound_ms of its dense 1080p launch through ``render_frame`` (the
@@ -3198,7 +3788,7 @@ def main(argv=None) -> int:
             # A first adaptive frame from the camera on its geodesic.
             "geodesic_camera": geo_row,
         },
-    }, *(instance_row(m) for m in sorted(per_metric))]}
+    }, *(instance_row(m) for m in sorted(per_metric)), *content["rows"]]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -198,6 +198,21 @@ class Camera(NamedTuple):
         Geodesic" flow, main.cpp:2675-2759)."""
         return self._replace(frame_override=(position, tetrad))
 
+    def translate(self, local_dir3: Tensor, amount) -> "Camera":
+        """Move along a camera-local direction in flat cartesian terms
+        (main.cpp:701-711); the sign of r (the side of a wormhole) is
+        kept."""
+        from .coordinates import transforms as tr
+
+        d = rot_quat(local_dir3, self.quat)
+        apolar = self.polar_position[1:4]
+        cart = tr.polar_to_cartesian3(
+            torch.cat([torch.abs(apolar[:1]), apolar[1:]]))
+        new_polar = tr.cartesian_to_polar3(cart + d * amount)
+        sign = torch.where(self.polar_position[1] < 0, -1.0, 1.0)
+        return self._replace(polar_position=torch.cat(
+            [self.polar_position[:1], new_polar[:1] * sign, new_polar[1:]]))
+
     def rotate(self, yaw=0.0, pitch=0.0, roll=0.0) -> "Camera":
         """Local-axis rotation, matching camera::rotate (main.cpp:686-699)."""
         q = self.quat

@@ -13,6 +13,10 @@ Usage:
         --cube -6 0 3 0 --tri-intersector compact --device cuda --out tri.png
     python -m geodesic_raytracing_tpu_torch.cli --bench kerr_boyer --frames 5
     python -m geodesic_raytracing_tpu_torch.cli --list
+    python -m geodesic_raytracing_tpu_torch.cli --content examples/pack_torch \
+        --metric reissner_nordstrom --pitch -90 --device cuda --out rn.png
+    python -m geodesic_raytracing_tpu_torch.cli --background sky.png \
+        --trace-stats --supersample 2 --profile prof/ --device cuda
 
     python -m geodesic_raytracing_tpu_torch.cli --adaptive --device cpu \
         --width 64 --height 64 --pitch -90 --max-steps 2048 --out small.png
@@ -32,6 +36,17 @@ iterations: on the card 64 launches of the ray-march kernel, 4-D), the
 colour is composited over the frame.  The split (worldlines, ray init,
 recorded march + intersect, composite) and the hit and dropped counts are
 printed.
+
+``--content DIR`` loads a content pack of torch metrics (``content.py``);
+on the card each pack metric's kernel struct is emitted from its function
+and built at first use.  ``--background`` / ``--background2`` take PNG skies
+(``render.background.load_background``).  ``--trace-method``: ``auto`` is
+the kernel on ``--device cuda`` and the plain march on ``--device cpu``,
+``cuda`` the kernel (on the CPU it raises), ``while`` the plain march on
+either device, ``scan`` the differentiable march.  ``--trace-stats`` prints
+the ray statistics of a dedicated trace, ``--profile DIR`` writes a
+``torch.profiler`` trace of the frame, ``--supersample K`` renders K times
+the resolution and box-filters it down.
 """
 
 from __future__ import annotations
@@ -70,32 +85,42 @@ def write_png(path: str, arr: np.ndarray) -> None:
 
 
 def _unfilter(filt: int, row: np.ndarray, prev: np.ndarray, bpp: int):
-    """One PNG scanline with its filter undone (``prev``: the row above)."""
+    """One PNG scanline with its filter undone (``prev``: the row above).
+    None and Up are vectorised, Sub a running sum per channel; Average and
+    Paeth take one pixel (``bpp`` bytes) at a time."""
     row = row.astype(np.int32)
     if filt == 0:
         return row
     if filt == 2:
         return (row + prev) & 0xFF
+    if filt == 1:
+        return np.cumsum(row.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+    if filt not in (3, 4):
+        raise ValueError(f"unknown PNG filter {filt}")
     out = np.zeros_like(row)
-    for i in range(len(row)):
-        a = out[i - bpp] if i >= bpp else 0
-        b, c = prev[i], (prev[i - bpp] if i >= bpp else 0)
-        if filt == 1:
-            pred = a
-        elif filt == 3:
+    zero = np.zeros(bpp, np.int32)
+    for i in range(0, len(row), bpp):
+        a = out[i - bpp:i] if i else zero
+        b = prev[i:i + bpp]
+        if filt == 3:
             pred = (a + b) // 2
-        elif filt == 4:
-            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-            pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
         else:
-            raise ValueError(f"unknown PNG filter {filt}")
-        out[i] = (row[i] + pred) & 0xFF
+            c = prev[i - bpp:i] if i else zero
+            pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+        out[i:i + bpp] = (row[i:i + bpp] + pred) & 0xFF
     return out
 
 
+# PNG colour types read: grey, RGB, grey + alpha, RGBA (bytes per pixel).
+_PNG_BPP = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
 def read_png(path) -> np.ndarray:
-    """(H, W, 3) uint8 of an 8-bit, non-interlaced RGB or RGBA PNG (standard
-    library only; the alpha channel is dropped)."""
+    """(H, W, 3) uint8 of an 8-bit, non-interlaced grey, grey + alpha, RGB
+    or RGBA PNG with any of the five filter types (standard library only;
+    alpha is dropped and grey widened to RGB)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -110,16 +135,20 @@ def read_png(path) -> np.ndarray:
             idat += body
         at += 12 + n
     w, h, depth, ctype, _, _, interlace = head
-    if depth != 8 or ctype not in (2, 6) or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced RGB(A) PNGs")
-    bpp = 3 if ctype == 2 else 4
+    if depth != 8 or ctype not in _PNG_BPP or interlace:
+        raise ValueError(f"{path}: only 8-bit non-interlaced grey, grey + "
+                         "alpha, RGB or RGBA PNGs are read")
+    bpp = _PNG_BPP[ctype]
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
         h, 1 + bpp * w)
     out = np.zeros((h, bpp * w), np.int32)
     prev = np.zeros(bpp * w, np.int32)
     for y in range(h):
         prev = out[y] = _unfilter(int(raw[y, 0]), raw[y, 1:], prev, bpp)
-    return out.astype(np.uint8).reshape(h, w, bpp)[..., :3]
+    px = out.astype(np.uint8).reshape(h, w, bpp)
+    if ctype in (0, 4):
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return px[..., :3]
 
 
 def geodesic_camera(metric, cam, params, tau: float, n_steps: int = 4096):
@@ -285,6 +314,38 @@ def main(argv=None) -> int:
                          "scenes), binned (reference-style chunk bins), "
                          "grouped (two-level object/patch), compact "
                          "(worklist-compacted: dense orbital scenes)")
+    ap.add_argument("--content", action="append", default=[],
+                    metavar="DIR",
+                    help="load a content pack of torch metrics (e.g. "
+                         "examples/pack_torch); on --device cuda each "
+                         "pack metric's kernel struct is emitted and "
+                         "built at first use")
+    ap.add_argument("--background", default=None,
+                    help="equirect sky image (PNG)")
+    ap.add_argument("--background2", default=None,
+                    help="far-side sky image (PNG)")
+    ap.add_argument("--supersample", type=int, default=1, metavar="K",
+                    help="render at K x resolution and box-downsample "
+                         "(graphics_settings supersampling, "
+                         "main.cpp:1760-1792)")
+    ap.add_argument("--trace-method", default="auto",
+                    choices=("auto", "while", "cuda", "scan"),
+                    help="ray march driver: auto = the CUDA kernel on "
+                         "--device cuda and the plain march on --device "
+                         "cpu; cuda = the kernel (raises on the CPU); while "
+                         "= the plain march on either device; scan = the "
+                         "differentiable fixed-length march")
+    ap.add_argument("--trace-stats", action="store_true",
+                    help="print ray statistics (status counts, step "
+                         "percentiles) of a dedicated full-resolution trace")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="write a torch.profiler trace of the frame "
+                         "(DIR/trace.json, Chrome format, and "
+                         "DIR/summary.txt)")
+    ap.add_argument("--dump-hlo", metavar="FILE", default=None,
+                    help="JAX package only: the port lowers no HLO program "
+                         "(its kernel is CUDA C++ built by nvcc), so this "
+                         "flag has no meaning here and raises")
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the ray march as the CUDA kernel; cpu "
@@ -299,12 +360,28 @@ def main(argv=None) -> int:
     from .render import background as bg
     from .render import colour
     from .render.pipeline import (RefineBudgetController, RenderSettings,
-                                  check_device, render_frame)
+                                  check_device, render_frame, trace_frame)
 
+    if args.dump_hlo:
+        ap.error("--dump-hlo has no meaning in the PyTorch port (no HLO is "
+                 "lowered); it belongs to the JAX package's CLI")
+    for pack_dir in args.content:
+        from .content import load_pack
+
+        pack = load_pack(pack_dir)
+        print(f"loaded pack {pack_dir}: "
+              f"{', '.join(sorted(pack.metrics)) or 'none'}")
+        for stem, err in pack.broken.items():
+            print(f"  (broken) {stem}: {err}")
     if args.list:
         print("\n".join(metrics.list_metrics()))
         return 0
     device = check_device(args.device)
+    method = {"auto": "while", "cuda": "while", "while": "plain",
+              "scan": "scan"}[args.trace_method]
+    if args.trace_method == "cuda" and device.type != "cuda":
+        raise SystemExit("--trace-method cuda runs the CUDA kernel: it needs "
+                         "--device cuda")
     name = args.bench or args.metric
     metric = metrics.get_metric(name)
     params = metric.params(**{k: float(v) for k, v in
@@ -323,15 +400,20 @@ def main(argv=None) -> int:
         cam = geodesic_camera(metric, cam, params, args.geodesic_camera)
         print(f"geodesic camera: tau={args.geodesic_camera:g} pos="
               f"{np.round(cam.frame_override[0].cpu().numpy(), 3).tolist()}")
-    backgrounds = bg.checker_background(device=device)
+    if args.background:
+        backgrounds = bg.load_background(args.background, args.background2,
+                                         device=device)
+    else:
+        backgrounds = bg.checker_background(device=device)
+    ss = max(1, args.supersample)
     settings = RenderSettings(
-        width=args.width, height=args.height, fov_degrees=args.fov,
+        width=args.width * ss, height=args.height * ss, fov_degrees=args.fov,
         anisotropy=args.anisotropy, adaptive_sampling=args.adaptive,
         redshift=args.redshift, old_redshift=args.old_redshift,
         dominant_colour=args.dominant_colour,
         spectral_redshift=args.spectral_redshift,
         planar=not args.no_planar,
-        trace=TraceOptions(max_steps=args.max_steps),
+        trace=TraceOptions(max_steps=args.max_steps, method=method),
     )
     features = Features.for_metric(metric)
 
@@ -358,7 +440,20 @@ def main(argv=None) -> int:
         return 0
 
     t0 = time.perf_counter()
-    img = frame()
+    if args.profile:
+        from .utils.profiling import torch_profile
+
+        with torch_profile(args.profile, device):
+            img = frame()
+        print(f"wrote a torch.profiler trace to {args.profile}")
+    else:
+        img = frame()
+    if args.trace_stats:
+        from .utils.profiling import trace_stats
+
+        fin, _ = trace_frame(metric, cam, params, settings, features,
+                             device=device)
+        print(trace_stats(fin))
     if args.cube or args.obj:
         objects = triangle_objects(args.cube, args.obj)
         layer = triangle_layer(metric, cam, params, settings, features,
@@ -375,6 +470,8 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
               + f"; intersector {args.tri_intersector}, hits "
               f"{int(hit.sum())}, dropped {drops:g}")
+    if ss > 1:  # box-downsample the supersampled frame
+        img = img.reshape(args.height, ss, args.width, ss, 3).mean((1, 3))
     dt = time.perf_counter() - t0
     srgb = colour.lin_to_srgb(img).cpu().numpy()
     write_png(args.out, (np.clip(srgb, 0, 1) * 255).astype(np.uint8))

@@ -24,6 +24,7 @@
 //   clamp(x, lo)' = where(x >= lo, x', 0)
 //   arctan(x)' = x' / (1 + x*x)
 //   arctan2(y, x)' = (x*y' - y*x') / max(x*x + y*y, 1e-37)
+//   (x/y)' = (x' - y' * q) / y,  q = x/y   clamp(x, hi=h)' = where(x <= h, x', 0)
 // so that a build without FMA contraction (nvcc -fmad=false) reproduces the
 // reference op for op up to the last ulp of the transcendentals.
 //
@@ -281,6 +282,19 @@ GRT_HD GRT_INLINE Dual<A> grt_sin(const Dual<A>& x) {
   }
 }
 
+// cos alone (the emitted metrics of ops/emit.py): sincos where a tangent
+// needs the sine, cosf where none is live.
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_cos(const Dual<A>& x) {
+  if constexpr (A == 0u) {
+    return dual_constant(cosf(x.v));
+  } else {
+    Dual<A> s, c;
+    grt_sincos(x, s, c);
+    return c;
+  }
+}
+
 // 1/x with the division-free tangent -y*y*dx (the reference's recip).
 template <unsigned A>
 GRT_HD GRT_INLINE Dual<A> grt_recip(const Dual<A>& x) {
@@ -438,6 +452,49 @@ GRT_HD GRT_INLINE Dual<A> grt_pow(const Dual<A>& x, const PowRule& p) {
   });
 }
 
+// torch.clamp(x, max=hi): the value min(x, hi) (NaN stays NaN), the tangent
+// where(x <= hi, x', 0).
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_clamp_max(const Dual<A>& x, float hi) {
+  const bool keep = x.v <= hi;
+  return make_dual<A>(x.v > hi ? hi : x.v, [&](auto k) {
+    return keep ? x.d[GRT_K(k)] : 0.0f;
+  });
+}
+
+// torch.clamp(x, lo, hi): the value min(max(x, lo), hi), the tangent
+// where(lo <= x <= hi, x', 0).
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_clamp(const Dual<A>& x, float lo, float hi) {
+  const bool keep = x.v >= lo && x.v <= hi;
+  const float lo_v = x.v < lo ? lo : x.v;
+  return make_dual<A>(lo_v > hi ? hi : lo_v, [&](auto k) {
+    return keep ? x.d[GRT_K(k)] : 0.0f;
+  });
+}
+
+// x / y of two tensors (torch's true division) with torch's forward rule
+// (x' - y' * q) / y, q = x / y; a side without a tangent drops its term,
+// as torch's zero tangent does: x' / y, or -(y' * q) / y.
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_div(const Dual<A>& x, const Dual<B>& y) {
+  const float q = x.v / y.v;
+  return make_dual<(A | B)>(q, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    if constexpr (live(A, K) && live(B, K)) return (x.d[K] - y.d[K] * q) / y.v;
+    else if constexpr (live(A, K)) return x.d[K] / y.v;
+    else return -(y.d[K] * q) / y.v;
+  });
+}
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_div(const Dual<A>& x, float y) {
+  return grt_div(x, dual_constant(y));
+}
+template <unsigned B>
+GRT_HD GRT_INLINE Dual<B> grt_div(float x, const Dual<B>& y) {
+  return grt_div(dual_constant(x), y);
+}
+
 // The reference's pow_pos (geometry.py): exp(log(max(b, 1e-37)) * e) where
 // b > 0, else exactly 0, as its torch form computes it and its tangent.
 template <unsigned A>
@@ -494,6 +551,22 @@ GRT_HD GRT_INLINE Dual<A> grt_arctan2(const Dual<A>& y, float x) {
   return make_dual<A>(grt_arctan2(y.v, x), [&](auto k) {
     constexpr int K = GRT_K(k);
     return (x * y.d[K] - y.v * 0.0f) / d;
+  });
+}
+
+// arctan2 of two duals (the custom rule of geometry.arctan2, whose zero
+// tangents torch materialises, so both products stay).
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_arctan2(const Dual<A>& y,
+                                            const Dual<B>& x) {
+  const float d0 = x.v * x.v + y.v * y.v;
+  const float d = d0 < 1e-37f ? 1e-37f : d0;
+  return make_dual<(A | B)>(grt_arctan2(y.v, x.v), [&](auto k) {
+    constexpr int K = GRT_K(k);
+    float ty = 0.0f, tx = 0.0f;
+    if constexpr (live(A, K)) ty = y.d[K];
+    if constexpr (live(B, K)) tx = x.d[K];
+    return (x.v * ty - y.v * tx) / d;
   });
 }
 

@@ -35,6 +35,14 @@
 // reparameterisation: six instances), and its entry point picks the instance
 // from its arguments.
 //
+// A baked build (GRT_BAKED_PARAMS defined as v0,v1,..., each value followed
+// by a comma, in a header given with -include: nvcc splits a -D value at its
+// commas) builds its metric inside the kernel from those compile-time values,
+// so that nvcc folds the parameters through the step; the launch's metric
+// argument is then not read, and grt_baked_params reports the values.  The
+// metric struct may also come from a header that ops/emit.py wrote
+// (-include <header> -DGRT_METRIC=<struct>).
+//
 // The kernel allocates nothing and does not synchronise; the wrapper
 // (ops/raymarch.py) launches it on the current stream and checks the launch.
 // The C entry points are plain C (loaded with ctypes, no PyTorch headers);
@@ -129,7 +137,13 @@ __global__ void __launch_bounds__(GRT_THREADS, GRT_MIN_BLOCKS)
   grt::Ray s;
   float f_in_x;
   if (i < 0 || !load_ray(r, i, s, f_in_x)) return;
-  const int trials = grt::march_ray<Opt>(m, f, f_in_x, max_steps, s);
+#ifdef GRT_BAKED_PARAMS
+  constexpr float kBaked[] = {GRT_BAKED_PARAMS 0.0f};
+  const M mk = M::from_params(kBaked);
+#else
+  const M& mk = m;
+#endif
+  const int trials = grt::march_ray<Opt>(mk, f, f_in_x, max_steps, s);
   store_ray(r, i, s, trials);
 }
 
@@ -203,6 +217,19 @@ extern "C" int grt_raymarch_config(int* threads, int* blocks_per_sm) {
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, raymarch_kernel<Metric, grt::DefaultOptions>,
       GRT_THREADS, 0));
+}
+
+// The parameter values a baked build has compiled in (n = their number),
+// or null with n = -1 for a build that takes them at launch.
+extern "C" const float* grt_baked_params(int* n) {
+#ifdef GRT_BAKED_PARAMS
+  static const float baked[] = {GRT_BAKED_PARAMS 0.0f};
+  *n = static_cast<int>(sizeof(baked) / sizeof(float)) - 1;
+  return baked;
+#else
+  *n = -1;
+  return nullptr;
+#endif
 }
 
 extern "C" const char* grt_error_string(int code) {

@@ -10,6 +10,7 @@ before the op, so they behave as float32 constants.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Mapping
 
 import numpy as np
@@ -238,6 +239,19 @@ class Metric:
         return (1.0, 1.0, 1.0, 1.0)
 
 
+@dataclasses.dataclass(frozen=True)
+class BakedFn:
+    """A metric function with its parameters fixed as Python floats: it
+    ignores the parameters it is called with (``runtime.hotswap.bake``; the
+    kernel launches the baked build of the metric's instance)."""
+
+    fn: Callable
+    params: tuple  # ((name, value), ...)
+
+    def __call__(self, x, _params=None):
+        return self.fn(x, dict(self.params))
+
+
 REGISTRY: dict[str, Metric] = {}
 
 
@@ -266,6 +280,11 @@ def diag_metric(d0, d1, d2, d3, *, device=None) -> Tensor:
                       device=device)
 
 
+# Set on a thread while ``ops.emit`` traces a metric function: sym_metric
+# hands it the entry dict, whose keys are the structure it emits.
+CAPTURE = threading.local()
+
+
 def sym_metric(entries: Mapping[tuple[int, int], Tensor], *,
                device=None) -> Tensor:
     """Assemble a symmetric 4x4 metric from an upper-triangle entry dict.
@@ -275,6 +294,9 @@ def sym_metric(entries: Mapping[tuple[int, int], Tensor], *,
     becomes a float32 constant on the device of the tensor components, or
     on ``device`` when there is none (a constant metric), made by a fill on
     that device and not by an upload."""
+    hook = getattr(CAPTURE, "hook", None)
+    if hook is not None:
+        return hook(dict(entries))
     ref = next((v for v in entries.values() if isinstance(v, torch.Tensor)),
                None)
     if ref is None:

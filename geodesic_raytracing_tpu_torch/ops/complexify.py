@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from . import geometry
 from .geometry import param32
 
 Tensor = torch.Tensor
@@ -227,6 +228,16 @@ def _operands(ar, ai):
     return ar, ai
 
 
+def _not_emitted(what: str) -> None:
+    """Complex pairs of coordinates have no emitted form yet (``ops.emit``
+    raises for them; the catalogue's complex metrics have structs of their
+    own in ``csrc/multibody.cuh``)."""
+    if geometry.emitting() is not None:
+        raise NotImplementedError(
+            f"ops.emit: complex pairs (ops/complexify.{what} of a coordinate "
+            "expression) are not emitted yet")
+
+
 def cabs(a):
     """|z|: |re| where z is real, else the custom-derivative modulus."""
     ar, ai = pair(a)
@@ -234,6 +245,7 @@ def cabs(a):
         return torch.abs(ar) if _is_tensor(ar) else abs(ar)
     ar, ai = _operands(ar, ai)
     if _is_tensor(ar):
+        _not_emitted("cabs")
         return _Cabs.apply(ar, ai)
     return math.sqrt(ar * ar + ai * ai)
 
@@ -244,6 +256,7 @@ def csqrt(a):
     zeros, as the reference materialises it."""
     ar, ai = _operands(*pair(a))
     if _is_tensor(ar):
+        _not_emitted("csqrt")
         return _Csqrt.apply(ar, ai)
     return _csqrt_float(ar, ai)
 

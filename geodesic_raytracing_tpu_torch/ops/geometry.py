@@ -9,6 +9,7 @@ kernel's dual numbers (``csrc/dual.cuh``), kept independent of them.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable
 
 import torch
@@ -109,9 +110,22 @@ class _Arctan(torch.autograd.Function):
         return g / (1.0 + x * x)
 
 
+# Set on a thread while ``ops.emit`` traces a metric: the functions with a
+# custom derivative then record one node each (an op of ``ops.emit``) in
+# place of their forward's ops, whose own tangent rules are not theirs.
+EMITTING = threading.local()
+
+
+def emitting():
+    """The ``ops.emit`` trace running on this thread, or None."""
+    return getattr(EMITTING, "trace", None)
+
+
 def arctan(x: Tensor) -> Tensor:
     """The reference's polynomial atan with the exact derivative
     ``dx / (1 + x^2)`` in forward and reverse mode."""
+    if emitting() is not None:
+        return emitting().arctan(x)
     return _Arctan.apply(x)
 
 
@@ -119,6 +133,8 @@ def arctan2(y: Tensor, x: Tensor) -> Tensor:
     """The reference's polynomial atan2 (numpy quadrant conventions) with
     the exact derivative ``(x dy - y dx) / (x^2 + y^2)`` in forward and
     reverse mode."""
+    if emitting() is not None:
+        return emitting().arctan2(y, x)
     return _Arctan2.apply(y, x)
 
 

@@ -64,9 +64,11 @@ class TraceOptions:
     "euler"), affine reparameterisation (K = 1/max|v'| after every Verlet
     step), constant-theta planar mode (set by the render pipeline for a
     spherically symmetric metric, whose rays it first rotates into the
-    equator), the driver (``method``: "while", the march to termination, or
-    "scan", the differentiable fixed-length march) and the scan's
-    recomputation window (``remat_every`` iterations)."""
+    equator), the driver (``method``: "while", the march to termination
+    (on the card the ray-march kernel), "plain", the same march as eager
+    torch on any device (``trace_rays_reference``), or "scan", the
+    differentiable fixed-length march) and the scan's recomputation window
+    (``remat_every`` iterations)."""
 
     max_steps: int = MAX_STEPS_DEFAULT
     reparameterisation: bool = False
@@ -78,7 +80,7 @@ class TraceOptions:
     def __post_init__(self):
         if self.integrator not in ("verlet", "euler"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
-        if self.method not in ("while", "scan"):
+        if self.method not in ("while", "plain", "scan"):
             raise ValueError(f"unknown trace method {self.method!r}")
 
 
@@ -525,6 +527,8 @@ def trace_rays(metric: Metric, state: RayState, params,
       CPU runs the eager reference.  Not differentiable: with grad enabled,
       a state or parameter tensor that requires grad raises (a kernel
       launch would silently cut the graph).
+    * ``"plain"``: the same march as eager torch on the state's device
+      (:func:`trace_rays_reference`), never the kernel.
     * ``"scan"``: :func:`trace_rays_scan`, reverse-differentiable with
       respect to ``params`` and the launch state, on the state's device.
 
@@ -538,7 +542,7 @@ def trace_rays(metric: Metric, state: RayState, params,
             for t in (*state, *params.values())):
         raise ValueError("trace_rays: the 'while' driver is not "
                          "differentiable; use TraceOptions(method='scan')")
-    if state.position.is_cuda:
+    if state.position.is_cuda and opts.method == "while":
         from .raymarch import trace_rays_cuda
 
         return trace_rays_cuda(metric, state, params, features, opts,

@@ -26,11 +26,22 @@ flags.  ``NVCC_FLAGS`` are the flags of the next build: no
 and ``-fmad=false``, with which the kernel follows the eager torch march op
 for op in float32.  ``with_flags`` derives a variant for measurement.
 
+Besides the hand-written structs of ``csrc/`` (``INSTANCES``), a library
+can hold a struct that ``ops/emit.py`` wrote from a torch metric function
+(an emitted instance: a registered metric without a hand struct, such as a
+content pack's, is emitted at its first use; ``emitted_instance`` emits
+any metric on request), and either kind can be baked
+(``baked_instance``): ``GRT_BAKED_PARAMS`` (a header line) makes the
+kernel build its metric from compile-time constants, so that ``nvcc`` folds
+the parameters through the step, and the library refuses a launch with
+other values.  A library is keyed on a hash of ``csrc/``, of the emitted
+header, of the baked values and of the flags.
+
 The wrapper launches on CUDA tensors or raises: there is no fallback, and a
 metric without a kernel instance, or one that differs from the registered
 metric its instance was written from (``check_compiled_metric``), raises
-``NotImplementedError``.  Its plain
-twin is ``integrate.trace_rays_reference``.
+``NotImplementedError``; so does a metric the emitter cannot emit, naming
+the op.  Its plain twin is ``integrate.trace_rays_reference``.
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..metrics.base import Metric
+from ..metrics.base import BakedFn, Metric
 from .integrate import Features, RayState, TraceOptions, schedule_constants
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -107,12 +118,36 @@ COMPILED_CONFIG = ("adaptive_precision", "detect_singularities", "singular",
                    "coordinate_system", "to_polar", "from_polar",
                    "origin_distance")
 
-# Kernel launches made by trace_rays_cuda (one per call), by metric.
+# Kernel launches made by trace_rays_cuda (one per call), by the label of
+# the instance launched (the metric's name for its default instance).
 LAUNCHES_BY_METRIC: dict = {}
 
+
+@dataclasses.dataclass(frozen=True)
+class Instance:
+    """The metric a kernel library is built for.  ``label``: its key in
+    ``LAUNCHES_BY_METRIC`` and ``BUILD_INFO`` (the metric's name for the
+    metric's default instance); ``metric``: the metric's name; ``struct``:
+    the metric struct (in namespace ``grt``); ``params``: the parameters in
+    the struct's order; ``header``: the emitted header's text, or None for a
+    struct of ``csrc/``; ``baked``: the float32 parameter values compiled
+    in, or None."""
+
+    label: str
+    metric: str
+    struct: str
+    params: tuple
+    header: str | None = None
+    baked: tuple | None = None
+
+
+# (metric name, id(fn), what else the struct compiles in, baked values) ->
+# (Instance, fn: kept so that its id is not reused)
+_emitted: dict = {}
+
 _lock = threading.Lock()
-_libs: dict = {}  # (metric name, flags) -> loaded library
-# (metric name, flags) -> {"seconds": nvcc wall time (None when the library
+_libs: dict = {}  # (instance label, flags) -> (Instance, loaded library)
+# (instance label, flags) -> {"seconds": nvcc wall time (None when the library
 #           was cached), "ptxas": nvcc's -Xptxas -v report (kept beside the
 #           library), "path": library path}
 BUILD_INFO: dict = {}
@@ -198,7 +233,72 @@ def _instance(name: str) -> tuple:
     except KeyError:
         raise NotImplementedError(
             f"no ray-march kernel instance for metric {name!r} (instances: "
-            f"{sorted(INSTANCES)})") from None
+            f"{sorted(INSTANCES)}; a registered metric without one, such as "
+            "a content pack's, is emitted)") from None
+
+
+def hand_instance(name: str) -> Instance:
+    """The instance of the hand-written struct of metric ``name``."""
+    struct, params = _instance(name)
+    return Instance(label=name, metric=name, struct=struct, params=params)
+
+
+def _unbaked(metric: Metric) -> Metric:
+    if isinstance(metric.fn, BakedFn):
+        return dataclasses.replace(metric, fn=metric.fn.fn)
+    return metric
+
+
+def emitted_instance(metric: Metric, params=None) -> Instance:
+    """The instance of ``metric``'s struct as ``ops/emit.py`` writes it from
+    the metric's function: dynamic, or baked with ``params`` (labelled
+    ``<name> [baked]``).  Raises NotImplementedError for what the emitter
+    cannot emit."""
+    from . import emit
+
+    metric = _unbaked(metric)
+    values = None if params is None else tuple(
+        float(np.float32(params[k])) for k in metric.defaults)
+    key = (metric.name, id(metric.fn), tuple(metric.defaults), metric.config,
+           metric.depends_on, metric.spherically_symmetric, metric.structure,
+           metric.diagonal, values)
+    with _lock:
+        hit = _emitted.get(key)
+    if hit is None:
+        h = emit.emit_metric(metric, params)
+        label = metric.name if values is None else f"{metric.name} [baked]"
+        inst = Instance(label=label, metric=metric.name, struct=h.struct,
+                        params=h.params, header=h.text, baked=h.baked)
+        with _lock:
+            hit = _emitted.setdefault(key, (inst, metric.fn))
+    return hit[0]
+
+
+def baked_instance(metric: Metric, params) -> Instance:
+    """``metric``'s instance with ``params`` compiled in: its hand struct
+    built with ``GRT_BAKED_PARAMS`` defined, or else its emitted struct
+    traced with the values as Python floats (``ops/emit.py``, baked
+    mode)."""
+    metric = _unbaked(metric)
+    if metric.name not in INSTANCES:
+        return emitted_instance(metric, params)
+    inst = hand_instance(metric.name)
+    return dataclasses.replace(
+        inst, label=f"{metric.name} [baked]",
+        baked=tuple(float(np.float32(params[k])) for k in inst.params))
+
+
+def instance_of(metric: Metric) -> Instance:
+    """The instance ``trace_rays_cuda`` launches for ``metric`` (checked by
+    ``check_compiled_metric``): the hand struct of its name, or the emitted
+    struct of a registered metric without one; baked where the metric is
+    (``runtime.hotswap.bake``)."""
+    check_compiled_metric(metric)
+    if isinstance(metric.fn, BakedFn):
+        return baked_instance(metric, dict(metric.fn.params))
+    if metric.name in INSTANCES:
+        return hand_instance(metric.name)
+    return emitted_instance(metric)
 
 
 def check_compiled_metric(metric: Metric) -> None:
@@ -207,13 +307,17 @@ def check_compiled_metric(metric: Metric) -> None:
     its rank-1 decomposition (which picks the acceleration path),
     ``depends_on``, symmetry flag (it sets the precision weights) and every
     ``COMPILED_CONFIG`` field.  A metric whose config was replaced has no
-    instance, whatever its name."""
+    instance, whatever its name.  A baked metric is held so by the function
+    it was baked from."""
     from ..metrics import REGISTRY
 
-    _instance(metric.name)
+    metric = _unbaked(metric)
     known = REGISTRY.get(metric.name)
+    if metric.name not in INSTANCES and known is None:
+        _instance(metric.name)
     differs = ["(not registered)"] if known is None else [
-        f for f in ("fn", "rank1", "depends_on", "spherically_symmetric")
+        f for f in ("fn", "rank1", "depends_on", "spherically_symmetric",
+                    "diagonal", "structure")
         if getattr(metric, f) != getattr(known, f)] + [
         f"config.{f}" for f in COMPILED_CONFIG
         if getattr(metric.config, f) != getattr(known.config, f)]
@@ -224,25 +328,54 @@ def check_compiled_metric(metric: Metric) -> None:
             f"{', '.join(differs)}")
 
 
-def build(name: str, flags=None) -> Path:
-    """Compile ``csrc/raymarch.cu`` for the metric ``name`` with ``flags``
-    (default: ``NVCC_FLAGS``) unless a library for the current sources and
-    these flags exists.  Prints the ptxas register/spill report once."""
-    struct, _ = _instance(name)
+def baked_define(values) -> str:
+    """The header line of a baked build: ``GRT_BAKED_PARAMS`` defined as
+    the parameter values in hex-float literals, each followed by a comma
+    (raymarch.cu pads the list).  It goes in with ``-include``: nvcc splits
+    a ``-D`` value at its commas."""
+    from .emit import lit
+
+    return "#define GRT_BAKED_PARAMS " + "".join(f"{lit(v)}," for v in values)
+
+
+def _as_instance(name) -> Instance:
+    return name if isinstance(name, Instance) else hand_instance(name)
+
+
+def build(name, flags=None) -> Path:
+    """Compile ``csrc/raymarch.cu`` for the metric ``name`` (or an
+    ``Instance``) with ``flags`` (default: ``NVCC_FLAGS``) unless a library
+    for the current sources, header, baked values and these flags exists.
+    Prints the ptxas register/spill report once."""
+    inst = _as_instance(name)
     flags = tuple(NVCC_FLAGS if flags is None else flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = source_hash(flags)
+    if inst.header is not None or inst.baked is not None:
+        baked = "" if inst.baked is None else baked_define(inst.baked)
+        tag = hashlib.sha256("\0".join(
+            (tag, inst.header or "", baked)).encode()).hexdigest()[:16]
     # Named by the struct: a metric's name may hold spaces and parentheses.
-    lib_path = BUILD_DIR / f"libgrt_raymarch_{struct}_{source_hash(flags)}.so"
+    lib_path = BUILD_DIR / f"libgrt_raymarch_{inst.struct}_{tag}.so"
     report_path = lib_path.with_suffix(".ptxas.txt")
-    key = (name, flags)
+    key = (inst.label, flags)
     if lib_path.exists() and report_path.exists():
         BUILD_INFO.setdefault(key, dict(seconds=None,
                                         ptxas=report_path.read_text(),
                                         path=str(lib_path)))
         return lib_path
+    extra = []
+    if inst.baked is not None:
+        define = lib_path.with_suffix(".baked.h")
+        define.write_text(baked_define(inst.baked) + "\n")
+        extra += ["-include", str(define)]
+    if inst.header is not None:
+        header = lib_path.with_suffix(".cuh")
+        header.write_text(inst.header)
+        extra += ["-I", str(CSRC), "-include", str(header)]
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *flags, f"-DGRT_METRIC={struct}", "-o", str(tmp),
-           str(CSRC / "raymarch.cu")]
+    cmd = [nvcc_path(), *flags, *extra, f"-DGRT_METRIC={inst.struct}", "-o",
+           str(tmp), str(CSRC / "raymarch.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0
@@ -259,8 +392,9 @@ def build(name: str, flags=None) -> Path:
 
 
 def build_all(names=None, flags=None) -> float:
-    """Build the libraries of ``names`` (default: every metric instance) at
-    once, one ``nvcc`` process each.  Returns the wall seconds."""
+    """Build the libraries of ``names`` (metric names or ``Instance``s;
+    default: every metric instance of ``INSTANCES``) at once, one ``nvcc``
+    process each.  Returns the wall seconds."""
     names = sorted(INSTANCES) if names is None else list(names)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -268,13 +402,19 @@ def build_all(names=None, flags=None) -> float:
     return time.perf_counter() - t0
 
 
-def get_lib(name: str):
-    """The kernel library of metric ``name`` for the current ``NVCC_FLAGS``,
-    loaded (and built at first use)."""
-    key = (name, tuple(NVCC_FLAGS))
+def get_lib(name):
+    """The kernel library of metric ``name`` (or of an ``Instance``) for the
+    current ``NVCC_FLAGS``, loaded (and built at first use)."""
+    inst = _as_instance(name)
+    key = (inst.label, tuple(NVCC_FLAGS))
     with _lock:
-        if key not in _libs:
-            lib = ctypes.CDLL(str(build(*key)))
+        hit = _libs.get(key)
+    if hit is not None and hit[0] == inst:
+        return hit[1]
+    path = build(inst)
+    with _lock:
+        if key not in _libs or _libs[key][0] != inst:
+            lib = ctypes.CDLL(str(path))
             vp, fp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)
             lib.grt_raymarch.restype = ctypes.c_int
             lib.grt_raymarch.argtypes = [fp, fp, *[ctypes.c_int] * 6,
@@ -286,14 +426,23 @@ def get_lib(name: str):
                 ctypes.POINTER(ctypes.c_int)] * 2
             lib.grt_error_string.restype = ctypes.c_char_p
             lib.grt_error_string.argtypes = [ctypes.c_int]
+            lib.grt_baked_params.restype = ctypes.POINTER(ctypes.c_float)
+            lib.grt_baked_params.argtypes = [ctypes.POINTER(ctypes.c_int)]
             n_params = ctypes.c_int()
             built_for = lib.grt_metric_name(ctypes.byref(n_params)).decode()
-            if (built_for, n_params.value) != (name, len(INSTANCES[name][1])):
+            if (built_for, n_params.value) != (inst.metric, len(inst.params)):
                 raise RuntimeError(
-                    f"{BUILD_INFO[key]['path']} was built for {built_for!r} "
-                    f"with {n_params.value} parameters, not for {name!r}")
-            _libs[key] = lib
-        return _libs[key]
+                    f"{path} was built for {built_for!r} with "
+                    f"{n_params.value} parameters, not for {inst.metric!r}")
+            n_baked = ctypes.c_int()
+            ptr = lib.grt_baked_params(ctypes.byref(n_baked))
+            baked = (None if n_baked.value < 0 else
+                     tuple(ptr[i] for i in range(n_baked.value)))
+            if baked != inst.baked:
+                raise RuntimeError(f"{path} was built with the parameters "
+                                   f"{baked} compiled in, not {inst.baked}")
+            _libs[key] = (inst, lib)
+        return _libs[key][1]
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -302,7 +451,7 @@ def _raise_on(lib, rc: int, what: str) -> None:
                            f"{lib.grt_error_string(rc).decode()} ({rc})")
 
 
-def kernel_config(name: str) -> dict:
+def kernel_config(name) -> dict:
     """``{"threads", "blocks_per_sm"}`` of metric ``name``'s kernel (the
     instance of the default options): its block size and the blocks of it
     that one SM holds at once."""
@@ -347,7 +496,8 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
                     features: Features, opts: TraceOptions,
                     f_in_x: torch.Tensor | None = None,
                     trials: torch.Tensor | None = None,
-                    image_width: int | None = None) -> RayState:
+                    image_width: int | None = None,
+                    instance: Instance | None = None) -> RayState:
     """March every ACTIVE ray with the CUDA kernel: one launch on the
     current stream.  Returns a new RayState (the kernel updates copies of
     the input tensors in place).  ``f_in_x``: the launch-time |v^t| of each
@@ -356,15 +506,31 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     rejected trials and the terminating one); others keep their entry.
     ``image_width``: the rays are the pixels of a row-major image of this
     width, and each warp takes an 8x4 pixel tile of it (default: 32
-    consecutive rays); the result is the same either way."""
-    check_compiled_metric(metric)
-    _, param_names = INSTANCES[metric.name]
+    consecutive rays); the result is the same either way.  ``instance``:
+    the library to launch (default: ``instance_of(metric)``); a baked one
+    refuses parameters other than its own, and a baked metric launches with
+    the values it was baked with, as its function evaluates with them."""
+    inst = instance_of(metric) if instance is None else instance
+    if instance is not None:
+        check_compiled_metric(metric)
+        if inst.metric != metric.name:
+            raise ValueError(f"trace_rays_cuda: instance {inst.label!r} is "
+                             f"not of metric {metric.name!r}")
+    if isinstance(metric.fn, BakedFn):
+        params = dict(metric.fn.params)
+    param_names = inst.params
     if any(isinstance(params[k], torch.Tensor) and params[k].requires_grad
            for k in param_names):
         # The kernel is forward-only: it takes the parameters as host
         # floats, and a gradient through them would be lost without a word.
         raise ValueError("trace_rays_cuda: a parameter requires grad; the "
                          "kernel takes detached host floats")
+    values = tuple(float(np.float32(float(params[k]))) for k in param_names)
+    if inst.baked is not None and values != inst.baked:
+        raise ValueError(
+            f"trace_rays_cuda: {inst.label!r} has "
+            f"{dict(zip(param_names, inst.baked))} compiled in; this launch "
+            f"has {dict(zip(param_names, values))}")
 
     n = state.position.shape[0]
     width = 0 if image_width is None else int(image_width)
@@ -389,9 +555,8 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     # The 8 floats of csrc/march.cuh's Features.
     feats = (ctypes.c_float * 8)(*(float(v) for v in features),
                                  *schedule_constants(features))
-    mparams = (ctypes.c_float * max(len(param_names), 1))(
-        *(float(params[k]) for k in param_names))
-    lib = get_lib(metric.name)
+    mparams = (ctypes.c_float * max(len(param_names), 1))(*values)
+    lib = get_lib(inst)
     dev = state.position.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -407,8 +572,7 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
                    None if trials is None else trials.data_ptr(),
                    stream)
     _raise_on(lib, rc, "ray-march kernel launch")
-    LAUNCHES_BY_METRIC[metric.name] = LAUNCHES_BY_METRIC.get(metric.name,
-                                                             0) + 1
+    LAUNCHES_BY_METRIC[inst.label] = LAUNCHES_BY_METRIC.get(inst.label, 0) + 1
     return out
 
 

@@ -111,6 +111,33 @@ def build_background(image: np.ndarray, image2: np.ndarray | None = None,
     )
 
 
+def load_background(path: str, path2: str | None = None, *,
+                    device) -> Background:
+    """Equirect sky image(s), PNG, sRGB -> linear, as the mip atlas of
+    :func:`build_background` (the reference's ``load_background``).  The
+    port decodes PNG itself (``cli.read_png``: 8-bit grey, grey + alpha,
+    RGB and RGBA, every filter type; alpha is dropped, grey widened to
+    RGB); a JPEG or another format raises: it needs a decoder the port
+    does not carry, so convert it to PNG first."""
+    from ..cli import read_png
+    from . import colour
+
+    def load(p):
+        with open(p, "rb") as f:
+            head = f.read(8)
+        if head != b"\x89PNG\r\n\x1a\n":
+            kind = "JPEG" if head[:3] == b"\xff\xd8\xff" else "not a PNG"
+            raise ValueError(
+                f"{p}: {kind}: the port reads 8-bit PNG skies only (it "
+                "carries no image library); convert the image to PNG")
+        arr = torch.from_numpy(read_png(p).astype(np.float32) / 255.0)
+        return colour.srgb_to_lin(arr).numpy()
+
+    img = load(path)
+    img2 = load(path2) if path2 else None
+    return build_background(img, img2, device=device)
+
+
 def checker_background(height: int = 1024, width: int = 2048,
                        squares: int = 24, *, device) -> Background:
     """Procedural latitude/longitude checker — the test/bench skysphere."""
@@ -236,7 +263,8 @@ def sample_anisotropic(bgr: Background, tex: Tensor, side: Tensor,
                        max_probes: int = 16, bias_frac: float = 1.3,
                        trilinear: bool = True,
                        live: Tensor | None = None,
-                       probe_segments: tuple = ()) -> Tensor:
+                       probe_segments: tuple = (),
+                       probe_bilinear: bool = False) -> Tensor:
     """EWA anisotropic filtering over the equirect map (cl.cl:5524-5687).
 
     ``tex``: (H, W, 2); ``side``: (H, W) int32; ``live``: optional bool
@@ -255,7 +283,7 @@ def sample_anisotropic(bgr: Background, tex: Tensor, side: Tensor,
         dx_vtc.reshape(n_pix, 2), dy_vtc.reshape(n_pix, 2),
         max_probes=max_probes, trilinear=trilinear,
         live=None if live is None else live.reshape(n_pix),
-        probe_segments=probe_segments,
+        probe_segments=probe_segments, probe_bilinear=probe_bilinear,
     )
     return out.reshape(tex.shape[:-1] + (3,))
 
@@ -265,10 +293,12 @@ def sample_anisotropic_flat(bgr: Background, tex: Tensor, side: Tensor,
                             max_probes: int = 16,
                             trilinear: bool = True,
                             live: Tensor | None = None,
-                            probe_segments: tuple = ()) -> Tensor:
+                            probe_segments: tuple = (),
+                            probe_bilinear: bool = False) -> Tensor:
     """EWA filtering over a flat pixel set with caller-supplied (already
     bias-scaled) screen-space uv derivatives.  ``tex``/``dx_vtc``/``dy_vtc``
-    (N, 2); ``side`` (N,).  Returns (N, 3)."""
+    (N, 2); ``side`` (N,).  ``probe_bilinear``: bilinear probe taps instead
+    of point samples.  Returns (N, 3)."""
     w0 = float(bgr.level_w[0])
     h0 = float(bgr.level_h[0])
     du_dx = dx_vtc[..., 0] * w0
@@ -395,7 +425,8 @@ def sample_anisotropic_flat(bgr: Background, tex: Tensor, side: Tensor,
             uv = torch.stack([torch.remainder(cu, 1.0),
                               torch.remainder(cv, 1.0)], dim=-1)
             val = read_mipmap(bgr, sidef[sl], uv, lodf[sl],
-                              trilinear=trilinear, point=True)
+                              trilinear=trilinear,
+                              point=not probe_bilinear)
             total = total + rel_w[:, None] * val
             weight = weight + rel_w
         parts.append(total / torch.clamp(weight, min=1e-20)[:, None])

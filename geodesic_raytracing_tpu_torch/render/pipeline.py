@@ -93,6 +93,11 @@ class RenderSettings:
     # Constant-theta planar tracing for spherically symmetric metrics
     # (exact by symmetry; GENERIC_CONSTANT_THETA).
     planar: bool = True
+    # Trace the geodesics forwards in affine time instead of backwards (the
+    # reference's flip toggle; follow_geodesics_forward flips it again).
+    flip_geodesic_direction: bool = False
+    # Bilinear taps for the EWA probes instead of point samples.
+    probe_bilinear: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -119,10 +124,12 @@ def camera_frame(metric: Metric, camera: cam.Camera, params):
     return position, es
 
 
-def _trace_sign(metric: Metric) -> float:
+def _trace_sign(metric: Metric, flip: bool = False) -> float:
     """Backwards-in-affine-time tracing unless the metric follows
-    geodesics forward (cl.cl:3196-3206)."""
-    return 1.0 if metric.config.follow_geodesics_forward else -1.0
+    geodesics forward (cl.cl:3196-3206); ``flip`` (the settings'
+    ``flip_geodesic_direction``) reverses either."""
+    sign = 1.0 if metric.config.follow_geodesics_forward else -1.0
+    return -sign if flip else sign
 
 
 def _grid_coords(w: int, h: int, step: float, device):
@@ -148,16 +155,16 @@ def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
                                      settings.height, camera.quat,
                                      settings.fov_degrees)
     return rays_for_directions(metric, position, es, params, features, dirs,
-                               planar)
+                               planar, settings.flip_geodesic_direction)
 
 
 def rays_for_directions(metric: Metric, position, es, params,
                         features: Features, dirs: Tensor,
-                        planar: bool = False):
+                        planar: bool = False, flip: bool = False):
     """Null rays along the camera-space directions ``dirs`` (3, N) from the
     observer at ``position`` with tetrad ``es``: ``rays_for_pixels`` after
     its pixel directions.  Returns ``(state, ku_uobsu, inv_quat)``."""
-    sign = _trace_sign(metric)
+    sign = _trace_sign(metric, flip)
     velocity = (
         dirs[0][:, None] * es[1][None, :]
         + dirs[1][:, None] * es[2][None, :]
@@ -366,6 +373,7 @@ def shade(rdata: RenderData, backgrounds: bg.Background,
         backgrounds, tex, side, max_probes=settings.anisotropy,
         trilinear=settings.trilinear, live=live,
         probe_segments=settings.probe_segments,
+        probe_bilinear=settings.probe_bilinear,
     )
     rgb = _redshifted(rgb, rdata.z_shift.reshape(H, W), settings)
     return torch.where(live[..., None], rgb, 0.0)
@@ -840,6 +848,7 @@ def _shade_set(rdata_tex, rdata_side, rdata_z, rdata_term, dx, dy,
         backgrounds, rdata_tex, rdata_side, dx, dy,
         max_probes=settings.anisotropy, trilinear=settings.trilinear,
         live=live, probe_segments=segments,
+        probe_bilinear=settings.probe_bilinear,
     )
     rgb = _redshifted(rgb, rdata_z, settings)
     return torch.where(live[:, None], rgb, 0.0)

@@ -26,6 +26,12 @@ Usage (needs g++; no GPU, no torch):
     python scripts/torch_opcount.py [metric ...]
 
 With no names it counts every instance of ``ops/raymarch.INSTANCES``.
+``--emit`` counts the structs that ``ops/emit.py`` writes instead, dynamic
+and baked with the defaults (this needs torch): a registered metric by its
+name, or a content pack's as ``DIR:NAME``:
+
+    python scripts/torch_opcount.py --emit kerr_boyer schwarzschild \
+        examples/pack_torch:reissner_nordstrom
 """
 
 from __future__ import annotations
@@ -238,10 +244,15 @@ def count_function(name: str, bodies: dict[str, str]) -> dict[str, int]:
     return counts
 
 
-def count_instance(struct: str, work: Path) -> dict[str, dict[str, int]]:
+def count_instance(struct: str, work: Path,
+                   header: str | None = None) -> dict[str, dict[str, int]]:
     src = work / f"opcount_{struct}.cpp"
-    src.write_text(SHIM)
+    src.write_text(SHIM if header is None
+                   else f'#include "{struct}.cuh"\n' + SHIM)
+    if header is not None:
+        (work / f"{struct}.cuh").write_text(header)
     subprocess.run(["g++", *FLAGS, f"-DGRT_METRIC={struct}", "-I", str(CSRC),
+                    "-I", str(work),
                     "-c", str(src), "-o", str(work / f"{struct}.o"),
                     "-fdump-tree-optimized", f"-dumpbase", struct,
                     "-dumpdir", f"{work}/"],
@@ -253,15 +264,38 @@ def count_instance(struct: str, work: Path) -> dict[str, dict[str, int]]:
             for k in ("metric", "accel")}
 
 
+def emitted(names: list[str]) -> list[tuple[str, str, str]]:
+    """``(label, struct, header)`` of the dynamic and the baked struct that
+    ``ops/emit.py`` writes for each name (``NAME`` or ``DIR:NAME``)."""
+    sys.path.insert(0, str(REPO))
+    from geodesic_raytracing_tpu_torch import content, metrics
+    from geodesic_raytracing_tpu_torch.ops import emit
+
+    out = []
+    for spec in names:
+        if ":" in spec:
+            pack, name = spec.rsplit(":", 1)
+            m = content.load_pack(REPO / pack, register=False).metrics[name]
+        else:
+            m = metrics.get_metric(spec)
+        for mode, params in (("dynamic", None), ("baked", m.params())):
+            h = emit.emit_metric(m, params)
+            out.append((f"{m.name} [emitted {mode}]", h.struct, h.text))
+    return out
+
+
 def main(argv: list[str]) -> None:
-    table = instances()
-    names = argv or sorted(table)
+    if argv[:1] == ["--emit"]:
+        rows = emitted(argv[1:])
+    else:
+        table = instances()
+        rows = [(n, table[n], None) for n in (argv or sorted(table))]
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         print(f"{'instance':34s} {'metric':>7s} {'accel':>7s} "
               f"{'contraction':>11s}   metric: arith calls compares selects")
-        for name in names:
-            c = count_instance(table[name], work)
+        for name, struct, header in rows:
+            c = count_instance(struct, work, header)
             m, a = c["metric"], c["accel"]
             print(f"{name:34s} {m['total']:7d} {a['total']:7d} "
                   f"{a['total'] - m['total']:11d}   {m['arith']} "

@@ -29,7 +29,9 @@ def test_port_imports_without_jax():
                 "render.colour", "render.cie1931_data", "carry", "fit",
                 "parallel", "parallel.mesh", "physics", "physics.geodesics",
                 "utils", "utils.checkpoint", "triangles", "triangles.scene",
-                "triangles.physics", "triangles.render"):
+                "triangles.physics", "triangles.render", "ops.emit",
+                "content", "runtime", "runtime.hotswap", "utils.profiling",
+                "settings", "viewer"):
         assert f"geodesic_raytracing_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
