@@ -103,11 +103,8 @@ POS_TOL = 1e-4  # rtol and atol
 PLAIN_DEPTH = 2048
 # Phase 14 holds the graphed plain march to the eager one on each
 # instance's 64-ray set for this many trial iterations (phase 2: kerr_boyer's
-# to the end): the eager iteration, the capture and a chunk of replays.  It
-# was 64 before phase 28; halved with DENSE_PLAIN_DEPTH to keep the smoke
-# within half its time limit (the eager marches were 33 s of phase 14 on an H100 80GB
-# HBM3 at 700 W; PERF.md section 5).
-GRAPH_CHECK_STEPS = 32
+# to the end).
+GRAPH_CHECK_STEPS = 64
 # The golden gate of tests/test_parity_images.py on sRGB uint8 images.
 GATE_RMSE = 4.0
 GATE_BAD_FRAC = 0.01
@@ -218,14 +215,12 @@ CATALOGUE_B = ("alcubierre", "configurable_wormhole", "ellis_drainhole",
 CATALOGUE_C = ("double_kerr", "double_kerr_alt", "double_schwarzschild",
                "double_unequal_kerr", "kerr_newman_schild", "kerr_schild")
 CATALOGUES = CATALOGUE_A + CATALOGUE_B + CATALOGUE_C
-# Phases 19 and 28 march each 1080p launch with the plain twin for this many
-# trial iterations, against a kernel launch with that budget (a cut of depth:
-# the metrics whose rays all end within it are held to the end, the others,
-# the Kerr family and every metric with rays past 512 trial iterations, on
-# the cut launch).  It was 1,024 before phase 28; halved when phase 28 took
-# the whole smoke to 609 s on an H100 80GB HBM3 at 700 W, past half its time
-# limit.
-DENSE_PLAIN_DEPTH = 512
+# Phases 19 and 28 march each 1080p launch with the plain twin for this
+# many trial iterations, against a kernel launch with that budget (a cut of
+# depth: the longest rays of black_hole_cosmic_string, ernst and the Kerr
+# family take 2,400-16,400, krasnikov_cylindrical's 6,037; every other
+# metric's rays end within it, so those are held to the end).
+DENSE_PLAIN_DEPTH = 1024
 
 # The eighth path (phase 28): content packs and hot-swap.  The example pack
 # of torch metrics; the hand-written instances whose torch functions the
@@ -450,10 +445,9 @@ def bound_ms(n_rays: int, total_trials: int, ops_per_trial=OPS_PER_TRIAL,
     return max(ops, byt), ops, byt
 
 
-def median_launch_ms(metric, state, params, feats, opts, width, rounds=3,
-                     instance=None):
+def median_launch_ms(metric, state, params, feats, opts, width, rounds=3):
     """Median kernel time (CUDA events) of ``rounds`` launches on
-    ``state`` (of ``instance``, default the metric's)."""
+    ``state``."""
     import torch
     from geodesic_raytracing_tpu_torch.ops import raymarch
 
@@ -462,15 +456,14 @@ def median_launch_ms(metric, state, params, feats, opts, width, rounds=3,
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         raymarch.trace_rays_cuda(metric, state, params, feats, opts,
-                                 image_width=width, instance=instance)
+                                 image_width=width)
         ev[1].record()
         torch.cuda.synchronize()
         ms.append(ev[0].elapsed_time(ev[1]))
     return statistics.median(ms)
 
 
-def launch_work(metric, state, params, feats, opts, width,
-                instance=None) -> dict:
+def launch_work(metric, state, params, feats, opts, width) -> dict:
     """One kernel launch on ``state`` (the pixels of a row-major image of
     ``width``) that counts its work: ``state`` (the output), ``per_ray``
     and ``trials`` (each ray's and all trial iterations), ``mean_steps``,
@@ -485,8 +478,7 @@ def launch_work(metric, state, params, feats, opts, width,
     n = state.position.shape[0]
     trials = torch.zeros(n, dtype=torch.int32, device=state.position.device)
     out = raymarch.trace_rays_cuda(metric, state, params, feats, opts,
-                                   trials=trials, image_width=width,
-                                   instance=instance)
+                                   trials=trials, image_width=width)
     torch.cuda.synchronize()
     rows, tiled = idle_lane_factor(trials), idle_lane_factor(trials, width)
     return {"state": out, "per_ray": trials, "rays": n,
@@ -1192,11 +1184,11 @@ def launches_vs_plain(tag, metric, params, feats, launches):
 
 
 def work_row(name, metric, s_in, s_out, params, feats, opts, width, ms,
-             instance=None, ops=None):
+             ops=None):
     """One launch's work and bound (by the instance's own operations per
     trial iteration, ``OPS_BY_INSTANCE`` unless ``ops`` is given) as a dict,
     printed."""
-    lw = launch_work(metric, s_in, params, feats, opts, width, instance)
+    lw = launch_work(metric, s_in, params, feats, opts, width)
     assert same_bits(lw.pop("state"), s_out), "two launches disagree"
     del lw["per_ray"]
     if ops is None:
@@ -2673,7 +2665,8 @@ def content_path(dev) -> dict:
     from geodesic_raytracing_tpu_torch.ops import emit, integrate, raymarch
     from geodesic_raytracing_tpu_torch.render import background as bg
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
-    from geodesic_raytracing_tpu_torch.runtime.hotswap import kernel_program
+    from geodesic_raytracing_tpu_torch.runtime.hotswap import (
+        bake, kernel_program)
 
     sky = bg.checker_background(device=dev)
     out = {"rows": []}
@@ -2698,15 +2691,14 @@ def content_path(dev) -> dict:
         (s_in, s_out, width, opts), = launch
         return img, s_in, s_out, width, opts, counts
 
-    def held(tag, metric, s_in, params, plain_params, feats, opts, width,
-             instance=None):
+    def held(tag, metric, s_in, params, plain_params, feats, opts, width):
         """A launch cut to DENSE_PLAIN_DEPTH against the plain march with
         ``plain_params`` on all rays.  Returns ``(largest |dpos|, plain
         ms)``."""
         cut = dataclasses.replace(opts, max_steps=min(opts.max_steps,
                                                       DENSE_PLAIN_DEPTH))
         k_cut = raymarch.trace_rays_cuda(metric, s_in, params, feats, cut,
-                                         image_width=width, instance=instance)
+                                         image_width=width)
         err, (plain_ms,) = launches_vs_plain(
             f"[28 {tag}] {cut.max_steps} trial iterations", metric,
             plain_params, feats, [(s_in, k_cut, width, cut)])
@@ -2868,6 +2860,13 @@ def content_path(dev) -> dict:
             return pl.render_frame(mm, camera, p, sky, asettings, feats,
                                    controller=ctrl, device=dev)
 
+        # The baked library is built anew in every run (one left by an
+        # earlier run would load at once), so that the frames served while
+        # nvcc runs show that none waits for it.
+        binst = raymarch.baked_instance(metric, params)
+        stale = raymarch.library_path(binst)
+        for path in (stale, stale.with_suffix(".ptxas.txt")):
+            path.unlink(missing_ok=True)
         prog = kernel_program(metric, run)
         raymarch.reset_launch_counts()
         t_req = time.perf_counter()
@@ -2887,7 +2886,6 @@ def content_path(dev) -> dict:
             assert prog.static_error is None, prog.static_error
             assert time.perf_counter() - start < HOTSWAP_LIMIT_S, frames
         counts = dict(raymarch.LAUNCHES_BY_METRIC)
-        binst = raymarch.baked_instance(metric, params)
         n_dyn = sum(k == "dynamic" for k, _ in frames)
         dyn_ms = [ms for k, ms in frames[1:] if k == "dynamic"]
         sta_ms = [ms for k, ms in frames if k == "static"]
@@ -2903,27 +2901,26 @@ def content_path(dev) -> dict:
               f"launches {counts}")
         assert n_dyn >= 1 and counts.get(binst.label, 0) >= 2
         assert set(counts) == {metric.name, binst.label}, counts
-        # No frame waited for the build: each took far less than it (where
-        # nvcc ran: a library left by an earlier run loads at once).
-        if raymarch.BUILD_INFO[binst.label, raymarch.NVCC_FLAGS]["seconds"]:
-            assert worst < 0.5 * prog.build_seconds * 1e3, (worst, frames)
-        # The baked launch against the dynamic one and the plain march.
-        params, feats = metric.params(), integrate.Features.for_metric(metric)
-        k_b = raymarch.trace_rays_cuda(metric, s_in, params, feats, opts,
-                                       image_width=width, instance=binst)
+        # nvcc ran, and no frame waited for it: each took far less.
+        assert raymarch.BUILD_INFO[binst.label,
+                                   raymarch.NVCC_FLAGS]["seconds"] is not None
+        assert worst < 0.5 * prog.build_seconds * 1e3, (worst, frames)
+        # The baked launch against the dynamic one and the plain march
+        # (the baked metric's is the march with float parameters), on the
+        # dense frame's input.
+        baked = bake(metric, params)
+        assert raymarch.instance_of(baked) == binst
+        k_b = raymarch.trace_rays_cuda(baked, s_in, params, feats, opts,
+                                       image_width=width)
         torch.cuda.synchronize()
         same = same_bits(k_b, s_out)
-        err, plain_ms = held(f"baked {metric.name}", metric, s_in, params,
-                             params, feats, opts, width, instance=binst)
-        ms_b = median_launch_ms(metric, s_in, params, feats, opts, width,
-                                instance=binst)
+        err, plain_ms = held(f"baked {metric.name}", baked, s_in, params,
+                             params, feats, opts, width)
+        ms_b = median_launch_ms(baked, s_in, params, feats, opts, width)
         ms_d = median_launch_ms(metric, s_in, params, feats, opts, width)
-        ops = OPS_EMITTED.get((binst.label, bool(opts.planar)))
-        if ops is None:
-            ops = OPS_EMITTED[("kerr_boyer [baked]", False)]
-        r_b = work_row(f"1080p dense {binst.label}", metric, s_in, k_b,
-                       params, feats, opts, width, ms_b, instance=binst,
-                       ops=ops)
+        r_b = work_row(f"1080p dense {binst.label}", baked, s_in, k_b,
+                       params, feats, opts, width, ms_b,
+                       ops=OPS_EMITTED[binst.label, bool(opts.planar)])
         print(f"[28 hotswap] {binst.label}: baked launch against the dynamic "
               f"one on the same {s_in.status.numel()} rays: same bits {same}; "
               f"baked {ms_b:.3f} ms, dynamic {ms_d:.3f} ms (ratio "

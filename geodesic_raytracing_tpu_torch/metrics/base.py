@@ -10,13 +10,13 @@ before the op, so they behave as float32 constants.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Callable, Mapping
 
 import numpy as np
 import torch
 
 from ..coordinates import transforms as _tr
+from ..ops.geometry import emitting
 
 Tensor = torch.Tensor
 
@@ -280,11 +280,6 @@ def diag_metric(d0, d1, d2, d3, *, device=None) -> Tensor:
                       device=device)
 
 
-# Set on a thread while ``ops.emit`` traces a metric function: sym_metric
-# hands it the entry dict, whose keys are the structure it emits.
-CAPTURE = threading.local()
-
-
 def sym_metric(entries: Mapping[tuple[int, int], Tensor], *,
                device=None) -> Tensor:
     """Assemble a symmetric 4x4 metric from an upper-triangle entry dict.
@@ -294,9 +289,9 @@ def sym_metric(entries: Mapping[tuple[int, int], Tensor], *,
     becomes a float32 constant on the device of the tensor components, or
     on ``device`` when there is none (a constant metric), made by a fill on
     that device and not by an upload."""
-    hook = getattr(CAPTURE, "hook", None)
-    if hook is not None:
-        return hook(dict(entries))
+    trace = emitting()
+    if trace is not None:  # ops.emit: the keys are the structure it emits
+        return trace.sym_metric(dict(entries))
     ref = next((v for v in entries.values() if isinstance(v, torch.Tensor)),
                None)
     if ref is None:

@@ -138,7 +138,17 @@ class Header:
 
 
 class _Trace:
-    """What ``geometry.arctan`` / ``arctan2`` record while tracing."""
+    """What the lower layers hand to a trace (``geometry.emitting()``):
+    the entry dicts of ``metrics.base.sym_metric`` (``entries``, which is
+    also what it returns), and one node for each ``geometry.arctan`` /
+    ``arctan2``."""
+
+    def __init__(self):
+        self.entries: list = []
+
+    def sym_metric(self, entries):
+        self.entries.append(entries)
+        return self.entries
 
     @staticmethod
     def arctan(x):
@@ -160,7 +170,7 @@ def _record(fn: Callable, n_params: int):
     from torch.fx.experimental.proxy_tensor import make_fx
 
     with _trace_lock:
-        geometry.EMITTING.trace = _Trace
+        geometry.EMITTING.trace = _Trace()
         try:
             return make_fx(fn, tracing_mode="fake")(*ex)
         except NotImplementedError:
@@ -182,17 +192,9 @@ def _trace_entries(metric: mbase.Metric, param_names, baked):
     def fn(x0, x1, x2, x3, *p):
         params = dict(baked) if baked is not None else dict(
             zip(param_names, p))
-        captured = []
-
-        def hook(entries):
-            captured.append(entries)
-            return captured
-
-        mbase.CAPTURE.hook = hook
-        try:
-            out = metric.fn(torch.stack([x0, x1, x2, x3]), params)
-        finally:
-            mbase.CAPTURE.hook = None
+        trace = geometry.emitting()
+        trace.entries = captured = []
+        out = metric.fn(torch.stack([x0, x1, x2, x3]), params)
         if len(captured) != 1 or out is not captured:
             raise NotImplementedError(
                 f"ops.emit: {metric.name}'s function does not return the "

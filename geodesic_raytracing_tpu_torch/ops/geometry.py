@@ -110,22 +110,29 @@ class _Arctan(torch.autograd.Function):
         return g / (1.0 + x * x)
 
 
-# Set on a thread while ``ops.emit`` traces a metric: the functions with a
-# custom derivative then record one node each (an op of ``ops.emit``) in
-# place of their forward's ops, whose own tangent rules are not theirs.
-EMITTING = threading.local()
+class _Emitting(threading.local):
+    trace = None
+
+
+# Set on a thread while ``ops.emit`` traces a function, to its trace, and
+# read through ``emitting()``: ``metrics.base.sym_metric`` hands the trace
+# its entry dict, the functions with a custom derivative record one node
+# each (an op of ``ops.emit``) in place of their forward's ops, whose own
+# tangent rules are not theirs, and complex pairs raise (not emitted yet).
+EMITTING = _Emitting()
 
 
 def emitting():
     """The ``ops.emit`` trace running on this thread, or None."""
-    return getattr(EMITTING, "trace", None)
+    return EMITTING.trace
 
 
 def arctan(x: Tensor) -> Tensor:
     """The reference's polynomial atan with the exact derivative
     ``dx / (1 + x^2)`` in forward and reverse mode."""
-    if emitting() is not None:
-        return emitting().arctan(x)
+    trace = emitting()
+    if trace is not None:
+        return trace.arctan(x)
     return _Arctan.apply(x)
 
 
@@ -133,8 +140,9 @@ def arctan2(y: Tensor, x: Tensor) -> Tensor:
     """The reference's polynomial atan2 (numpy quadrant conventions) with
     the exact derivative ``(x dy - y dx) / (x^2 + y^2)`` in forward and
     reverse mode."""
-    if emitting() is not None:
-        return emitting().arctan2(y, x)
+    trace = emitting()
+    if trace is not None:
+        return trace.arctan2(y, x)
     return _Arctan2.apply(y, x)
 
 

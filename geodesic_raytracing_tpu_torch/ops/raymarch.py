@@ -33,8 +33,9 @@ content pack's, is emitted at its first use; ``emitted_instance`` emits
 any metric on request), and either kind can be baked
 (``baked_instance``): ``GRT_BAKED_PARAMS`` (a header line) makes the
 kernel build its metric from compile-time constants, so that ``nvcc`` folds
-the parameters through the step, and the library refuses a launch with
-other values.  A library is keyed on a hash of ``csrc/``, of the emitted
+the parameters through the step; a baked metric launches with its own
+values, and a library whose compiled-in values are not its instance's is
+refused when it is loaded.  A library is keyed on a hash of ``csrc/``, of the emitted
 header, of the baked values and of the flags.
 
 The wrapper launches on CUDA tensors or raises: there is no fallback, and a
@@ -342,6 +343,21 @@ def _as_instance(name) -> Instance:
     return name if isinstance(name, Instance) else hand_instance(name)
 
 
+def library_path(name, flags=None) -> Path:
+    """Where ``build`` puts the library of metric ``name`` (or of an
+    ``Instance``) for ``flags`` (default: ``NVCC_FLAGS``): keyed on
+    ``source_hash`` and on an emitted header's text and baked values.  Its
+    ptxas report lies beside it (``.ptxas.txt``)."""
+    inst = _as_instance(name)
+    tag = source_hash(flags)
+    if inst.header is not None or inst.baked is not None:
+        baked = "" if inst.baked is None else baked_define(inst.baked)
+        tag = hashlib.sha256("\0".join(
+            (tag, inst.header or "", baked)).encode()).hexdigest()[:16]
+    # Named by the struct: a metric's name may hold spaces and parentheses.
+    return BUILD_DIR / f"libgrt_raymarch_{inst.struct}_{tag}.so"
+
+
 def build(name, flags=None) -> Path:
     """Compile ``csrc/raymarch.cu`` for the metric ``name`` (or an
     ``Instance``) with ``flags`` (default: ``NVCC_FLAGS``) unless a library
@@ -350,13 +366,7 @@ def build(name, flags=None) -> Path:
     inst = _as_instance(name)
     flags = tuple(NVCC_FLAGS if flags is None else flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = source_hash(flags)
-    if inst.header is not None or inst.baked is not None:
-        baked = "" if inst.baked is None else baked_define(inst.baked)
-        tag = hashlib.sha256("\0".join(
-            (tag, inst.header or "", baked)).encode()).hexdigest()[:16]
-    # Named by the struct: a metric's name may hold spaces and parentheses.
-    lib_path = BUILD_DIR / f"libgrt_raymarch_{inst.struct}_{tag}.so"
+    lib_path = library_path(inst, flags)
     report_path = lib_path.with_suffix(".ptxas.txt")
     key = (inst.label, flags)
     if lib_path.exists() and report_path.exists():
@@ -496,8 +506,7 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
                     features: Features, opts: TraceOptions,
                     f_in_x: torch.Tensor | None = None,
                     trials: torch.Tensor | None = None,
-                    image_width: int | None = None,
-                    instance: Instance | None = None) -> RayState:
+                    image_width: int | None = None) -> RayState:
     """March every ACTIVE ray with the CUDA kernel: one launch on the
     current stream.  Returns a new RayState (the kernel updates copies of
     the input tensors in place).  ``f_in_x``: the launch-time |v^t| of each
@@ -506,16 +515,10 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     rejected trials and the terminating one); others keep their entry.
     ``image_width``: the rays are the pixels of a row-major image of this
     width, and each warp takes an 8x4 pixel tile of it (default: 32
-    consecutive rays); the result is the same either way.  ``instance``:
-    the library to launch (default: ``instance_of(metric)``); a baked one
-    refuses parameters other than its own, and a baked metric launches with
-    the values it was baked with, as its function evaluates with them."""
-    inst = instance_of(metric) if instance is None else instance
-    if instance is not None:
-        check_compiled_metric(metric)
-        if inst.metric != metric.name:
-            raise ValueError(f"trace_rays_cuda: instance {inst.label!r} is "
-                             f"not of metric {metric.name!r}")
+    consecutive rays); the result is the same either way.  A baked metric
+    (``runtime.hotswap.bake``) launches its baked library with the values
+    it was baked with, as its function evaluates with them."""
+    inst = instance_of(metric)
     if isinstance(metric.fn, BakedFn):
         params = dict(metric.fn.params)
     param_names = inst.params
@@ -526,11 +529,6 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
         raise ValueError("trace_rays_cuda: a parameter requires grad; the "
                          "kernel takes detached host floats")
     values = tuple(float(np.float32(float(params[k]))) for k in param_names)
-    if inst.baked is not None and values != inst.baked:
-        raise ValueError(
-            f"trace_rays_cuda: {inst.label!r} has "
-            f"{dict(zip(param_names, inst.baked))} compiled in; this launch "
-            f"has {dict(zip(param_names, values))}")
 
     n = state.position.shape[0]
     width = 0 if image_width is None else int(image_width)

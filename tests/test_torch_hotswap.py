@@ -10,6 +10,8 @@ the same values).
 """
 
 import dataclasses
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,9 +133,22 @@ def test_kernel_program_without_nvcc_serves_dynamic(monkeypatch, capsys,
     assert seen == [rn.fn] and prog.served["dynamic"] == 1
 
 
-def test_baked_instance_refuses_other_parameters():
-    """A baked library has its values compiled in: the wrapper refuses a
-    launch with other values before it looks at the tensors, and a baked
+# A stand-in for a kernel library: the C entry points that
+# ``raymarch.get_lib`` reads when it loads one, built for ``kerr_boyer`` with
+# the values of BAKED compiled in.
+STAND_IN = r"""
+static const float baked[] = {BAKED};
+int grt_raymarch(void) { return 0; }
+const char* grt_metric_name(int* n) { *n = 2; return "kerr_boyer"; }
+int grt_raymarch_config(int* t, int* b) { *t = 128; *b = 1; return 0; }
+const float* grt_baked_params(int* n) { *n = 2; return baked; }
+const char* grt_error_string(int code) { return "stand-in"; }
+"""
+
+
+def test_baked_instance_refuses_other_parameters(monkeypatch, tmp_path):
+    """A baked library has its values compiled in: a library whose values
+    are not its instance's is refused when it is loaded, and a baked
     metric launches its own values (a CPU state is then refused)."""
     m = metrics.get_metric("kerr_boyer")
     p = m.params(a=-0.7)
@@ -143,9 +158,21 @@ def test_baked_instance_refuses_other_parameters():
     st = integrate.RayState(*(torch.zeros(1) for _ in range(7)))
     feats = integrate.Features.for_metric(m)
     opts = integrate.TraceOptions(max_steps=8)
-    with pytest.raises(ValueError, match="compiled in"):
-        raymarch.trace_rays_cuda(m, st, m.params(), feats, opts,
-                                 instance=inst)
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        pytest.skip("gcc is not installed: the stand-in library needs it")
+    monkeypatch.setattr(raymarch, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(raymarch, "_libs", {})
+    monkeypatch.setattr(raymarch, "BUILD_INFO", {})
+    src = tmp_path / "stand_in.c"
+    src.write_text(STAND_IN.replace("BAKED", "1.0f, -0.5f"))
+    so = raymarch.library_path(inst)
+    so.with_suffix(".ptxas.txt").write_text("")
+    subprocess.run([gcc, "-shared", "-fPIC", "-o", str(so), str(src)],
+                   check=True)
+    with pytest.raises(RuntimeError, match=r"\(1\.0, -0\.5\) compiled in"):
+        raymarch.get_lib(inst)
+    assert not raymarch._libs
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         raymarch.trace_rays_cuda(bake(m, p), st, m.params(), feats, opts)
     # A baked function that is not the registered one is refused.
