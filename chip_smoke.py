@@ -47,10 +47,12 @@ the card replays its step from a CUDA graph (``trace_rays_reference``'s
 default there), held bit for bit to the eager march in phases 2 and 14.
 Then the eighth path (phase 28): content packs and hot-swap.  Metric
 structs emitted from torch functions (``ops/emit.py``) against the hand
-structs, the example pack ``examples/pack_torch`` through the frames and the
-CLI, the hot-swap of a baked (static) library behind the dynamic one in a
-stream of adaptive frames, an image sky, and the CLI's extras
-(``content_path``).
+structs (also a parameter exponent, the rank-1 Kerr-Schild
+decompositions and the double-Kerr complex pairs, and an op zoo of the
+newest ops against the plain march), the example pack
+``examples/pack_torch`` through the frames and the CLI, the hot-swap of a
+baked (static) library behind the dynamic one in streams of adaptive frames,
+an image sky, and the CLI's extras (``content_path``).
 Then the ninth path (phase 29): multi-device frames and the distributed
 train step on ``torch.distributed`` (``parallel_path``): a world of 1 on
 NCCL against the single-device frames and train step bit for bit, two gloo
@@ -236,14 +238,36 @@ DENSE_PLAIN_DEPTH = 1024
 # kernel runs the struct ops/emit.py writes for them, as for a pack metric.
 PACK_TORCH = ROOT / "examples" / "pack_torch"
 EMITTED_TWINS = ("schwarzschild", "kerr_boyer")
+# The metrics whose emitted forms came last (a parameter exponent in dynamic
+# mode, the rank-1 decomposition, complex pairs of coordinates): each pack
+# twin's 1080p dense launch against its hand instance on every ray, and
+# against the plain march at 480x270 (SMALL_FORMS), cut to
+# DENSE_PLAIN_DEPTH; the first one's hot-swap stream too.
+EMITTED_FORMS = ("janis_newman_winicour", "kerr_schild", "kerr_newman_schild",
+                 "double_kerr", "double_kerr_alt", "double_unequal_kerr")
+SMALL_FORMS = (480, 270)
 # Operations per trial iteration of the emitted and baked instances, by the
 # rule of OPS_BY_INSTANCE: the hand count of the struct they are emitted
 # from, less the difference that ``scripts/torch_opcount.py --emit`` counts
 # between the emitted and the hand struct's acceleration in the kernel's own
 # code (kerr_boyer 142 against 143, baked 140; schwarzschild 62 against 62,
-# baked 60), and reissner_nordstrom as schwarzschild with the 4 operations
-# its acceleration has more (66 against 62; baked 66).
+# baked 60; janis_newman_winicour 177 against 176, baked 85; kerr_schild
+# 224 against 224; kerr_newman_schild 235 against 235; double_kerr 1,002
+# against 1,068; double_kerr_alt 1,553 against 1,647; double_unequal_kerr
+# 1,136 against 1,266: the emitted structs evaluate more of their
+# parameter-only terms in from_params), and reissner_nordstrom as
+# schwarzschild with the 4 operations its acceleration has more (66 against
+# 62; baked 66).
 OPS_EMITTED = {
+    ("janis_newman_winicour_pack", False): 204,
+    ("janis_newman_winicour_pack", True): 176,
+    ("janis_newman_winicour_pack [baked]", False): 112,
+    ("janis_newman_winicour_pack [baked]", True): 84,
+    ("kerr_schild_pack", False): 373,
+    ("kerr_newman_schild_pack", False): 384,
+    ("double_kerr_pack", False): 1125,
+    ("double_kerr_alt_pack", False): 1676,
+    ("double_unequal_kerr_pack", False): 1259,
     ("kerr_boyer_pack", False): 264,
     ("kerr_boyer [baked]", False): 262,
     ("schwarzschild_pack", False): 177,
@@ -831,6 +855,15 @@ def sweep(variants, metric, params, camera, settings, feats, rounds=5):
     raymarch.NVCC_FLAGS = default_flags
 
 
+def rays_differing(a, b) -> int:
+    """The rays on which two RayStates differ in any bit."""
+    import torch
+
+    return int(sum((x.view(torch.int32) != y.view(torch.int32))
+                   .reshape(x.shape[0], -1).any(1).int()
+                   for x, y in zip(a, b)).bool().sum())
+
+
 def same_bits(a, b) -> bool:
     """Whether two RayStates hold the same bits in every field."""
     import torch
@@ -1045,6 +1078,51 @@ def tangent_rules(dev) -> dict:
         cases[f"x ** {e}"] = (lambda x, e=e: x ** e, pos, {
             "t * (e * x ** (e - 1))": lambda x, y, e=e: t * (e * x ** (e - 1)),
             "t * e * x ** (e - 1)": lambda x, y, e=e: t * e * x ** (e - 1)})
+    # The aten ops that dual.cuh gained for torch functions (ops/emit.py):
+    # libm's inverse trigonometry and hyperbolic functions, a power of two
+    # tensors (the exponent a tensor of its own, and one that carries the
+    # tangent too), clamp with tensor bounds, add and sub with alpha.
+    unit = (torch.rand(n, generator=gen) * 1.98 - 0.99).to(dev)
+    small = (torch.rand(n, generator=gen) * 6 - 3).to(dev)
+    other = (torch.rand(n, generator=gen) * 3 - 1.5).to(dev)
+    lo = (torch.rand(n, generator=gen) * 8 - 6).to(dev)
+    hi = lo + (torch.rand(n, generator=gen) * 6 - 1).to(dev)
+    cases["atan"] = (torch.atan, signed, {
+        "t / (x x + 1)": lambda x, y: t / (x * x + 1),
+        "t / (1 + x x)": lambda x, y: t / (1 + x * x)})
+    cases["asin"] = (torch.asin, unit, {
+        "t * rsqrt(-x x + 1)": lambda x, y: t * torch.rsqrt(-x * x + 1),
+        "t / sqrt(1 - x x)": lambda x, y: t / torch.sqrt(1 - x * x)})
+    cases["acos"] = (torch.acos, unit, {
+        "t * -rsqrt(-x x + 1)": lambda x, y: t * -torch.rsqrt(-x * x + 1)})
+    cases["sinh"] = (torch.sinh, small, {
+        "t * cosh x": lambda x, y: t * torch.cosh(x)})
+    cases["cosh"] = (torch.cosh, small, {
+        "t * sinh x": lambda x, y: t * torch.sinh(x)})
+    cases["x ** e (e a tensor)"] = (lambda x: x ** other, pos, {
+        "where(e == 0, 0, t * (e * x ** (e - 1)))": lambda x, y: torch.where(
+            other == 0, 0.0, t * (other * x ** (other - 1)))})
+    cases["x ** (x / 4 + 1/2)"] = (lambda x: x ** (x * 0.25 + 0.5), pos, {
+        "t (e x ** (e - 1)) + (t / 4) (y log x)": lambda x, y: (
+            t * ((x * 0.25 + 0.5) * x ** (x * 0.25 + 0.5 - 1))
+            + (t * 0.25) * (y * torch.log(x)))})
+    cases["clamp(x, lo, hi) tensors"] = (
+        lambda x: torch.clamp(x, lo, hi), signed, {
+            "where(lo > hi, 0, where(x < lo, 0, where(x > hi, 0, t)))":
+            lambda x, y: torch.where(lo > hi, 0.0, torch.where(
+                x < lo, 0.0, torch.where(x > hi, 0.0, t)))})
+    cases["clamp(lo, min=x)"] = (lambda x: torch.clamp(lo, min=x), signed, {
+        "where(lo > x, 0, t)": lambda x, y: torch.where(lo > x, 0.0, t)})
+    cases["clamp_min(x, lo)"] = (lambda x: torch.clamp_min(x, lo), signed, {
+        "where(x >= lo, t, 0)": lambda x, y: torch.where(x >= lo, t, 0.0)})
+    cases["add(x, x / 2, alpha=2.5)"] = (
+        lambda x: torch.add(x, x * 0.5, alpha=2.5), signed, {
+            "t + (t / 2) 2.5": lambda x, y: t + (t * 0.5) * 2.5,
+            "fma(2.5, t / 2, t)": lambda x, y: fma(
+                t * 0.5, torch.full_like(t, 2.5), t.double())})
+    cases["sub(x, x / 2, alpha=2.5)"] = (
+        lambda x: torch.sub(x, x * 0.5, alpha=2.5), signed, {
+            "t - (t / 2) 2.5": lambda x, y: t - (t * 0.5) * 2.5})
     out = {}
     for name, (fn, x, cands) in cases.items():
         y, d = torch.func.jvp(fn, (x,), (t,))
@@ -1053,6 +1131,18 @@ def tangent_rules(dev) -> dict:
               + ", ".join(f"{k} differs on {v}" for k, v in
                           out[name].items()))
         assert next(iter(out[name].values())) == 0, (name, out[name])
+    # The value of add / sub with alpha: dual.cuh's grt_add_alpha fuses it,
+    # fma(alpha, y, x), as torch's kernel does.
+    for name, fn, c in (("add", torch.add, 2.5), ("sub", torch.sub, -2.5)):
+        got = fn(signed, other, alpha=2.5)
+        out[f"{name} alpha value"] = {
+            "fma(alpha, y, x)": bits(fma(other, torch.full_like(other, c),
+                                         signed.double()), got),
+            "x + alpha y": bits(signed + c * other, got)}
+        print(f"[14 rules] torch.{name}(x, y, alpha=2.5) on {dev}, {n} "
+              "inputs: " + ", ".join(f"{k} differs on {v}" for k, v in
+                                     out[f"{name} alpha value"].items()))
+        assert out[f"{name} alpha value"]["fma(alpha, y, x)"] == 0
     return out
 
 
@@ -2598,16 +2688,55 @@ def pack_twin(name: str):
         config=dataclasses.replace(m.config, name=f"{name}_pack")))
 
 
+def op_zoo_fn(x, params):
+    """Schwarzschild perturbed by 1% through the aten ops and pair
+    functions that ops/emit.py writes for packs and no catalogue metric
+    calls (libm's inverse trigonometry and hyperbolic functions, a power of
+    two tensors, clamp with tensor bounds, one a parameter, add and sub with
+    alpha, csqrt and cabs of a pair of coordinates): each entry's tangent
+    goes through their dual rules, and phase 28 holds its emitted instance
+    to the plain march on the card."""
+    import torch
+    from geodesic_raytracing_tpu_torch.metrics.base import diag_metric
+    from geodesic_raytracing_tpu_torch.ops import complexify as cx
+
+    rs, a = params["rs"], params["a"]
+    r, th = x[1], x[2]
+    s, c = torch.sin(th), torch.cos(th)
+    f = 1.0 - rs / r
+    w = cx.csqrt((r * r - 4.0, 2.0 * c))
+    h = (torch.atan(r) + torch.asin(c * 0.5) + torch.acos(s * 0.5)
+         + torch.sinh(1.0 / r) + torch.cosh(c) + r ** (c * 0.1 - 1.0)
+         + torch.clamp(c, min=s - 1.0, max=s) + torch.clamp(s, min=a - 1.0)
+         + torch.clamp_max(c, s) + torch.add(c, s, alpha=2.0)
+         - torch.sub(s, c, alpha=0.5) + (cx.cabs(w) + cx.real(w)) / r)
+    return diag_metric(-f, 1.0 / f, r * r * (1.0 + 0.01 * h),
+                       r * r * s * s * (1.0 + 0.01 * h))
+
+
+def op_zoo():
+    """The op zoo registered as a pack metric (``op_zoo_pack``) in
+    schwarzschild's chart and config."""
+    from geodesic_raytracing_tpu_torch import metrics
+
+    m = metrics.get_metric("schwarzschild")
+    return metrics.register(dataclasses.replace(
+        m, name="op_zoo_pack", fn=op_zoo_fn, defaults={"rs": 1.0, "a": 0.5},
+        spherically_symmetric=False,
+        config=dataclasses.replace(m.config, name="op_zoo_pack")))
+
+
 def content_instances() -> list:
     """Phase 1's part of phase 28: load the example pack (it registers
     ``reissner_nordstrom``), register the pack twins, and return the
-    instances of the three, emitted from their functions, to build."""
+    instances of all of them, emitted from their functions, to build."""
     from geodesic_raytracing_tpu_torch import content, metrics
     from geodesic_raytracing_tpu_torch.ops import raymarch
 
     pack = content.load_pack(PACK_TORCH)
     assert not pack.broken and list(pack.metrics) == ["reissner_nordstrom"]
-    ms = [pack_twin(n) for n in EMITTED_TWINS]
+    ms = [pack_twin(n) for n in EMITTED_TWINS + EMITTED_FORMS]
+    ms.append(op_zoo())
     ms.append(metrics.get_metric("reissner_nordstrom"))
     return [raymarch.instance_of(m) for m in ms]
 
@@ -2650,12 +2779,19 @@ def content_path(dev) -> dict:
     ``DENSE_PLAIN_DEPTH``, against the plain march with the parameters as
     0-d tensors (the dynamic instance's twin); time, registers, spills and
     share of the bound beside the hand instance's.
+    (a2) The same for the pack twins of ``EMITTED_FORMS`` (a parameter
+    exponent, the rank-1 decompositions, complex pairs), each held to the
+    plain march at 480x270 instead, with nvcc's seconds beside the hand
+    instance's; and the op zoo (``op_zoo_fn``) at 480x270 against the plain
+    march.
     (b) The pack path: ``reissner_nordstrom`` of ``examples/pack_torch``, its
     dense and adaptive 1080p frames, every launch against the plain march,
     the card's 480x270 frame against the CPU's by the golden gate, the CLI
     with ``--content`` once.
-    (c) Hot-swap: adaptive 1080p frames of ``kerr_boyer`` and then of
-    ``reissner_nordstrom`` through ``runtime.hotswap.kernel_program``, the
+    (c) Hot-swap: adaptive 1080p frames of ``kerr_boyer``, of the
+    ``janis_newman_winicour`` pack twin (a parameter exponent: its dynamic
+    program serves) and of ``reissner_nordstrom`` through
+    ``runtime.hotswap.kernel_program``, the
     static (baked) build requested at frame 0: frames served by each
     program, the build's seconds, frame times before and after the swap;
     the baked launch against the dynamic one and against the plain march
@@ -2681,13 +2817,14 @@ def content_path(dev) -> dict:
     src = "geodesic_raytracing_tpu_torch/csrc/raymarch.cu"
     rep = "geodesic_raytracing_tpu/ops/pallas/raymarch.py:488"
 
-    def dense(metric):
-        """The dense 1080p flagship frame of ``metric`` through
-        render_frame, launches counted from 0: ``(image, input, output,
-        width, opts, counts)`` of its one launch."""
+    def dense(metric, size=(1920, 1080)):
+        """The dense flagship frame of ``metric`` (1080p, or ``size``)
+        through render_frame, launches counted from 0: ``(image, input,
+        output, width, opts, counts)`` of its one launch."""
         m, params, camera, asettings, feats = flagship_config(
             device=dev, metric=metric.name)
-        settings = dataclasses.replace(asettings, adaptive_sampling=False)
+        settings = dataclasses.replace(asettings, adaptive_sampling=False,
+                                       width=size[0], height=size[1])
         with recorded_launches(integrate, with_opts=True) as launch:
             raymarch.reset_launch_counts()
             img = pl.render_frame(m, camera, params, sky, settings, feats,
@@ -2695,7 +2832,7 @@ def content_path(dev) -> dict:
             torch.cuda.synchronize()
             counts = dict(raymarch.LAUNCHES_BY_METRIC)
         assert bool(torch.isfinite(img).all())
-        assert tuple(img.shape) == (1080, 1920, 3)
+        assert tuple(img.shape) == (size[1], size[0], 3)
         (s_in, s_out, width, opts), = launch
         return img, s_in, s_out, width, opts, counts
 
@@ -2736,9 +2873,7 @@ def content_path(dev) -> dict:
                                           image_width=width)
         torch.cuda.synchronize()
         same = same_bits(k_hand, s_out)
-        differ = int(sum((a.view(torch.int32) != b.view(torch.int32))
-                         .reshape(a.shape[0], -1).any(1).int()
-                         for a, b in zip(k_hand, s_out)).bool().sum())
+        differ = rays_differing(k_hand, s_out)
         err, plain_ms = held(f"emitted {base}", twin, s_in, params,
                              emit.tensor_params(params, dev), feats, opts,
                              width)
@@ -2773,6 +2908,79 @@ def content_path(dev) -> dict:
         hand_inputs[base] = (s_in, s_out, width, opts)
         del img, k_hand
     out["emitted_s"] = time.perf_counter() - t_a
+
+    # -- (a2) the last emitted forms against the hand structs -------------
+    # Their plain twins take the parameters as 0-d tensors on the host: the
+    # graphed plain march cannot read a parameter exponent on the host
+    # (param_pow) while it captures its step, and the dynamic structs
+    # evaluate every expression of parameters alone there too, in from_params
+    # (their complex pairs' cube root and csqrt in double).
+    t_f = time.perf_counter()
+    for base in EMITTED_FORMS:
+        hand = metrics.get_metric(base)
+        twin = metrics.get_metric(f"{base}_pack")
+        inst = raymarch.instance_of(twin)
+        img, s_in, s_out, width, opts, counts = dense(twin)
+        assert counts == {twin.name: 1}, counts
+        params, feats = twin.params(), integrate.Features.for_metric(twin)
+        k_hand = raymarch.trace_rays_cuda(hand, s_in, params, feats, opts,
+                                          image_width=width)
+        torch.cuda.synchronize()
+        same = same_bits(k_hand, s_out)
+        differ = rays_differing(k_hand, s_out)
+        _, ss_in, _, s_width, s_opts, s_counts = dense(twin, SMALL_FORMS)
+        assert s_counts == {twin.name: 1}, s_counts
+        err, plain_ms = held(f"emitted {base} 480x270", twin, ss_in, params,
+                             emit.tensor_params(params, "cpu"), feats,
+                             s_opts, s_width)
+        ms_e = median_launch_ms(twin, s_in, params, feats, opts, width)
+        ms_h = median_launch_ms(hand, s_in, params, feats, opts, width)
+        r_e = work_row(f"1080p dense {twin.name} (emitted)", twin, s_in,
+                       s_out, params, feats, opts, width, ms_e,
+                       ops=OPS_EMITTED[twin.name, bool(opts.planar)])
+        r_h = work_row(f"1080p dense {base} (hand struct)", hand, s_in,
+                       k_hand, params, feats, opts, width, ms_h)
+        p_e = ptxas_of(inst)
+        p_h = ptxas_of(raymarch.hand_instance(base))
+        print(f"[28 forms] {base}: frame launches {counts}; the emitted "
+              f"launch against the hand struct's on the same "
+              f"{s_in.status.numel()} rays: same bits {same} ({differ} rays "
+              f"differ); emitted {ms_e:.3f} ms (share "
+              f"{r_e['share_of_bound']:.4f}), hand {ms_h:.3f} ms (share "
+              f"{r_h['share_of_bound']:.4f}), ratio {ms_e / ms_h:.4f}; "
+              f"registers / spill bytes emitted "
+              f"{p_e['default']['registers']}/"
+              f"{p_e['default']['spill_store_bytes']} (planar "
+              f"{p_e['planar']['registers']}/"
+              f"{p_e['planar']['spill_store_bytes']}), hand "
+              f"{p_h['default']['registers']}/"
+              f"{p_h['default']['spill_store_bytes']} (planar "
+              f"{p_h['planar']['registers']}/"
+              f"{p_h['planar']['spill_store_bytes']}); nvcc emitted "
+              f"{p_e['build_s']} s, hand {p_h['build_s']} s")
+        out["rows"].append(row(base, f"{base} [emitted]", counts[twin.name],
+                               r_e, plain_ms, err, same_bits_as_hand=same,
+                               rays_differing_from_hand=differ,
+                               hand_ms=ms_h, hand=r_h, ptxas=p_e,
+                               hand_ptxas=p_h, struct=inst.struct,
+                               planar=bool(opts.planar),
+                               plain_measured_at="480x270 dense"))
+        hand_inputs[base] = (s_in, s_out, width, opts)
+        del img, k_hand
+    # The op zoo: those aten ops and pair functions in one emitted
+    # instance, its 480x270 launch against the plain march (the
+    # parameters on the card: a tensor bound of clamp must be there).
+    zoo = metrics.get_metric("op_zoo_pack")
+    _, z_in, z_out, z_w, z_opts, z_counts = dense(zoo, SMALL_FORMS)
+    assert z_counts == {zoo.name: 1}, z_counts
+    z_params = zoo.params()
+    z_err, z_plain = held("emitted op zoo 480x270", zoo, z_in, z_params,
+                          emit.tensor_params(z_params, dev),
+                          integrate.Features.for_metric(zoo), z_opts, z_w)
+    out["op_zoo"] = {"launches": z_counts, "max_abs_err": z_err,
+                     "plain_ms": z_plain, "struct": raymarch.instance_of(
+                         zoo).struct}
+    out["forms_s"] = time.perf_counter() - t_f
 
     # -- (b) the pack path -----------------------------------------------
     t_b = time.perf_counter()
@@ -2945,6 +3153,11 @@ def content_path(dev) -> dict:
     t_c = time.perf_counter()
     out["rows"].append(stream(metrics.get_metric("kerr_boyer"),
                               *hand_inputs["kerr_boyer"]))
+    # A parameter exponent (the JNW pack twin): its dynamic program serves
+    # while the baked library builds.
+    out["rows"].append(stream(
+        metrics.get_metric(f"{EMITTED_FORMS[0]}_pack"),
+        *hand_inputs[EMITTED_FORMS[0]]))
     # The CLI loaded the pack again: its metric is the registered one now.
     out["rows"].append(stream(metrics.get_metric(rn.name), *rn_dense))
     out["hotswap_s"] = time.perf_counter() - t_c
@@ -3476,7 +3689,7 @@ def main(argv=None) -> int:
     # Every metric's library at once, one nvcc each, and phase 28's emitted
     # instances with them.
     raymarch.NVCC_FLAGS = raymarch.with_flags(*shlex.split(args.kernel_flags))
-    # The emission (make_fx of three metrics) runs beside the 31 builds.
+    # The emission (make_fx of the pack metrics) runs beside the 31 builds.
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         hand_builds = pool.submit(raymarch.build_all)
         emitted = content_instances()

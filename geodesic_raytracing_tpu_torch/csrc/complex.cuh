@@ -190,12 +190,8 @@ GRT_HD GRT_INLINE double to_double(double x) { return x; }
 GRT_HD GRT_INLINE double to_double(Zero) { return 0.0; }
 
 // A part of a pair as the dual csqrt takes: a dual as it is, a float as a
-// constant, Zero as the constant 0 (the torch form fills it with zeros).
-template <unsigned A>
-GRT_HD GRT_INLINE Dual<A> as_dual(const Dual<A>& x) {
-  return x;
-}
-GRT_HD GRT_INLINE Dual<0u> as_dual(float x) { return dual_constant(x); }
+// constant (dual.cuh's as_dual), Zero as the constant 0 (the torch form
+// fills it with zeros).
 GRT_HD GRT_INLINE Dual<0u> as_dual(Zero) { return dual_constant(0.0f); }
 
 GRT_HD GRT_INLINE float clamp_min(float x, float lo) {
@@ -257,6 +253,24 @@ GRT_HD GRT_INLINE Cx<double, double> csqrt(double a) {
 // |z| of a double pair.
 GRT_HD GRT_INLINE double cabs(const Cx<double, double>& a) {
   return sqrt(a.re * a.re + a.im * a.im);
+}
+
+// |z| of a dual pair with the reference's derivative
+// (re dre + im dim) / max(|z|, 1e-37): torch's `_Cabs.jvp`, term for term.
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> cabs_dual(const Dual<A>& ar,
+                                          const Dual<B>& ai) {
+  const float m = sqrtf(ar.v * ar.v + ai.v * ai.v);
+  const float inv = 1.0f / clamp_min(m, 1e-37f);
+  return make_dual<(A | B)>(m, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    if constexpr (live(A, K) && live(B, K))
+      return (ar.v * ar.d[K] + ai.v * ai.d[K]) * inv;
+    else if constexpr (live(A, K))
+      return (ar.v * ar.d[K]) * inv;
+    else
+      return (ai.v * ai.d[K]) * inv;
+  });
 }
 
 // z ** c of a double pair by the polar form, |z| floored at 1e-37.

@@ -25,6 +25,17 @@
 //   arctan(x)' = x' / (1 + x*x)
 //   arctan2(y, x)' = (x*y' - y*x') / max(x*x + y*y, 1e-37)
 //   (x/y)' = (x' - y' * q) / y,  q = x/y   clamp(x, hi=h)' = where(x <= h, x', 0)
+// and for the aten ops a torch function may call beside those (ops/emit.py
+// writes them; torch.func.jvp's rules of torch.atan, asin, acos, sinh, cosh,
+// pow of two tensors, clamp with tensor bounds and add / sub with alpha):
+//   atan(x)' = x' / (x*x + 1)    asin(x)' = x' * rsqrt(-x*x + 1)
+//   acos(x)' = x' * -rsqrt(-x*x + 1)   sinh(x)' = x' * cosh x
+//   cosh(x)' = x' * sinh x
+//   pow(x, e)' = where(e == 0, 0, x' * (e * pow(x, e - 1)))
+//                + e' * where(x == 0 && e >= 0, 0, y * log x)
+//   clamp(x, lo, hi)' = where(lo > hi, hi', where(x < lo, lo',
+//                             where(x > hi, hi', x')))
+//   add(x, y, alpha)' = x' + y' * alpha   (the value fma(alpha, y, x))
 // so that a build without FMA contraction (nvcc -fmad=false) reproduces the
 // reference op for op up to the last ulp of the transcendentals.
 //
@@ -567,6 +578,162 @@ GRT_HD GRT_INLINE Dual<(A | B)> grt_arctan2(const Dual<A>& y,
     if constexpr (live(A, K)) ty = y.d[K];
     if constexpr (live(B, K)) tx = x.d[K];
     return (x.v * ty - y.v * tx) / d;
+  });
+}
+
+// -- aten ops of torch functions (ops/emit.py), with torch's forward rules --
+
+// A dual as it is, a float as a constant (an operand without a tangent).
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> as_dual(const Dual<A>& x) {
+  return x;
+}
+GRT_HD GRT_INLINE Dual<0u> as_dual(float x) { return dual_constant(x); }
+
+// torch.atan (libm's, not the reference's polynomial geometry.arctan).
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_atan(const Dual<A>& x) {
+  const float den = x.v * x.v + 1.0f;
+  return make_dual<A>(atanf(x.v), [&](auto k) {
+    return div_tangent<GRT_K(k)>(x, den);
+  });
+}
+
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_asin(const Dual<A>& x) {
+  const float s = grt_rsqrt(-x.v * x.v + 1.0f);
+  return make_dual<A>(asinf(x.v), [&](auto k) {
+    return scale_tangent<GRT_K(k)>(x, s);
+  });
+}
+
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_acos(const Dual<A>& x) {
+  const float s = -grt_rsqrt(-x.v * x.v + 1.0f);
+  return make_dual<A>(acosf(x.v), [&](auto k) {
+    return scale_tangent<GRT_K(k)>(x, s);
+  });
+}
+
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_sinh(const Dual<A>& x) {
+  const float c = coshf(x.v);
+  return make_dual<A>(sinhf(x.v), [&](auto k) {
+    return scale_tangent<GRT_K(k)>(x, c);
+  });
+}
+
+template <unsigned A>
+GRT_HD GRT_INLINE Dual<A> grt_cosh(const Dual<A>& x) {
+  const float s = sinhf(x.v);
+  return make_dual<A>(coshf(x.v), [&](auto k) {
+    return scale_tangent<GRT_K(k)>(x, s);
+  });
+}
+
+// x ** e of two tensors (an exponent of coordinates, or of parameters at
+// launch): powf, and each side's term where it carries the tangent.
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_pow_tensor(const Dual<A>& x,
+                                               const Dual<B>& e) {
+  const float y = powf(x.v, e.v);
+  return make_dual<(A | B)>(y, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    float tx = 0.0f, te = 0.0f;
+    if constexpr (live(A, K))
+      tx = e.v == 0.0f ? 0.0f : x.d[K] * (e.v * powf(x.v, e.v - 1.0f));
+    if constexpr (live(B, K))
+      te = e.d[K] * ((x.v == 0.0f && e.v >= 0.0f) ? 0.0f : y * logf(x.v));
+    if constexpr (live(A, K) && live(B, K)) return tx + te;
+    else if constexpr (live(A, K)) return tx;
+    else return te;
+  });
+}
+
+// The tangent a bound selects: its own, or 0 where it has none.
+template <int K, unsigned A>
+GRT_HD GRT_INLINE float tangent_or_zero(const Dual<A>& x) {
+  if constexpr (live(A, K)) return x.d[K];
+  else return 0.0f;
+}
+
+// torch.clamp(x, lo, hi) with tensor bounds (aten.clamp.Tensor): the value
+// min(max(x, lo), hi), the tangent of the side that gives it.
+template <unsigned A, unsigned B, unsigned C>
+GRT_HD GRT_INLINE Dual<(A | B | C)> grt_clamp_tensor(const Dual<A>& x,
+                                                     const Dual<B>& lo,
+                                                     const Dual<C>& hi) {
+  const float lo_v = x.v < lo.v ? lo.v : x.v;
+  return make_dual<(A | B | C)>(lo_v > hi.v ? hi.v : lo_v, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    return lo.v > hi.v  ? tangent_or_zero<K>(hi)
+           : x.v < lo.v ? tangent_or_zero<K>(lo)
+           : x.v > hi.v ? tangent_or_zero<K>(hi)
+                        : tangent_or_zero<K>(x);
+  });
+}
+
+// aten.clamp.Tensor with one bound: where(x > lo, x', lo') and
+// where(x < hi, x', hi').
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_clamp_tensor_min(const Dual<A>& x,
+                                                     const Dual<B>& lo) {
+  return make_dual<(A | B)>(x.v < lo.v ? lo.v : x.v, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    return x.v > lo.v ? tangent_or_zero<K>(x) : tangent_or_zero<K>(lo);
+  });
+}
+
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_clamp_tensor_max(const Dual<A>& x,
+                                                     const Dual<B>& hi) {
+  return make_dual<(A | B)>(x.v > hi.v ? hi.v : x.v, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    return x.v < hi.v ? tangent_or_zero<K>(x) : tangent_or_zero<K>(hi);
+  });
+}
+
+// aten.clamp_min.Tensor / clamp_max.Tensor: where(x >= lo, x', lo') and
+// where(x <= hi, x', hi').
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_clamp_min_tensor(const Dual<A>& x,
+                                                     const Dual<B>& lo) {
+  return make_dual<(A | B)>(x.v < lo.v ? lo.v : x.v, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    return x.v >= lo.v ? tangent_or_zero<K>(x) : tangent_or_zero<K>(lo);
+  });
+}
+
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_clamp_max_tensor(const Dual<A>& x,
+                                                     const Dual<B>& hi) {
+  return make_dual<(A | B)>(x.v > hi.v ? hi.v : x.v, [&](auto k) {
+    constexpr int K = GRT_K(k);
+    return x.v <= hi.v ? tangent_or_zero<K>(x) : tangent_or_zero<K>(hi);
+  });
+}
+
+// torch.add(x, y, alpha=c): torch's kernel fuses the value, fma(c, y, x);
+// the tangent x' + y' * c (torch.sub is add with -c: x' - y' * c).
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_add_alpha(const Dual<A>& x,
+                                              const Dual<B>& y, float c) {
+  return make_dual<(A | B)>(fmaf(c, y.v, x.v), [&](auto k) {
+    constexpr int K = GRT_K(k);
+    if constexpr (live(A, K) && live(B, K)) return x.d[K] + y.d[K] * c;
+    else if constexpr (live(A, K)) return x.d[K];
+    else return y.d[K] * c;
+  });
+}
+
+template <unsigned A, unsigned B>
+GRT_HD GRT_INLINE Dual<(A | B)> grt_sub_alpha(const Dual<A>& x,
+                                              const Dual<B>& y, float c) {
+  return make_dual<(A | B)>(fmaf(-c, y.v, x.v), [&](auto k) {
+    constexpr int K = GRT_K(k);
+    if constexpr (live(A, K) && live(B, K)) return x.d[K] - y.d[K] * c;
+    else if constexpr (live(A, K)) return x.d[K];
+    else return -(y.d[K] * c);
   });
 }
 

@@ -228,16 +228,6 @@ def _operands(ar, ai):
     return ar, ai
 
 
-def _not_emitted(what: str) -> None:
-    """Complex pairs of coordinates have no emitted form yet (``ops.emit``
-    raises for them; the catalogue's complex metrics have structs of their
-    own in ``csrc/multibody.cuh``)."""
-    if geometry.emitting() is not None:
-        raise NotImplementedError(
-            f"ops.emit: complex pairs (ops/complexify.{what} of a coordinate "
-            "expression) are not emitted yet")
-
-
 def cabs(a):
     """|z|: |re| where z is real, else the custom-derivative modulus."""
     ar, ai = pair(a)
@@ -245,7 +235,9 @@ def cabs(a):
         return torch.abs(ar) if _is_tensor(ar) else abs(ar)
     ar, ai = _operands(ar, ai)
     if _is_tensor(ar):
-        _not_emitted("cabs")
+        trace = geometry.emitting()
+        if trace is not None:  # one op of ops.emit (complex.cuh's cabs)
+            return trace.cabs(ar, ai)
         return _Cabs.apply(ar, ai)
     return math.sqrt(ar * ar + ai * ai)
 
@@ -256,7 +248,9 @@ def csqrt(a):
     zeros, as the reference materialises it."""
     ar, ai = _operands(*pair(a))
     if _is_tensor(ar):
-        _not_emitted("csqrt")
+        trace = geometry.emitting()
+        if trace is not None:  # one op of ops.emit (complex.cuh's csqrt)
+            return trace.csqrt(ar, ai)
         return _Csqrt.apply(ar, ai)
     return _csqrt_float(ar, ai)
 
@@ -268,6 +262,9 @@ def cpow(a, c: float):
     exact atan2 (the reference's polynomial one stands in for Mosaic's
     missing atan)."""
     ar, ai = _operands(*pair(a))
+    trace = geometry.emitting()
+    if trace is not None and _is_tensor(ar):  # complex.cuh's double cpow
+        return trace.cpow(ar, ai, c)
     m = cabs((ar, ai))
     if _is_tensor(ar):
         theta = torch.atan2(ai, ar)

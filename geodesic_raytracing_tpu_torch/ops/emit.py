@@ -17,16 +17,29 @@ float entry a constant one, and an entry the metric's declared structure
 plain march's ``sym_metric`` fills in.  Each entry is then written as a
 chain of ``csrc/dual.cuh`` calls in the graph's order; the tangents come
 from the ``Dual<MASK>`` types, whose rules are torch's forward-mode rules
-op for op, so no jvp graph is emitted.  ``geometry.arctan`` /
-``arctan2`` record one node each (their custom derivative is the dual's),
-and ``sin`` and ``cos`` of one node share one ``grt_sincos``.  The chart's
-``polar_r`` (``to_polar(x)[1]``) and, where the config's origin is not
-``at_origin``, ``origin_distance`` are emitted the same way on constant
-duals.
+op for op, so no jvp graph is emitted.  The functions with a custom
+derivative record one node each (``geometry.arctan`` / ``arctan2``, and
+``ops/complexify``'s ``cabs`` and ``csqrt`` of a pair, written as
+``csrc/complex.cuh``'s dual-pair functions), as do those that read a
+parameter on the host (``geometry.param_pow``: a ``PowRule`` member set in
+``from_params``; ``complexify.cpow`` of parameters: complex.cuh's double
+``cpow`` there), and ``sin`` and ``cos`` of one node share one
+``grt_sincos``.  The chart's ``polar_r`` (``to_polar(x)[1]``) and, where
+the config's origin is not ``at_origin``, ``origin_distance`` are emitted
+the same way on constant duals.  A rank-1 metric (``Metric.rank1``, a
+pack's ``RANK1``) is emitted from its decomposition instead: ``fl(x, y,
+z)`` returns ``Rank1{f, l1, l2, l3}`` (``csrc/kerr_schild.cuh``) and the
+march takes its rank-1 acceleration; l_0 must be the constant 1 and the
+decomposition must depend on x, y and z.
+
+A custom ``torch.autograd.Function`` of a pack is traced through its
+forward, whose ops' rules are not its own ``jvp``: ``emit_metric`` holds
+``torch.func.jvp`` of the recorded graph (what the struct computes) to
+``torch.func.jvp`` of the function on seeded events of the chart and
+raises ``NotImplementedError`` naming the entry where they part.
 
 Op set: exactly what ``dual.cuh`` carries (``OPS``); any other aten op
-raises ``NotImplementedError`` naming it, as do a rank-1 (``RANK1``) metric
-and complex pairs (``ops/complexify``): they are not emitted yet.
+raises ``NotImplementedError`` naming it.
 
 Two modes, the reference's split between its dynamic program and ``bake``:
 
@@ -61,7 +74,7 @@ import numpy as np
 import torch
 
 from ..metrics import base as mbase
-from . import geometry
+from . import complexify, geometry
 
 _lib = torch.library.Library("grt_emit", "DEF")
 _lib.define("arctan(Tensor x) -> Tensor")
@@ -75,12 +88,33 @@ _lib.impl("arctan2",
           lambda y, x: torch.empty(torch.broadcast_shapes(y.shape, x.shape),
                                    dtype=torch.result_type(y, x),
                                    device=y.device), "Meta")
+# geometry.param_pow with a tensor exponent, complexify's cabs and csqrt of
+# a pair (the pair's parts have one shape) and cpow of a pair of parameters.
+_lib.define("param_pow(Tensor x, Tensor e) -> Tensor")
+_lib.define("cabs(Tensor re, Tensor im) -> Tensor")
+_lib.define("csqrt(Tensor re, Tensor im) -> (Tensor, Tensor)")
+_lib.define("cpow(Tensor re, Tensor im, float c) -> (Tensor, Tensor)")
+_lib.impl("param_pow", lambda x, e: x ** float(e), "CompositeExplicitAutograd")
+_lib.impl("cabs", lambda re, im: complexify.cabs((re, im)),
+          "CompositeExplicitAutograd")
+_lib.impl("csqrt", lambda re, im: complexify.csqrt((re, im)),
+          "CompositeExplicitAutograd")
+_lib.impl("cpow", lambda re, im, c: complexify.cpow((re, im), c),
+          "CompositeExplicitAutograd")
+_lib.impl("param_pow", lambda x, e: torch.empty_like(x), "Meta")
+_lib.impl("cabs", lambda re, im: torch.empty_like(re), "Meta")
+_lib.impl("csqrt", lambda re, im: (torch.empty_like(re),
+                                   torch.empty_like(re)), "Meta")
+_lib.impl("cpow", lambda re, im, c: (torch.empty_like(re),
+                                     torch.empty_like(re)), "Meta")
 
 # The aten ops the emitter writes, by overload packet.
 OPS = ("add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sin", "cos",
        "sqrt", "exp", "log", "log1p", "tanh", "pow", "abs", "where", "clamp",
        "clamp_min", "clamp_max", "gt", "lt", "ge", "le", "eq", "ne",
-       "logical_and", "logical_or", "logical_not", "arctan", "arctan2")
+       "logical_and", "logical_or", "logical_not", "atan", "asin", "acos",
+       "sinh", "cosh", "arctan", "arctan2", "param_pow", "cabs", "csqrt",
+       "cpow")
 # Shape and dtype bookkeeping that changes no value of an elementwise scalar.
 _PASS = ("alias", "clone", "detach", "expand", "view", "_unsafe_view",
          "lift_fresh_copy", "squeeze", "unsqueeze", "_to_copy", "to",
@@ -91,17 +125,26 @@ _FILL = ("zeros_like", "ones_like", "full_like", "scalar_tensor", "full",
 # correctly rounded ones (the card's result is the host's).
 _EXACT = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sqrt",
           "abs", "where", "clamp", "clamp_min", "clamp_max", "gt", "lt",
-          "ge", "le", "eq", "ne", "logical_and", "logical_or", "logical_not"}
+          "ge", "le", "eq", "ne", "logical_and", "logical_or", "logical_not",
+          "cabs"}
 _UNARY_DUAL = {"reciprocal": "grt_recip", "sqrt": "grt_sqrt",
                "exp": "grt_exp", "log": "grt_log", "log1p": "grt_log1p",
-               "tanh": "grt_tanh", "abs": "grt_abs", "arctan": "grt_arctan"}
+               "tanh": "grt_tanh", "abs": "grt_abs", "arctan": "grt_arctan",
+               "atan": "grt_atan", "asin": "grt_asin", "acos": "grt_acos",
+               "sinh": "grt_sinh", "cosh": "grt_cosh"}
 _UNARY_F32 = {"reciprocal": "1.0f / {}", "sqrt": "sqrtf({})",
               "exp": "expf({})", "log": "logf({})", "log1p": "log1pf({})",
               "tanh": "tanhf({})", "abs": "fabsf({})", "sin": "sinf({})",
-              "cos": "cosf({})", "arctan": "grt_arctan({})"}
+              "cos": "cosf({})", "arctan": "grt_arctan({})",
+              "atan": "atanf({})", "asin": "asinf({})", "acos": "acosf({})",
+              "sinh": "sinhf({})", "cosh": "coshf({})"}
 _UNARY_F64 = {"reciprocal": "1.0 / {}", "sqrt": "sqrt({})", "exp": "exp({})",
               "log": "log({})", "log1p": "log1p({})", "tanh": "tanh({})",
-              "abs": "fabs({})", "sin": "sin({})", "cos": "cos({})"}
+              "abs": "fabs({})", "sin": "sin({})", "cos": "cos({})",
+              "atan": "atan({})", "asin": "asin({})", "acos": "acos({})",
+              "sinh": "sinh({})", "cosh": "cosh({})"}
+# Keyword arguments an op may carry (any other raises).
+_KWARGS = {"add": {"alpha"}, "sub": {"alpha"}}
 _CMP = {"gt": ">", "lt": "<", "ge": ">=", "le": "<=", "eq": "==", "ne": "!="}
 
 _trace_lock = threading.Lock()
@@ -141,7 +184,8 @@ class _Trace:
     """What the lower layers hand to a trace (``geometry.emitting()``):
     the entry dicts of ``metrics.base.sym_metric`` (``entries``, which is
     also what it returns), and one node for each ``geometry.arctan`` /
-    ``arctan2``."""
+    ``arctan2`` / ``param_pow`` and ``complexify.cabs`` / ``csqrt`` /
+    ``cpow`` of tensors."""
 
     def __init__(self):
         self.entries: list = []
@@ -160,6 +204,22 @@ class _Trace:
                 else torch.full_like(x if isinstance(x, torch.Tensor) else y,
                                      float(v)) for v in (y, x))
         return torch.ops.grt_emit.arctan2(y, x)
+
+    @staticmethod
+    def param_pow(x, e):
+        return torch.ops.grt_emit.param_pow(x, e)
+
+    @staticmethod
+    def cabs(re, im):
+        return torch.ops.grt_emit.cabs(re, im)
+
+    @staticmethod
+    def csqrt(re, im):
+        return tuple(torch.ops.grt_emit.csqrt(re, im))
+
+    @staticmethod
+    def cpow(re, im, c):
+        return tuple(torch.ops.grt_emit.cpow(re, im, float(c)))
 
 
 def _record(fn: Callable, n_params: int):
@@ -214,6 +274,154 @@ def _trace_entries(metric: mbase.Metric, param_names, baked):
     return gm, layout
 
 
+def _trace_rank1(metric: mbase.Metric, param_names, baked):
+    """The graph of the metric's rank-1 decomposition whose outputs are f,
+    l0, l1, l2 and l3, and their names."""
+    def fn(x0, x1, x2, x3, *p):
+        params = dict(baked) if baked is not None else dict(
+            zip(param_names, p))
+        f, lv = metric.rank1(torch.stack([x0, x1, x2, x3]), params)
+        return (f, *(lv[i] for i in range(4)))
+
+    gm = _record(fn, 0 if baked is not None else len(param_names))
+    return gm, ["f", "l0", "l1", "l2", "l3"]
+
+
+def _coordinates_reaching(gm, outputs) -> set:
+    """The coordinates (placeholders 0-3) that the graph outputs of the
+    indices ``outputs`` depend on: an element of a stack depends on what
+    that element does."""
+    deps: dict = {}
+
+    def of(a):
+        d = deps.get(a, set()) if isinstance(a, torch.fx.Node) else set()
+        return set().union(*d) if isinstance(d, list) else d
+
+    places = 0
+    for n in gm.graph.nodes:
+        if n.op == "placeholder":
+            deps[n] = {places} if places < 4 else set()
+            places += 1
+        elif n.op == "call_function":
+            op = _packet(n)
+            src = deps.get(n.args[0]) if n.args else None
+            if op == "stack":
+                deps[n] = [of(a) for a in n.args[0]]
+            elif op == "select" and isinstance(src, list) \
+                    and n.args[1] == 0:
+                deps[n] = src[n.args[2]]
+            elif n.target is operator.getitem and isinstance(src, list):
+                deps[n] = src[n.args[1]]
+            elif op == "unbind" and isinstance(src, list):
+                deps[n] = src
+            else:
+                deps[n] = set().union(*(of(a) for a in n.all_input_nodes))
+    out = next(n for n in gm.graph.nodes if n.op == "output").args[0]
+    return set().union(*(of(out[i]) for i in outputs))
+
+
+def _replay(gm):
+    """The recorded graph with each op of ``grt_emit`` replaced by the
+    function it stands for, whose derivative is the rule the struct
+    applies (what ``torch.func.jvp`` of the graph then computes is the
+    struct's tangent)."""
+    ops = torch.ops.grt_emit
+    table = {ops.arctan.default: geometry.arctan,
+             ops.arctan2.default: geometry.arctan2,
+             ops.param_pow.default: geometry.param_pow,
+             ops.cabs.default: lambda re, im: complexify.cabs((re, im)),
+             ops.csqrt.default: lambda re, im: complexify.csqrt((re, im)),
+             ops.cpow.default: lambda re, im, c: complexify.cpow((re, im),
+                                                                 c)}
+    graph = torch.fx.Graph()
+    graph.output(graph.graph_copy(gm.graph, {}))
+    for n in graph.nodes:
+        if n.op == "call_function" and n.target in table:
+            n.target = table[n.target]
+    return torch.fx.GraphModule(gm, graph)
+
+
+# The tangent check: seeded events of the chart (polar t, r, theta, phi
+# mapped by the metric's from_polar), in pairs (the graphs are recorded on
+# (2,) coordinates), and the tolerance between the two tangents.
+CHECK_EVENTS = 6
+CHECK_RTOL = 1e-3
+
+
+def check_tangents(metric: mbase.Metric, gm, layout, param_names,
+                   baked) -> None:
+    """Raise NotImplementedError where ``torch.func.jvp`` of the recorded
+    graph ``gm`` (the struct's tangents, its custom ops' rules being their
+    functions') and of the metric function part by more than rounding, on
+    the ``CHECK_EVENTS`` seeded events with the default (or baked)
+    parameters, by each coordinate the metric is differentiated by,
+    where both are finite.  ``layout``: the graph's outputs as
+    ``_trace_entries`` or ``_trace_rank1`` give them."""
+    rank1 = metric.rank1 is not None
+    fparams = dict(baked) if baked is not None else metric.params()
+    tparams = (fparams if baked is not None
+               else tensor_params(fparams, "cpu"))
+    pvals = [] if baked is not None else [tparams[k] for k in param_names]
+    rng = np.random.default_rng(0)
+    n = CHECK_EVENTS
+    polar = torch.from_numpy(np.stack([
+        rng.uniform(-2.0, -0.5, n), rng.uniform(3.0, 12.0, n),
+        rng.uniform(0.4, 2.7, n), rng.uniform(-3.0, 3.0, n)]
+    ).astype(np.float32))
+    with torch.no_grad():
+        events = metric.from_polar(polar, fparams).float()
+    if rank1:
+        names = list(layout)
+
+        def ref(x):
+            f, lv = metric.rank1(x, tparams)
+            return (f, *(lv[i] for i in range(4)))
+    else:
+        tensor_keys = [key for key, w in layout if not isinstance(w, float)]
+        names = [f"g{key}" for key in tensor_keys]
+
+        def ref(x):
+            g = metric.fn(x, tparams)
+            return tuple(g[i, j] for i, j in tensor_keys)
+
+    replay = _replay(gm)
+    deps = (1, 2, 3) if rank1 else tuple(metric.depends_on)
+    got = {k: ([], []) for k in deps}
+    for c in range(0, n - 1, 2):
+        xs = tuple(events[i, c:c + 2].contiguous() for i in range(4))
+        for k in deps:
+            seed = tuple(torch.ones(2) if i == k else torch.zeros(2)
+                         for i in range(4))
+            try:
+                _, t_graph = torch.func.jvp(lambda *x: replay(*x, *pvals),
+                                            xs, seed)
+                _, t_fn = torch.func.jvp(lambda *x: ref(torch.stack(x)),
+                                         xs, seed)
+            except Exception as e:
+                raise NotImplementedError(
+                    f"ops.emit: {metric.name}: torch.func.jvp of its "
+                    f"function failed: {type(e).__name__}: {e}") from e
+            for side, ts in zip(got[k], (t_graph, t_fn)):
+                side.append(torch.stack([torch.broadcast_to(t.float(), (2,))
+                                         for t in ts]))
+    for k, (a, b) in got.items():
+        a, b = torch.cat(a, 1), torch.cat(b, 1)
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        a, b = torch.where(fin, a, 0.0), torch.where(fin, b, 0.0)
+        scale = torch.maximum(a.abs(), b.abs())
+        floor = scale.amax(1, keepdim=True) * 1e-6
+        bad = (a - b).abs() > CHECK_RTOL * scale + floor
+        if bad.any():
+            o, e = (int(v) for v in bad.nonzero()[0])
+            raise NotImplementedError(
+                f"ops.emit: {metric.name}: the tangent of its entry "
+                f"{names[o]} by x{k} on its recorded ops ({float(a[o, e])!r}"
+                f") is not its function's ({float(b[o, e])!r}): a custom "
+                "torch.autograd.Function with its own jvp is traced through "
+                "its forward, and the struct would differentiate that "
+                "(write the function of ops it records)")
+
+
 class _Emitter:
     """Writes the nodes of one graph as C++ statements."""
 
@@ -229,6 +437,7 @@ class _Emitter:
         self.body: list = []
         self.members: list = []  # (c type, name)
         self.init: list = []  # from_params statements
+        self.rules: dict = {}  # exponent node -> its PowRule member
         self.placeholders = [n for n in gm.graph.nodes
                              if n.op == "placeholder"]
 
@@ -274,7 +483,10 @@ class _Emitter:
         name = f"{self.prefix}{len(self.vals)}"
         ctype = {"dual": "const auto", "f32": "const float",
                  "f64": "const double", "bool": "const bool"}[kind]
-        if param_only and exact and self.hoist and kind != "dual":
+        # A double expression of parameters goes to from_params whatever
+        # its op: the hand structs evaluate them there, on the host's libm.
+        if param_only and (exact or kind == "f64") and self.hoist \
+                and kind != "dual":
             mtype = {"f32": "float", "f64": "double", "bool": "bool"}[kind]
             self.members.append((mtype, name))
             self.init.append(f"[[maybe_unused]] const {mtype} {name} = "
@@ -296,6 +508,15 @@ class _Emitter:
             if n in live:
                 continue
             live.add(n)
+            src = n.args[0] if n.op == "call_function" and n.args else None
+            if _packet(n) == "select" and isinstance(src, torch.fx.Node) \
+                    and _packet(src) == "stack" and n.args[1] == 0:
+                # An element of a stack needs that element alone.
+                live.add(src)
+                elem = src.args[0][n.args[2]]
+                stack.extend([elem] if isinstance(elem, torch.fx.Node)
+                             else [])
+                continue
             stack.extend(n.all_input_nodes)
         sincos = {}
         for n in graph.nodes:
@@ -325,12 +546,6 @@ class _Emitter:
         args = [self._const(a) for a in n.args]
         val = n.meta.get("val")
         dtype = val.dtype if isinstance(val, torch.Tensor) else None
-        ins = [a for a in _flat(args) if isinstance(a, torch.fx.Node)]
-        has_dual = any(self.vals[a][0] == "dual" for a in ins
-                       if self.vals[a][0] != "vec")
-        param_only = (self.dynamic and not has_dual and bool(ins)
-                      and all(self.vals[a][0] in ("f32", "f64", "bool")
-                              and self.vals[a][2] for a in ins))
         if op == "stack":
             self.vals[n] = ("vec", list(args[0]), False)
             return
@@ -347,6 +562,12 @@ class _Emitter:
         if n.target is operator.getitem:
             self.vals[n] = self._element(self.vals[args[0]][1][args[1]])
             return
+        ins = [a for a in _flat(args) if isinstance(a, torch.fx.Node)]
+        has_dual = any(self.vals[a][0] == "dual" for a in ins
+                       if self.vals[a][0] != "vec")
+        param_only = (self.dynamic and not has_dual and bool(ins)
+                      and all(self.vals[a][0] in ("f32", "f64", "bool")
+                              and self.vals[a][2] for a in ins))
         if op in _PASS:
             src = self.vals[args[0]]
             if dtype is not None and src[0] == "dual" \
@@ -373,6 +594,15 @@ class _Emitter:
             raise NotImplementedError(
                 f"ops.emit: aten.{op} is not in the emitted op set "
                 f"(csrc/dual.cuh: {', '.join(OPS)})")
+        extra = set(n.kwargs) - _KWARGS.get(op, set())
+        if extra:
+            raise NotImplementedError(
+                f"ops.emit: aten.{op} with {', '.join(sorted(extra))}=")
+        if "alpha" in n.kwargs:
+            args = args[:2] + [n.kwargs["alpha"]]
+        if op in ("csqrt", "cpow"):
+            self._pair(n, op, args, val[0].dtype, has_dual, param_only)
+            return
         if dtype not in (torch.float32, torch.float64, torch.bool):
             raise NotImplementedError(f"ops.emit: aten.{op} of {dtype}")
         if has_dual and dtype == torch.float64:
@@ -388,7 +618,60 @@ class _Emitter:
                 else self._scalar_op(op, args, dtype))
         self.bind(n, kind, expr, param_only=param_only, exact=exact)
 
+    def _pair(self, n, op, args, dtype, has_dual, param_only):
+        """complexify's csqrt of a pair (of coordinates: complex.cuh's dual
+        csqrt; of parameters: its double one, in from_params) or cpow of a
+        pair of parameters (complex.cuh's double cpow, in from_params)."""
+        name = f"{self.prefix}{len(self.vals)}"
+        if has_dual or dtype == torch.float32:
+            if op == "cpow":
+                raise NotImplementedError(
+                    "ops.emit: complexify.cpow of a coordinate expression or "
+                    "of float32 parameters (a pair of parameters in double "
+                    "is emitted)")
+            re, im = (f"as_dual({self.operand(a)})" for a in args[:2])
+            self.body.append(f"const auto {name} = csqrt_dual({re}, {im});")
+            v = "" if has_dual else ".v"
+            kind = "dual" if has_dual else "f32"
+            self.vals[n] = ("tuple", [(kind, f"{name}.re{v}", False),
+                                      (kind, f"{name}.im{v}", False)], False)
+            return
+        re, im = (self.scalar(a, torch.float64) for a in args[:2])
+        expr = (f"csqrt_double({re}, {im})" if op == "csqrt" else
+                f"cpow(Cx<double, double>{{{re}, {im}}}, "
+                f"{lit(float(args[2]), torch.float64)})")
+        if param_only and self.hoist:
+            self.init.append(f"const auto {name} = {expr};")
+            for part in ("re", "im"):
+                self.members.append(("double", f"{name}_{part}"))
+                self.init.append(f"[[maybe_unused]] const double {name}_"
+                                 f"{part} = m.{name}_{part} = {name}.{part};")
+            self.vals[n] = ("tuple", [("f64", f"{name}_re", True),
+                                      ("f64", f"{name}_im", True)], True)
+            return
+        self.body.append(f"const auto {name} = {expr};")
+        self.vals[n] = ("tuple", [("f64", f"{name}.re", False),
+                                  ("f64", f"{name}.im", False)], False)
+
+    def _rule(self, e) -> str:
+        """The ``PowRule`` of a parameter exponent ``e``: a member set in
+        from_params where ``e`` is one, else an expression."""
+        if self.kind(e) == "dual":
+            raise NotImplementedError(
+                "ops.emit: geometry.param_pow with an exponent of "
+                "coordinates (torch.pow of two tensors is emitted)")
+        expr = f"pow_rule({self.scalar(e, torch.float64)})"
+        if not (isinstance(e, torch.fx.Node) and self.vals[e][2]):
+            return expr
+        if e not in self.rules:
+            self.rules[e] = name = f"{self.prefix}r{len(self.rules)}"
+            self.members.append(("PowRule", name))
+            self.init.append(f"m.{name} = {expr};")
+        return self.rules[e]
+
     def _element(self, e):
+        if isinstance(e, tuple):  # (kind, expression, member) of a pair op
+            return e
         if isinstance(e, torch.fx.Node):
             return self.vals[e]
         return ("pyc", float(e), False)
@@ -422,9 +705,14 @@ class _Emitter:
         s = lambda a: self.scalar(a, dtype)  # noqa: E731
         f32 = dtype == torch.float32
         if op in ("add", "sub"):
-            _no_alpha(op, args)
+            c = _alpha(op, args)
+            if c != 1.0:  # torch's kernel fuses a + c * b
+                fma = "fmaf" if f32 else "fma"
+                c = -c if op == "sub" else c
+                return f"{fma}({lit(c, dtype)}, {s(args[1])}, {s(args[0])})"
             return f"{s(args[0])} {'+' if op == 'add' else '-'} {s(args[1])}"
         if op == "rsub":
+            _alpha(op, args)
             return f"{s(args[1])} - {s(args[0])}"
         if op == "mul":
             return f"{s(args[0])} * {s(args[1])}"
@@ -440,10 +728,26 @@ class _Emitter:
             lo, hi = _bounds(op, args)
             e = s(args[0])
             if lo is not None:
-                e = f"({e} < {lit(lo, dtype)} ? {lit(lo, dtype)} : {e})"
+                b = s(lo)
+                e = f"({e} < {b} ? {b} : {e})"
             if hi is not None:
-                e = f"({e} > {lit(hi, dtype)} ? {lit(hi, dtype)} : {e})"
+                b = s(hi)
+                e = f"({e} > {b} ? {b} : {e})"
             return e
+        if op == "cabs":
+            if f32:
+                return f"sqrtf({s(args[0])} * {s(args[0])} + " \
+                       f"{s(args[1])} * {s(args[1])})"
+            return f"cabs(Cx<double, double>{{{s(args[0])}, {s(args[1])}}})"
+        if op == "param_pow":
+            if not f32:
+                raise NotImplementedError("ops.emit: a float64 param_pow")
+            return f"torch_pow({s(args[0])}, {self._rule(args[1])}.value)"
+        if op == "pow" and isinstance(args[1], torch.fx.Node):
+            if not f32:
+                raise NotImplementedError(
+                    "ops.emit: a float64 pow with a tensor exponent")
+            return f"powf({s(args[0])}, {s(args[1])})"
         if op == "pow":
             e = _exponent(args)
             if f32:
@@ -465,10 +769,14 @@ class _Emitter:
 
     def _dual(self, n, op, args, sincos):
         o = lambda a: self.operand(a)  # noqa: E731
+        d = lambda a: f"as_dual({o(a)})"  # noqa: E731
         if op in ("add", "sub"):
-            _no_alpha(op, args)
+            c = _alpha(op, args)
+            if c != 1.0:
+                return f"grt_{op}_alpha({d(args[0])}, {d(args[1])}, {lit(c)})"
             return f"{o(args[0])} {'+' if op == 'add' else '-'} {o(args[1])}"
         if op == "rsub":
+            _alpha(op, args)
             return f"{o(args[1])} - {o(args[0])}"
         if op == "mul":
             return f"{o(args[0])} * {o(args[1])}"
@@ -494,18 +802,36 @@ class _Emitter:
             return f"grt_{op}({o(args[0])})"
         if op in _UNARY_DUAL:
             return f"{_UNARY_DUAL[op]}({o(args[0])})"
+        if op == "pow" and isinstance(args[1], torch.fx.Node):
+            return f"grt_pow_tensor({d(args[0])}, {d(args[1])})"
         if op == "pow":
             return (f"grt_pow({o(args[0])}, "
                     f"pow_rule({lit(_exponent(args), torch.float64)}))")
+        if op == "param_pow":
+            return f"grt_pow({o(args[0])}, {self._rule(args[1])})"
+        if op == "cabs":
+            return f"cabs_dual({d(args[0])}, {d(args[1])})"
         if op == "where":
             c = self._truth(args[0])
             a, b = o(args[1]), o(args[2])
             if not any(self.kind(x) == "dual" for x in args[1:3]):
                 return f"{c} ? {a} : {b}"
             return f"grt_where({c}, {a}, {b})"
+        if op in ("clamp", "clamp_min", "clamp_max") \
+                and n.target._overloadname == "Tensor":
+            lo, hi = _bounds(op, args)
+            x = d(args[0])
+            if op != "clamp":  # clamp_min / clamp_max: >= and <=
+                return f"grt_{op}_tensor({x}, {d(lo if hi is None else hi)})"
+            if lo is not None and hi is not None:
+                return f"grt_clamp_tensor({x}, {d(lo)}, {d(hi)})"
+            if lo is not None:
+                return f"grt_clamp_tensor_min({x}, {d(lo)})"
+            return f"grt_clamp_tensor_max({x}, {d(hi)})"
         if op in ("clamp", "clamp_min", "clamp_max"):
             lo, hi = _bounds(op, args)
             x = o(args[0])
+            lo, hi = (None if b is None else float(b) for b in (lo, hi))
             if lo is not None and hi is not None:
                 return f"grt_clamp({x}, {lit(lo)}, {lit(hi)})"
             if lo is not None:
@@ -536,9 +862,12 @@ def _flat(args):
             yield a
 
 
-def _no_alpha(op, args):
-    if len(args) > 2 and args[2] != 1:
-        raise NotImplementedError(f"ops.emit: aten.{op} with alpha {args[2]}")
+def _alpha(op, args) -> float:
+    """The ``alpha`` of aten.add / sub (1 where there is none)."""
+    c = args[2] if len(args) > 2 else 1
+    if isinstance(c, torch.fx.Node) or (op == "rsub" and c != 1):
+        raise NotImplementedError(f"ops.emit: aten.{op} with alpha {c}")
+    return float(c)
 
 
 def _inv(c, dtype) -> str:
@@ -551,15 +880,12 @@ def _inv(c, dtype) -> str:
 
 def _bounds(op, args):
     if op == "clamp_min":
-        return float(args[1]), None
+        return args[1], None
     if op == "clamp_max":
-        return None, float(args[1])
+        return None, args[1]
     lo = args[1] if len(args) > 1 else None
     hi = args[2] if len(args) > 2 else None
-    if isinstance(lo, torch.fx.Node) or isinstance(hi, torch.fx.Node):
-        raise NotImplementedError("ops.emit: aten.clamp with tensor bounds")
-    return (None if lo is None else float(lo),
-            None if hi is None else float(hi))
+    return lo, hi
 
 
 def _exponent(args) -> float:
@@ -586,10 +912,9 @@ def _ident(name: str) -> str:
     return re.sub(r"[^0-9A-Za-z]+", "_", name).strip("_") or "metric"
 
 
-def _struct_facts(metric: mbase.Metric) -> list:
+def _struct_facts(metric: mbase.Metric, deps) -> list:
     cfg = metric.config
     w = metric.precision_weights()
-    deps = tuple(metric.depends_on)
     dep = " : ".join(f"k == {k} ? {d}" for k, d in enumerate(deps[:-1]))
     dep = (f"{dep} : {deps[-1]}" if dep else f"{deps[-1]}") if deps else "-1"
     weight = "i == 0 ? {} : i == 1 ? {} : i == 2 ? {} : {}".format(
@@ -650,45 +975,61 @@ def _function(gm, dynamic, n_params, pnames, prefix):
     return em.body, ret
 
 
+def _rank1_return(metric, em, outs) -> str:
+    """``fl``'s return statement: f, l1, l2, l3 as duals (l0 must be the
+    constant 1)."""
+    l0 = em.vals[outs[1]] if isinstance(outs[1], torch.fx.Node) else None
+    if l0 is None or l0[0] != "pyc" or l0[1] != 1.0:
+        raise NotImplementedError(
+            f"ops.emit: {metric.name}'s rank-1 decomposition: l_0 is not "
+            "the constant 1 (the rank-1 acceleration takes l = (1, l1, l2, "
+            "l3))")
+    parts = []
+    for node in (outs[0], *outs[2:]):
+        kind = em.vals[node][0] if isinstance(node, torch.fx.Node) else "py"
+        if kind == "dual":
+            parts.append(em.vals[node][1])
+        elif kind == "pyc":
+            parts.append(f"dual_constant({lit(em.vals[node][1])})")
+        else:
+            parts.append(f"dual_constant({em.scalar(node, torch.float32)})")
+    types = ", ".join(f"std::decay_t<decltype({p})>" for p in parts)
+    return f"Rank1<{types}>{{{', '.join(parts)}}}"
+
+
 def emit_metric(metric: mbase.Metric, params=None) -> Header:
     """The metric struct of ``metric`` as a C++ header: dynamic when
     ``params`` is None, else baked with these parameter values."""
-    if metric.rank1 is not None:
-        raise NotImplementedError(
-            f"ops.emit: {metric.name} is a rank-1 (RANK1, Kerr-Schild) "
-            "metric; the rank-1 acceleration is not emitted yet")
     names = tuple(metric.defaults)
     baked = None
     if params is not None:
         baked = {k: float(np.float32(params[k])) for k in names}
     dynamic = baked is None
-    gm, layout = _trace_entries(metric, names, baked)
+    rank1 = metric.rank1 is not None
+    if rank1:
+        gm, layout = _trace_rank1(metric, names, baked)
+        used = _coordinates_reaching(gm, range(5))
+        if used != {1, 2, 3}:
+            raise NotImplementedError(
+                f"ops.emit: {metric.name}'s rank-1 decomposition depends on "
+                f"the coordinates {sorted(used)}, not on exactly x, y and z "
+                "(1, 2, 3): the rank-1 acceleration takes its partials by "
+                "x, y and z")
+    else:
+        gm, layout = _trace_entries(metric, names, baked)
+    check_tangents(metric, gm, layout, names, baked)
     em = _Emitter(gm, dynamic, hoist=True, prefix="n")
     pnames = [f"p{i}" for i in range(len(names))]
     inputs = {i: ("dual", f"c{i}", False) for i in range(4)}
     for j, pn in enumerate(pnames if dynamic else ()):
         inputs[4 + j] = ("f32", pn, True)
     outs = em.run(inputs)
-    nz = metric.nonzeros()
-    entries = {}
-    for key, where in layout:
-        i, j = min(key), max(key)
-        if nz is not None and (i, j) not in nz:
-            continue
-        if isinstance(where, float):
-            entries[(i, j)] = lit(where)
-            continue
-        node = outs[where]
-        k = em.vals[node][0]
-        if k == "dual":
-            entries[(i, j)] = em.vals[node][1]
-        elif k == "pyc":
-            entries[(i, j)] = lit(em.vals[node][1])
-        else:
-            entries[(i, j)] = em.scalar(node, torch.float32)
-    for (i, j) in sorted(nz if nz is not None else
-                         {(i, j) for i in range(4) for j in range(i, 4)}):
-        entries.setdefault((i, j), lit(0.0))
+    if rank1:
+        ret = _rank1_return(metric, em, outs)
+        deps = (1, 2, 3)
+    else:
+        ret = _sym_return(metric, em, outs, layout)
+        deps = tuple(metric.depends_on)
     polar_body, polar_ret = _function(
         _scalar_fn(metric, names, baked, "polar_r"), dynamic, len(names),
         pnames, "r")
@@ -697,7 +1038,7 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
         origin = _function(_scalar_fn(metric, names, baked, "origin"),
                            dynamic, len(names), pnames, "o")
 
-    src = "\n".join(em.body) + repr(entries) + polar_ret
+    src = "\n".join(em.body) + ret + polar_ret
     tag = hashlib.sha256((metric.name + repr(baked) + src).encode()
                          ).hexdigest()[:8]
     struct = f"Emitted_{_ident(metric.name)}_{tag}"
@@ -719,6 +1060,8 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
         "",
         "#include <type_traits>",
         "",
+        '#include "complex.cuh"',
+        '#include "kerr_schild.cuh"',
         '#include "sym.cuh"',
         "",
         "namespace grt {",
@@ -726,7 +1069,7 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
         f"struct {struct} {{",
         f'  static constexpr const char* name = "{_c_str(metric.name)}";',
         f"  static constexpr int n_params = {len(names)};",
-        *ind(_struct_facts(metric), 2),
+        *ind(_struct_facts(metric, deps), 2),
         *ind(members, 2),
         f"  GRT_HD static {struct} from_params("
         f"{'const float* p' if dynamic and names else 'const float*'}) {{",
@@ -748,16 +1091,25 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
             f"    return {origin[1]};",
             "  }",
         ]
-    sym = ", ".join(f"entry<{i}, {j}>({e})" for (i, j), e in
-                    sorted(entries.items()))
+    if rank1:
+        text += [
+            "  template <class X1, class X2, class X3>",
+            "  GRT_HD GRT_INLINE auto fl([[maybe_unused]] const X1& c1, "
+            "[[maybe_unused]] const X2& c2,",
+            "                            [[maybe_unused]] const X3& c3) "
+            "const {",
+        ]
+    else:
+        text += [
+            "  template <class X0, class X1, class X2, class X3>",
+            "  GRT_HD GRT_INLINE auto g([[maybe_unused]] const X0& c0, "
+            "[[maybe_unused]] const X1& c1,",
+            "                           [[maybe_unused]] const X2& c2, "
+            "[[maybe_unused]] const X3& c3) const {",
+        ]
     text += [
-        "  template <class X0, class X1, class X2, class X3>",
-        "  GRT_HD GRT_INLINE auto g([[maybe_unused]] const X0& c0, "
-        "[[maybe_unused]] const X1& c1,",
-        "                           [[maybe_unused]] const X2& c2, "
-        "[[maybe_unused]] const X3& c3) const {",
         *ind(em.body, 4),
-        f"    return sym({sym});",
+        f"    return {ret};",
         "  }",
         "};",
         "",
@@ -767,6 +1119,33 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
     return Header(struct=struct, params=names,
                   text="\n".join(text) + "\n",
                   baked=None if dynamic else tuple(baked.values()))
+
+
+def _sym_return(metric, em, outs, layout) -> str:
+    """``g``'s return statement: the Sym of the entry dict's entries."""
+    nz = metric.nonzeros()
+    entries = {}
+    for key, where in layout:
+        i, j = min(key), max(key)
+        if nz is not None and (i, j) not in nz:
+            continue
+        if isinstance(where, float):
+            entries[(i, j)] = lit(where)
+            continue
+        node = outs[where]
+        k = em.vals[node][0]
+        if k == "dual":
+            entries[(i, j)] = em.vals[node][1]
+        elif k == "pyc":
+            entries[(i, j)] = lit(em.vals[node][1])
+        else:
+            entries[(i, j)] = em.scalar(node, torch.float32)
+    for (i, j) in sorted(nz if nz is not None else
+                         {(i, j) for i in range(4) for j in range(i, 4)}):
+        entries.setdefault((i, j), lit(0.0))
+    sym = ", ".join(f"entry<{i}, {j}>({e})" for (i, j), e in
+                    sorted(entries.items()))
+    return f"sym({sym})"
 
 
 def _c_str(s: str) -> str:

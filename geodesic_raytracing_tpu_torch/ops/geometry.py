@@ -116,9 +116,11 @@ class _Emitting(threading.local):
 
 # Set on a thread while ``ops.emit`` traces a function, to its trace, and
 # read through ``emitting()``: ``metrics.base.sym_metric`` hands the trace
-# its entry dict, the functions with a custom derivative record one node
-# each (an op of ``ops.emit``) in place of their forward's ops, whose own
-# tangent rules are not theirs, and complex pairs raise (not emitted yet).
+# its entry dict, and the functions with a custom derivative (``arctan``,
+# ``arctan2``, ``ops.complexify``'s ``cabs`` and ``csqrt``) or with a
+# parameter read on the host (``param_pow``, ``complexify.cpow``) record one
+# node each (an op of ``ops.emit``) in place of their forward's ops, whose
+# own tangent rules are not theirs.
 EMITTING = _Emitting()
 
 
@@ -201,9 +203,13 @@ def param_pow(x: Tensor, e) -> Tensor:
     """``x ** e`` for an exponent of parameters alone: torch's pow with a
     Python-number exponent (the kernel's rule), also where ``e`` is a
     tensor (a fitted parameter: its value is read on the host), whose
-    gradient then flows through a term of value 0."""
+    gradient then flows through a term of value 0.  ``ops.emit`` records
+    it as one op whose exponent is set at launch."""
     if not isinstance(e, torch.Tensor):
         return x ** e
+    trace = emitting()
+    if trace is not None:
+        return trace.param_pow(x, e)
     y = x ** float(e.detach())
     z = x.detach() ** e.float()
     return y + (z - z.detach())

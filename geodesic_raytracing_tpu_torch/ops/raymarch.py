@@ -142,8 +142,8 @@ class Instance:
     baked: tuple | None = None
 
 
-# (metric name, id(fn), what else the struct compiles in, baked values) ->
-# (Instance, fn: kept so that its id is not reused)
+# (metric name, id(fn), id(rank1), what else the struct compiles in, baked
+# values) -> (Instance, fn, rank1: kept so that their ids are not reused)
 _emitted: dict = {}
 
 _lock = threading.Lock()
@@ -246,7 +246,10 @@ def hand_instance(name: str) -> Instance:
 
 def _unbaked(metric: Metric) -> Metric:
     if isinstance(metric.fn, BakedFn):
-        return dataclasses.replace(metric, fn=metric.fn.fn)
+        rank1 = metric.rank1
+        return dataclasses.replace(
+            metric, fn=metric.fn.fn,
+            rank1=rank1.fn if isinstance(rank1, BakedFn) else rank1)
     return metric
 
 
@@ -260,9 +263,10 @@ def emitted_instance(metric: Metric, params=None) -> Instance:
     metric = _unbaked(metric)
     values = None if params is None else tuple(
         float(np.float32(params[k])) for k in metric.defaults)
-    key = (metric.name, id(metric.fn), tuple(metric.defaults), metric.config,
-           metric.depends_on, metric.spherically_symmetric, metric.structure,
-           metric.diagonal, values)
+    key = (metric.name, id(metric.fn), id(metric.rank1),
+           tuple(metric.defaults), metric.config, metric.depends_on,
+           metric.spherically_symmetric, metric.structure, metric.diagonal,
+           values)
     with _lock:
         hit = _emitted.get(key)
     if hit is None:
@@ -271,7 +275,7 @@ def emitted_instance(metric: Metric, params=None) -> Instance:
         inst = Instance(label=label, metric=metric.name, struct=h.struct,
                         params=h.params, header=h.text, baked=h.baked)
         with _lock:
-            hit = _emitted.setdefault(key, (inst, metric.fn))
+            hit = _emitted.setdefault(key, (inst, metric.fn, metric.rank1))
     return hit[0]
 
 

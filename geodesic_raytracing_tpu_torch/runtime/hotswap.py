@@ -38,13 +38,18 @@ from ..metrics.base import BakedFn, Metric
 def bake(metric: Metric, params: dict) -> Metric:
     """A Metric whose parameters are compile-time constants (the
     reference's ``build_concrete`` substitution, metric.hpp:495): its
-    function ignores the parameters it is called with and evaluates the
-    metric with these values as Python floats, and on the card it launches
-    the baked build of its kernel instance."""
+    function (and a rank-1 metric's decomposition) ignores the parameters
+    it is called with and evaluates the metric with these values as Python
+    floats, and on the card it launches the baked build of its kernel
+    instance."""
     if isinstance(metric.fn, BakedFn):
-        metric = dataclasses.replace(metric, fn=metric.fn.fn)
+        metric = dataclasses.replace(metric, fn=metric.fn.fn, rank1=(
+            metric.rank1.fn if isinstance(metric.rank1, BakedFn)
+            else metric.rank1))
     const = tuple((k, float(v)) for k, v in params.items())
-    return dataclasses.replace(metric, fn=BakedFn(metric.fn, const))
+    return dataclasses.replace(
+        metric, fn=BakedFn(metric.fn, const),
+        rank1=None if metric.rank1 is None else BakedFn(metric.rank1, const))
 
 
 class HotSwapProgram:

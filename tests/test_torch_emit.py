@@ -19,10 +19,7 @@ plain march is held to JAX by the other ``test_torch_*`` files, and the pack
 metric's by ``test_torch_content.py``.
 """
 
-import ctypes
 import dataclasses
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +27,7 @@ import pytest
 import torch
 
 import test_torch_raymarch_host as host
+import torch_emit_host as eh
 from geodesic_raytracing_tpu_torch import content, metrics
 from geodesic_raytracing_tpu_torch.metrics.base import diag_metric
 from geodesic_raytracing_tpu_torch.ops import emit, integrate
@@ -39,11 +37,6 @@ from geodesic_raytracing_tpu_torch.ops.geometry import (arctan, arctan2,
 torch.set_num_threads(1)
 
 PACK = Path(__file__).resolve().parents[1] / "examples" / "pack_torch"
-
-# The shim's march_all and march_options, and an entry point over the
-# emitted structs: the default options, 4-D or planar.
-_SHIM_HEAD = host.SHIM.split("// Every instance:")[0]
-
 
 def rn_metric():
     return content.load_pack(PACK, register=False).metrics[
@@ -63,10 +56,17 @@ def zoo_fn(x, params):
     h3 = r ** -1.5 + torch.sqrt(r) * 0.1 + pow_pos(r - 2.0, 0.7) * 0.01
     h4 = torch.where(r > 5.0, arctan(r), arctan2(s, c + 2.0)) \
         + torch.log(r) * a + torch.cos(th * 0.5) + s / r
+    # libm's inverse trigonometry and hyperbolic functions, a power of two
+    # tensors, tensor bounds (one of them a parameter) and alpha.
+    h5 = torch.atan(r) + torch.asin(c * 0.5) + torch.acos(s * 0.5) \
+        + torch.sinh(recip(r)) + torch.cosh(c) + r ** (c * 0.1 - 1.0) \
+        + torch.clamp(c, min=s - 1.0, max=s) + torch.clamp(s, min=a - 1.0) \
+        + torch.clamp_max(c, s) + torch.add(c, s, alpha=2.0) \
+        - torch.sub(s, c, alpha=0.5)
     eps = 0.01
     return diag_metric(-f * (1.0 + eps * h1), recip(f) * (1.0 + eps * h2),
                        r * r * (1.0 + eps * h3),
-                       r * r * s * s * (1.0 + eps * h4))
+                       r * r * s * s * (1.0 + eps * (h4 + h5)))
 
 
 def zoo_metric():
@@ -99,66 +99,15 @@ def emitted():
 
 @pytest.fixture(scope="module")
 def emit_lib(emitted, tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the host build of march.cuh "
-                    "needs it")
-    d = tmp_path_factory.mktemp("emit_host")
-    includes, tries = [], []
-    for (name, mode), (_, h) in emitted.items():
-        p = d / f"{h.struct}.cuh"
-        p.write_text(h.text)
-        includes.append(f'#include "{p}"')
-        tries.append(f'  TRY(grt::{h.struct}, "{h.struct}")')
-    shim = "\n".join(includes) + "\n" + _SHIM_HEAD + r"""
-extern "C" int grt_emit_march(const char* metric, const float* mparams,
-                              const float* feats, int planar, int n,
-                              int max_steps, float* pos, float* vel,
-                              float* acc, float* next_ds, float* rdl,
-                              int* status, int* steps, const float* f_in_x) {
-  const Arrays a{pos, vel, acc, next_ds, rdl, status, steps, f_in_x};
-  const grt::Features f = grt::features_from(feats);
-#define TRY(M, NAME)                                                       \
-  if (strcmp(metric, NAME) == 0) {                                         \
-    const M m = M::from_params(mparams);                                   \
-    if (planar)                                                            \
-      march_all<grt::StepOptions<true, false, false>>(m, f, n, max_steps,  \
-                                                      a);                  \
-    else                                                                   \
-      march_all<grt::DefaultOptions>(m, f, n, max_steps, a);               \
-    return 0;                                                              \
-  }
-""" + "\n".join(tries) + """
-#undef TRY
-  return 1;
-}
-"""
-    (d / "shim.cpp").write_text(shim)
-    lib = d / "libemit_host.so"
-    proc = subprocess.run(
-        [gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-Wall", "-Werror",
-         "-Wno-unused-function", "-shared", "-fPIC", "-I", str(host.CSRC),
-         str(d / "shim.cpp"), "-o", str(lib)], capture_output=True,
-        text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    fn = ctypes.CDLL(str(lib)).grt_emit_march
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8)
-    return fn
+    planar = {h.struct for (name, _), (_, h) in emitted.items()
+              if name not in FOUR_D}
+    return eh.build([h for _, h in emitted.values()],
+                    tmp_path_factory.mktemp("emit_host"), planar)
 
 
-def host_march(fn, header, state, params, features, opts):
-    arrs = [t.numpy().copy() for t in state]
-    fx = np.abs(arrs[1][:, 0]).copy()
-    feats = np.array([*features, *integrate.schedule_constants(features)],
-                     np.float32)
-    mp = np.array([params[k] for k in header.params] + [0.0], np.float32)
-    rc = fn(header.struct.encode(), mp.ctypes.data, feats.ctypes.data,
-            int(opts.planar), len(fx), opts.max_steps,
-            *[a.ctypes.data for a in arrs], fx.ctypes.data)
-    assert rc == 0, header.struct
-    return integrate.RayState(*(torch.from_numpy(a) for a in arrs))
+def host_march(lib, header, state, params, features, opts):
+    return eh.host_march(lib[header.struct], header, state, params,
+                         features, opts)
 
 
 def _launch_state(m, params):
@@ -256,9 +205,10 @@ def _with_fn(fn, **kw):
 
 
 @pytest.mark.parametrize("body,needle", [
-    (lambda r, th: torch.atan(r), "aten.atan"),
-    (lambda r, th: torch.sinh(r), "aten.sinh"),
-    (lambda r, th: r ** r, "pow"),
+    (lambda r, th: torch.erf(r), "aten.erf"),
+    (lambda r, th: torch.atanh(th * 0.1), "aten.atanh"),
+    (lambda r, th: torch.div(r, th, rounding_mode="floor"),
+     "rounding_mode="),
     (lambda r, th: r if float(r.sum()) > 0 else -r, "cannot be traced"),
 ])
 def test_unsupported_op_raises(body, needle):
@@ -270,11 +220,27 @@ def test_unsupported_op_raises(body, needle):
         emit.emit_metric(_with_fn(fn))
 
 
-def test_rank1_and_complex_pairs_raise():
-    with pytest.raises(NotImplementedError, match="rank-1"):
-        emit.emit_metric(metrics.get_metric("kerr_schild"))
-    with pytest.raises(NotImplementedError, match="complex pairs"):
-        emit.emit_metric(metrics.get_metric("double_kerr"))
+@pytest.mark.parametrize("name,needles", [
+    ("kerr_schild", ("auto fl(", "return Rank1<", "n_deps = 3;")),
+    ("double_kerr", ("csqrt_dual(", "csqrt_double(")),
+    ("double_unequal_kerr", ("cpow(Cx<double, double>{", "csqrt_double(",
+                             "cabs(Cx<double, double>{")),
+])
+def test_rank1_and_complex_pairs_emit(name, needles):
+    """A rank-1 metric is emitted as its decomposition ``fl`` (no ``g``),
+    complex pairs of coordinates as complex.cuh's dual csqrt, and pairs of
+    parameters (dynamic) in from_params with its double functions (the
+    host marches: tests/test_torch_emit_builtins_*.py)."""
+    text = emit.emit_metric(metrics.get_metric(name)).text
+    for needle in needles:
+        assert needle in text, needle
+    assert (" g(" in text) != (name == "kerr_schild")
+    if name == "double_unequal_kerr":
+        init = text.split("from_params(")[1].split("polar_r")[0]
+        assert "cpow(" in init and "cpow(" not in text.split(" g(")[1]
+
+
+def test_function_without_sym_metric_raises():
     stack = _with_fn(lambda x, p: torch.stack([x[1]]))
     with pytest.raises(NotImplementedError, match="sym_metric"):
         emit.emit_metric(stack)
