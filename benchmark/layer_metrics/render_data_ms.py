@@ -1,0 +1,9 @@
+"""``render_data_ms``: device ms between the CUDA events of the program's
+``render_data`` span (the dense frame's stage, its idle time on the card
+included), median over the recorder's frames."""
+
+from benchmark import program_spans
+
+
+def read(run):
+    return program_spans.stage_ms("render_data", device=True)

@@ -25,6 +25,17 @@ Usage:
 refinement, traced-only shading) instead of the dense one.  ``--bench`` keeps
 the reference CLI's protocol line ``Frametime Elapsed: <ms>``, after one
 warm-up frame, or four when adaptive (the refinement budget settles first).
+After each it prints the frame's line of the port's recorder
+(``utils.profiling``): ``Stages (host / device ms): <span> <host> /
+<device>, ...`` by span name in the order they opened (``frame``,
+``ray_init``, ``trace``, ``render_data``, ``shade`` dense; ``frame``,
+``camera``, ``prepass``, ``trace``, ``quarter_setup``, ``refine_setup``,
+``controller_wait``, ``finish`` adaptive; ``trace`` sums the frame's
+marches; ``-`` where no device time was taken), then ``; launches <n>``
+(ray-march kernel launches, 0 off the card) and, adaptive,
+``; refine_share <k/nq>`` and ``; refine_demand <share> (frame <id>)``: the
+newest demand the budget controller has read, which belongs to a frame
+``latency`` frames back.
 A spherically symmetric metric is traced in planar mode (every ray rotated
 into the equator, theta pinned) unless ``--no-planar`` is given.
 
@@ -361,6 +372,7 @@ def main(argv=None) -> int:
     from .render import colour
     from .render.pipeline import (RefineBudgetController, RenderSettings,
                                   check_device, render_frame, trace_frame)
+    from .utils import profiling
 
     if args.dump_hlo:
         ap.error("--dump-hlo has no meaning in the PyTorch port (no HLO is "
@@ -437,23 +449,24 @@ def main(argv=None) -> int:
             frame()
             ms = (time.perf_counter() - t0) * 1e3
             print(f"Frametime Elapsed: {ms:f}")
+            frames = profiling.recent_frames()
+            read = [f for f in frames if "refine_demand" in f.counters]
+            print(profiling.describe(frames[-1]) + (
+                f"; refine_demand {read[-1].counters['refine_demand']:g} "
+                f"(frame {read[-1].id})" if read else ""))
         return 0
 
     t0 = time.perf_counter()
     if args.profile:
-        from .utils.profiling import torch_profile
-
-        with torch_profile(args.profile, device):
+        with profiling.torch_profile(args.profile, device):
             img = frame()
         print(f"wrote a torch.profiler trace to {args.profile}")
     else:
         img = frame()
     if args.trace_stats:
-        from .utils.profiling import trace_stats
-
         fin, _ = trace_frame(metric, cam, params, settings, features,
                              device=device)
-        print(trace_stats(fin))
+        print(profiling.trace_stats(fin))
     if args.cube or args.obj:
         objects = triangle_objects(args.cube, args.obj)
         layer = triangle_layer(metric, cam, params, settings, features,

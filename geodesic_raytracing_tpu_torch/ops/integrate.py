@@ -22,6 +22,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..metrics.base import Metric
+from ..utils import profiling
 from . import geometry
 
 Tensor = torch.Tensor
@@ -534,20 +535,23 @@ def trace_rays(metric: Metric, state: RayState, params,
 
     ``image_width``: the rays are the pixels of a row-major image of this
     width, which lets the kernel group them by pixel tile; it changes no
-    result."""
-    if opts.method == "scan":
-        return trace_rays_scan(metric, state, params, features, opts)
-    if torch.is_grad_enabled() and any(
-            isinstance(t, Tensor) and t.requires_grad
-            for t in (*state, *params.values())):
-        raise ValueError("trace_rays: the 'while' driver is not "
-                         "differentiable; use TraceOptions(method='scan')")
-    if state.position.is_cuda and opts.method == "while":
-        from .raymarch import trace_rays_cuda
+    result.  Each call is a ``trace`` span of ``utils.profiling``'s
+    recorder."""
+    with profiling.span("trace", state.position.device):
+        if opts.method == "scan":
+            return trace_rays_scan(metric, state, params, features, opts)
+        if torch.is_grad_enabled() and any(
+                isinstance(t, Tensor) and t.requires_grad
+                for t in (*state, *params.values())):
+            raise ValueError("trace_rays: the 'while' driver is not "
+                             "differentiable; use "
+                             "TraceOptions(method='scan')")
+        if state.position.is_cuda and opts.method == "while":
+            from .raymarch import trace_rays_cuda
 
-        return trace_rays_cuda(metric, state, params, features, opts,
-                               image_width=image_width)
-    return trace_rays_reference(metric, state, params, features, opts)
+            return trace_rays_cuda(metric, state, params, features, opts,
+                                   image_width=image_width)
+        return trace_rays_reference(metric, state, params, features, opts)
 
 
 def trace_rays_recorded_reference(metric: Metric, state: RayState, params,

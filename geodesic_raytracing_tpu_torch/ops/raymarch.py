@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ..metrics.base import BakedFn, Metric
+from ..utils import profiling
 from .integrate import Features, RayState, TraceOptions, schedule_constants
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -120,7 +121,8 @@ COMPILED_CONFIG = ("adaptive_precision", "detect_singularities", "singular",
                    "origin_distance")
 
 # Kernel launches made by trace_rays_cuda (one per call), by the label of
-# the instance launched (the metric's name for its default instance).
+# the instance launched (the metric's name for its default instance); each
+# also adds to the open frame's ``launches`` counter (``utils.profiling``).
 LAUNCHES_BY_METRIC: dict = {}
 
 
@@ -575,6 +577,7 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
                    stream)
     _raise_on(lib, rc, "ray-march kernel launch")
     LAUNCHES_BY_METRIC[inst.label] = LAUNCHES_BY_METRIC.get(inst.label, 0) + 1
+    profiling.count("launches")
     return out
 
 

@@ -17,6 +17,7 @@ import torch
 
 from .. import runtime
 from ..ops import packing
+from ..utils import profiling
 
 Tensor = torch.Tensor
 
@@ -71,9 +72,11 @@ class Background:
                                    quad=self.quad.to(device))
 
 
+@profiling.span("setup.sky_atlas")
 def build_background(image: np.ndarray, image2: np.ndarray | None = None,
                      levels: int = MIP_LEVELS, *, device) -> Background:
-    """Mip atlas from (H, W, 3) float32 linear images."""
+    """Mip atlas from (H, W, 3) float32 linear images (a host span of the
+    recorder, ``setup.sky_atlas`` outside a frame)."""
     image = np.asarray(image, dtype=np.float32)
     if image2 is None:
         image2 = image

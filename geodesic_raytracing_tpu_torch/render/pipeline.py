@@ -31,6 +31,7 @@ from .. import camera as cam
 from ..metrics.base import Metric
 from ..ops import geometry, integrate, packing, planar as pl_planar, tetrad
 from ..ops.integrate import Features, RayState, TraceOptions
+from ..utils import profiling
 from . import background as bg
 from . import colour
 
@@ -585,7 +586,8 @@ class RefineBudgetController:
     def observe(self, demand_scalar) -> None:
         """Feed the measured demand fraction of the frame just issued (a 0-d
         tensor, or a host scalar); consumes matured entries without waiting
-        for fresh ones."""
+        for fresh ones.  A matured demand is recorded as the
+        ``refine_demand`` counter of the frame it was measured in."""
         done = None
         if isinstance(demand_scalar, torch.Tensor) and demand_scalar.is_cuda:
             host = torch.empty((), dtype=demand_scalar.dtype, pin_memory=True)
@@ -593,12 +595,16 @@ class RefineBudgetController:
             done = torch.cuda.Event()
             done.record()
             demand_scalar = host
-        self._pending.append((demand_scalar, done))
+        self._pending.append((demand_scalar, done, profiling.current_frame()))
         while len(self._pending) > self._latency:
-            value, done = self._pending.pop(0)
-            if done is not None:
-                done.synchronize()
-            self._update(float(value))
+            value, done, frame = self._pending.pop(0)
+            with profiling.span("controller_wait"):
+                if done is not None:
+                    done.synchronize()
+                value = float(value)
+            if frame is not None:
+                profiling.count("refine_demand", value, frame=frame)
+            self._update(value)
 
     def _update(self, demand: float) -> None:
         want = demand * self._margin
@@ -662,7 +668,8 @@ def _adaptive_trace(metric: Metric, camera: cam.Camera, params,
              and controller.stream_key == key)
     stream_objects = (camera, params, features)
     camera = camera.to(device)
-    frame = camera_frame(metric, camera, params)
+    with profiling.span("camera"):
+        frame = camera_frame(metric, camera, params)
 
     dead = None
     if metric.config.use_prepass and not reuse:
@@ -670,13 +677,15 @@ def _adaptive_trace(metric: Metric, camera: cam.Camera, params,
             settings, width=max(W // settings.prepass_scale, 4),
             height=max(H // settings.prepass_scale, 4),
             adaptive_sampling=False)
-        dead, _ = _prepass_dead_map(metric, camera, frame, params, psettings,
-                                    features)
+        with profiling.span("prepass"):
+            dead, _ = _prepass_dead_map(metric, camera, frame, params,
+                                        psettings, features)
 
     topts = _trace_opts(metric, settings)
-    state, ku, iquat = _quarter_setup(metric, camera, frame, params, settings,
-                                      features, dead,
-                                      controller.qterm if reuse else None)
+    with profiling.span("quarter_setup"):
+        state, ku, iquat = _quarter_setup(
+            metric, camera, frame, params, settings, features, dead,
+            controller.qterm if reuse else None)
     state = integrate.trace_rays(metric, state, params, features=features,
                                  opts=topts, image_width=W // 2)
 
@@ -684,9 +693,11 @@ def _adaptive_trace(metric: Metric, camera: cam.Camera, params,
     if controller is not None:
         frac = controller.fraction(settings.refine_budget)
     k = _refine_k(nq, frac)
-    qr, should, demand, sel, dest, rstate, rku, riquat = _refine_setup(
-        metric, camera, frame, params, settings, features, state, ku, iquat,
-        k)
+    profiling.count("refine_share", k / nq)
+    with profiling.span("refine_setup"):
+        qr, should, demand, sel, dest, rstate, rku, riquat = _refine_setup(
+            metric, camera, frame, params, settings, features, state, ku,
+            iquat, k)
     if controller is not None:
         controller.observe(demand)
         controller.qsteps = qr.steps
@@ -712,8 +723,9 @@ def render_data_adaptive(metric: Metric, camera: cam.Camera, params,
     :class:`RefineBudgetController`."""
     qr, should, sel, dest, rstate, rku, riquat, k = _adaptive_trace(
         metric, camera, params, settings, features, controller, device=device)
-    rdata, rsteps = _finish(metric, rstate, rku, riquat, params, features, qr,
-                            should, sel, dest, settings, k)
+    with profiling.span("finish"):
+        rdata, rsteps = _finish(metric, rstate, rku, riquat, params, features,
+                                qr, should, sel, dest, settings, k)
     if controller is not None:
         controller.rsteps = rsteps
     return rdata
@@ -731,9 +743,10 @@ def render_frame_adaptive(metric: Metric, camera: cam.Camera, params,
     nq + 3k shaded pixels instead of 4nq)."""
     qr, should, sel, dest, rstate, rku, riquat, k = _adaptive_trace(
         metric, camera, params, settings, features, controller, device=device)
-    img, rsteps = _finish_shade(metric, rstate, rku, riquat, params, features,
-                                qr, should, sel, dest, backgrounds.to(device),
-                                settings, k)
+    with profiling.span("finish"):
+        img, rsteps = _finish_shade(metric, rstate, rku, riquat, params,
+                                    features, qr, should, sel, dest,
+                                    backgrounds.to(device), settings, k)
     if controller is not None:
         controller.rsteps = rsteps
     return img
@@ -1092,27 +1105,33 @@ def render_frame(metric: Metric, camera: cam.Camera, params,
     and the eager reference on the CPU: one for the dense frame, three for
     an adaptive frame (prepass, quarter grid, refinement), two when a
     ``controller`` (a :class:`RefineBudgetController`, which also sizes the
-    refinement across a frame stream) lets it reuse the prepass."""
+    refinement across a frame stream) lets it reuse the prepass.  The
+    frame's stages are spans of ``utils.profiling``'s recorder."""
     device = check_device(device)
-    if features is None:
-        features = Features.for_metric(metric)
-    if settings.adaptive_sampling:
-        if settings.shade_traced_only:
+    with profiling.frame(device):
+        if features is None:
+            features = Features.for_metric(metric)
+        if settings.adaptive_sampling and settings.shade_traced_only:
             return render_frame_adaptive(metric, camera, params, backgrounds,
                                          settings, features,
                                          controller=controller, device=device)
-        rdata = render_data_adaptive(metric, camera, params, settings,
-                                     features, controller=controller,
-                                     device=device)
-        return shade(rdata, backgrounds.to(device), settings)
-    state, ku, iquat = init_camera_rays(metric, camera, params, settings,
-                                        features, device=device)
-    final = integrate.trace_rays(metric, state, params, features=features,
-                                 opts=_trace_opts(metric, settings),
-                                 image_width=settings.width)
-    rdata = compute_render_data(metric, final, ku, params, features,
-                                inv_quat=iquat)
-    return shade(rdata, backgrounds.to(device), settings)
+        if settings.adaptive_sampling:
+            rdata = render_data_adaptive(metric, camera, params, settings,
+                                         features, controller=controller,
+                                         device=device)
+        else:
+            with profiling.span("ray_init"):
+                state, ku, iquat = init_camera_rays(
+                    metric, camera, params, settings, features, device=device)
+            final = integrate.trace_rays(metric, state, params,
+                                         features=features,
+                                         opts=_trace_opts(metric, settings),
+                                         image_width=settings.width)
+            with profiling.span("render_data"):
+                rdata = compute_render_data(metric, final, ku, params,
+                                            features, inv_quat=iquat)
+        with profiling.span("shade"):
+            return shade(rdata, backgrounds.to(device), settings)
 
 
 # ---------------------------------------------------------------------------

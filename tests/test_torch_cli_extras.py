@@ -1,6 +1,6 @@
 """The rest of the single-device CLI and its application pieces, held to the
 JAX package: ``utils/profiling`` (``trace_stats``, ``FrameTimer``,
-``torch_profile``), ``--supersample``, ``--trace-method``,
+``torch_profile`` with the recorder's ``frame`` span), ``--supersample``, ``--trace-method``,
 ``RenderSettings.flip_geodesic_direction`` and ``probe_bilinear``,
 ``settings.py`` (a file written by either package loads in the other),
 the viewer's scripted camera and ``runtime.AsyncFrameWriter``.
@@ -71,17 +71,25 @@ def test_trace_stats_matches_jax():
     assert ours.dead > 0 and ours.escaped > 0
 
 
-def test_frame_timer_and_profile(tmp_path, capsys):
-    t = profiling.FrameTimer(print_protocol=True)
+def test_frame_timer_and_profile(tmp_path):
+    """The frame timer, and the recorder's ``frame`` span inside a
+    ``torch_profile`` trace: one frame in the ring, its span on the
+    profiler's clock."""
+    t = profiling.FrameTimer()
     with t.frame():
         torch.ones(4).sum()
     t.start()
     assert t.stop() >= 0.0 and len(t.times_ms) == 2
-    assert capsys.readouterr().out.count("Frametime Elapsed: ") == 2
-    assert t.mrays_per_s(1000) > 0
+    assert t.median_ms >= 0.0
+    rec = profiling.Recorder()
     with profiling.torch_profile(str(tmp_path / "prof")):
-        torch.ones(64).cumsum(0)
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+        with rec.frame("cpu"):
+            torch.ones(64).cumsum(0)
+    (f,) = rec.recent_frames()
+    assert [s.name for s in f.spans] == ["frame"] and f.host_ms("frame") > 0
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert [e["name"] for e in trace["traceEvents"]
+            if e.get("cat") == "user_annotation"] == ["frame"]
     assert "cumsum" in (tmp_path / "prof" / "summary.txt").read_text()
 
 
