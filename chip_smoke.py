@@ -477,6 +477,146 @@ def bound_ms(n_rays: int, total_trials: int, ops_per_trial=OPS_PER_TRIAL,
     return max(ops, byt), ops, byt
 
 
+# Float32 operations of the render-data kernel (csrc/render_data.cuh), by the
+# rule of OPS_PER_TRIAL, with a division as 1/x and a multiply and atan2 and
+# fmod as one each: a pass of the frame basis 1,004 (the diagonal gather 36,
+# the one-hot rows 16, Gram-Schmidt 492, the norms 84, the legs in slot order
+# 144, their dots and tl 200, leg 0 32), the snap to a sphere 86, the planar
+# rotation back 52, the rest 74 (side, g e0, k_obs, z_shift, angle_to_tex,
+# the black test).  Not counted: the metric's value at the endpoint and the
+# integer work.  A ray whose first pass finds its timelike leg elsewhere than
+# at 0 runs a second pass; the endpoint of a singular metric inside the far
+# radius, without a traversable horizon, is not snapped.
+RENDER_OPS_PASS = 1004
+RENDER_OPS_SNAP = 86
+RENDER_OPS_UNROTATE = 52
+RENDER_OPS_REST = 74
+
+
+def render_data_work(metric, fin, ku, params, feats, inv_quat) -> dict:
+    """What one render-data launch on the marched state ``fin`` must move
+    and compute, from its inputs: bytes, each distinct array once (per ray
+    the position and velocity, 16 B each; running_dlambda_dnew, status and
+    ku_uobsu, 4 B each; slots 1-3 of the polar position and velocity, 12 B
+    each, unless they are views of the position and velocity the thread
+    reads already, as the identity chart's are; the planar quaternion, 16
+    B; out tex_coord and angles, 8 B each, z_shift, side and terminated, 4 B
+    each), operations (``RENDER_OPS_*``, the second frame-basis passes and
+    the snaps counted from the eager twin's first pass and far test) and
+    the bound, the larger of the two times."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import tetrad
+
+    n = fin.position.shape[0]
+    pos, vel = fin.position.T, fin.velocity.T
+    polar = metric.to_polar(pos, params)
+    polar_vel = metric.to_polar_velocity(pos, vel, params)
+    per_ray = 16 + 16 + 3 * 4 + (8 + 4 + 4 + 4 + 8)
+    for t, own in ((polar, fin.position), (polar_vel, fin.velocity)):
+        if t.untyped_storage().data_ptr() != own.untyped_storage().data_ptr():
+            per_ray += 12
+    per_ray += 0 if inv_quat is None else 16
+    gab = metric.fn(pos, params)
+    if gab.ndim == 2:
+        gab = gab[..., None].expand(4, 4, n)
+    _, tl1 = tetrad._frame_basis_swap_batched(
+        gab, torch.zeros((n,), dtype=torch.int32, device=gab.device))
+    second = int((tl1 != 0).sum())
+    cfg = metric.config
+    if cfg.singular and not cfg.traversable_event_horizon:
+        far_r = 0.5 * (feats.universe_size + cfg.singular_terminator)
+        snapped = int((torch.abs(polar[1]) >= far_r).sum())
+    else:
+        snapped = n
+    ops = ((n + second) * RENDER_OPS_PASS + snapped * RENDER_OPS_SNAP
+           + n * RENDER_OPS_REST
+           + (0 if inv_quat is None else n * RENDER_OPS_UNROTATE))
+    bytes_ms = n * per_ray / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    return {"rays": n, "bytes_per_ray": per_ray, "operations": ops,
+            "second_pass_rays": second, "snapped_rays": snapped,
+            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def render_data_row(tag, metric, fin, ku, params, feats, inv_quat,
+                    launches, rounds=20) -> dict:
+    """The kernels-table row of ``metric``'s render-data kernel on the
+    marched state ``fin``: ``pipeline.compute_render_data`` (the kernel)
+    against ``compute_render_data_reference`` (its eager twin) bit for bit
+    on every output, asserted; the launch's ms, the mean of ``rounds`` back
+    to back queued behind a device sleep (the host's dispatch hidden); the
+    twin's ms, the median of 3 so queued; the bound of
+    ``render_data_work``.  ``launches``: the ``render_data_kernel`` counter
+    of the path's own frame."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    got = pl.compute_render_data(metric, fin, ku, params, feats, inv_quat)
+    ref = pl.compute_render_data_reference(metric, fin, ku, params, feats,
+                                           inv_quat)
+    differing = {}
+    for field in pl.RenderData._fields:
+        a, b = getattr(got, field), getattr(ref, field)
+        same = a.view(torch.int32) == b.view(torch.int32)
+        if a.dtype == torch.float32:
+            same |= torch.isnan(a) & torch.isnan(b)
+        differing[field] = int((~same).sum())
+    n = fin.position.shape[0]
+    print(f"{tag} {n} rays, render-data kernel vs eager twin: elements "
+          f"differing {differing}")
+    assert not any(differing.values()), differing
+    del got, ref
+
+    pos, vel = fin.position.T, fin.velocity.T
+    polar = metric.to_polar(pos, params)
+    polar_vel = metric.to_polar_velocity(pos, vel, params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for _ in range(rounds):
+        raymarch.render_data_cuda(metric, fin, ku, polar, polar_vel, params,
+                                  feats, inv_quat)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / rounds
+    plain = []
+    for _ in range(3):
+        torch.cuda._sleep(600_000_000)
+        ev[0].record()
+        pl.compute_render_data_reference(metric, fin, ku, params, feats,
+                                         inv_quat)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain.append(ev[0].elapsed_time(ev[1]))
+    work = render_data_work(metric, fin, ku, params, feats, inv_quat)
+    print(f"{tag} render-data kernel {ms:.4f} ms (mean of {rounds} back to "
+          f"back), eager twin {statistics.median(plain):.3f} ms; bound "
+          f"{work['bound_ms']:.4f} ms by {work['bound_by']} (bytes "
+          f"{work['bytes_per_ray']} a ray, {work['bytes_bound_ms']:.4f} ms; "
+          f"{work['operations']} operations, {work['ops_bound_ms']:.4f} ms, "
+          f"second frame-basis pass on {work['second_pass_rays']} rays); "
+          f"share of the bound {work['bound_ms'] / ms:.4f}; "
+          f"{launches} launch(es) in the path's frame")
+    return {
+        "name": f"render_data_{metric.name}",
+        "route": "cuda",
+        "source": "geodesic_raytracing_tpu_torch/csrc/render_data.cuh",
+        "replaces": "geodesic_raytracing_tpu/render/pipeline.py:274",
+        "launches": launches,
+        "max_abs_err": 0.0,  # bit for bit, asserted above
+        "ms": ms,
+        "plain_ms": statistics.median(plain),
+        "share_of_bound": work["bound_ms"] / ms,
+        "library_ms": None,  # no PyTorch call computes render data
+        "planar": inv_quat is not None,
+        **work,
+    }
+
+
 def median_launch_ms(metric, state, params, feats, opts, width, rounds=3):
     """Median kernel time (CUDA events) of ``rounds`` launches on
     ``state``."""
@@ -1320,6 +1460,7 @@ def second_path(dev, sky) -> dict:
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
+    from geodesic_raytracing_tpu_torch.utils import profiling
 
     metric, params, camera, asettings, feats = flagship_config(
         device=dev, metric="schwarzschild")
@@ -1339,12 +1480,16 @@ def second_path(dev, sky) -> dict:
     # Dense: one launch, in planar mode.
     with recorded_launches(integrate, with_opts=True) as launch:
         raymarch.reset_launch_counts()
+        profiling.reset()
         dense_img = pl.render_frame(metric, camera, params, sky, settings,
                                     feats, device=dev)
         torch.cuda.synchronize()
         counts = dict(raymarch.LAUNCHES_BY_METRIC)
+    rd_launches = profiling.recent_frames()[-1].counters.get(
+        "render_data_kernel", 0)
     black = checked(dense_img, "dense")
     assert counts == {"schwarzschild": 1}, counts
+    assert rd_launches == 1, rd_launches
     (d_in, d_out, d_width, d_opts), = launch
     assert d_opts.planar and d_width == 1920
     assert bool((d_in.position[:, 2] == d_in.position[0, 2]).all())
@@ -1429,6 +1574,13 @@ def second_path(dev, sky) -> dict:
         ("ray init", "trace kernel", "render data", "shade"),
         (statistics.median(c) for c in zip(*splits))))
     out["dense_frame_ms"] = statistics.median(sum(sp) for sp in splits)
+    # The dense launch's endpoints through the render-data kernel and its
+    # eager twin (the launch energy and quaternions of the same rays).
+    _, ku, iq = pl.init_camera_rays(metric, camera, params, settings, feats,
+                                    device=dev)
+    out["render_data"] = render_data_row("[16 render data]", metric, d_out,
+                                         ku, params, feats, iq, rd_launches)
+    del ku, iq
 
     steady = []
     with stage_events(pl, integrate) as read:
@@ -1506,6 +1658,7 @@ def planar_vs_4d(dev, sky) -> dict:
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
+    from geodesic_raytracing_tpu_torch.utils import profiling
 
     metric, params, camera, asettings, feats = flagship_config(
         device=dev, metric="schwarzschild")
@@ -3650,6 +3803,7 @@ def main(argv=None) -> int:
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
     from geodesic_raytracing_tpu_torch.render import background as bg
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
+    from geodesic_raytracing_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -3793,10 +3947,14 @@ def main(argv=None) -> int:
     # so that the plain twin can march the same rays.
     with recorded_launches(integrate) as launch:
         raymarch.reset_launch_counts()
+        profiling.reset()
         img = pl.render_frame(metric, camera, params, sky, settings, feats,
                               device=dev)
         torch.cuda.synchronize()
         launches = raymarch.launches()
+    rd_launches = profiling.recent_frames()[-1].counters.get(
+        "render_data_kernel", 0)
+    assert rd_launches == 1, rd_launches
     dense_img = img
     finite = bool(torch.isfinite(img).all())
     black = float((img == 0).all(dim=-1).float().mean())
@@ -3885,8 +4043,9 @@ def main(argv=None) -> int:
                              small.width)
     small_bound, _, _ = bound_ms(small.width * small.height,
                                  small_work["trials"])
-    imgs = [pl.shade(pl.compute_render_data(metric, f, ku, params, feats),
-                     sky, small) for f in (fk, fp)]
+    imgs = [pl.shade(render_data(metric, f, ku, params, feats), sky, small)
+            for render_data, f in ((pl.compute_render_data, fk),
+                                   (pl.compute_render_data_reference, fp))]
     rmse, bad = golden_gate(to_srgb8(imgs[0]), to_srgb8(imgs[1]))
     print(f"[4 gate] 480x270 kernel vs plain frame: RMSE {rmse:.4f}, "
           f"pixels off by >32 {bad:.5f}; trace kernel {small_ms:.3f} ms, "
@@ -3928,6 +4087,13 @@ def main(argv=None) -> int:
           f"{bound / kernel_ms:.4f}; 480x270: {small_ms:.3f} ms, bound "
           f"{small_bound:.3f} ms, share {small_bound / small_ms:.4f}")
     assert bound == bound_ops
+    s5, ku5, _ = pl.init_camera_rays(metric, camera, params, settings, feats,
+                                     device=dev)
+    fin5 = integrate.trace_rays(metric, s5, params, feats, settings.trace,
+                                image_width=settings.width)
+    rd_row = render_data_row("[5 render data]", metric, fin5, ku5, params,
+                             feats, None, rd_launches)
+    del s5, ku5, fin5
     dense_mrays = bench_protocol_mrays(
         lambda: pl.render_frame(metric, camera, params, sky, settings, feats,
                                 device=dev), n_rays)
@@ -4226,6 +4392,7 @@ def main(argv=None) -> int:
     options_err = check_step_options(dev)
     took("15")
     schw = second_path(dev, sky)
+    rd_schw = schw.pop("render_data")
     took("16")
     planar = planar_vs_4d(dev, sky)
     took("17")
@@ -4365,7 +4532,8 @@ def main(argv=None) -> int:
             # 2-rank check and the banding cost.
             "parallel": par_row,
         },
-    }, *(instance_row(m) for m in sorted(per_metric)), *content["rows"]]}
+    }, rd_row, rd_schw, *(instance_row(m) for m in sorted(per_metric)),
+        *content["rows"]]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

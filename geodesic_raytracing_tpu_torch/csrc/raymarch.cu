@@ -43,13 +43,30 @@
 // metric struct may also come from a header that ops/emit.py wrote
 // (-include <header> -DGRT_METRIC=<struct>).
 //
-// The kernel allocates nothing and does not synchronise; the wrapper
-// (ops/raymarch.py) launches it on the current stream and checks the launch.
+// Each library also holds the render-data kernel of its metric
+// (`grt_render_data`, render_data.cuh): after the march, one thread per ray
+// snaps the endpoint to the universe sphere, rotates a planar ray back,
+// builds the two-pass frame basis at the endpoint and writes the texture
+// coordinates, z_shift, side, status and angles that the shader reads.  It
+// replaces no TPU kernel (the JAX package leaves render data to XLA's fused
+// elementwise ops); it stands in for the ~2,600 eager torch ops a call that
+// its plain twin (render/pipeline.py::compute_render_data_reference) takes.
+// What bounds it: 68 bytes read a ray (84 with a planar ray's quaternion)
+// and 28 written, against about 1,200 float operations a ray for each of the
+// frame basis's one or two passes (20 metric inner products of 16 terms, all
+// computed, as the eager sums compute their zero terms): at 3.35 TB/s and
+// 67 TFLOP/s the two weigh about the same, a quarter of a millisecond for
+// 8.3M rays.
+//
+// The kernels allocate nothing and do not synchronise; the wrapper
+// (ops/raymarch.py) launches them on the current stream and checks each
+// launch.
 // The C entry points are plain C (loaded with ctypes, no PyTorch headers);
 // metric parameters are kernel arguments.
 #include <cuda_runtime.h>
 
 #include "march.cuh"
+#include "render_data.cuh"
 
 #ifndef GRT_METRIC
 #define GRT_METRIC KerrBoyer
@@ -163,6 +180,67 @@ int launch(const M& m, const grt::Features& f, int n, int width,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The render data's inputs and outputs (render_data.cuh).  The (N, 4)
+// state rows and the (N,) vectors are contiguous; the (4, N) polar
+// position, polar velocity and inverse quaternions (null: not planar) are
+// read through their strides (in floats), so that a chart's to_polar that
+// returns a view of the state is read in place.
+struct RenderArrays {
+  const float4* pos;
+  const float4* vel;
+  const float* rdl;
+  const int* status;
+  const float* ku_uobsu;
+  const float* polar;
+  long long polar_s0, polar_s1;
+  const float* polar_vel;
+  long long polar_vel_s0, polar_vel_s1;
+  const float* inv_quat;
+  long long inv_quat_s0, inv_quat_s1;
+  float2* tex;
+  float* z_shift;
+  int* side;
+  int* terminated;
+  float2* angles;
+};
+
+// One thread per ray, in index order: a ray's work does not depend on where
+// it ended, so no tile map is needed.
+template <class M>
+__global__ void __launch_bounds__(GRT_THREADS)
+    render_data_kernel(M m, grt::RenderConsts c, int n, RenderArrays r) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+#ifdef GRT_BAKED_PARAMS
+  constexpr float kBaked[] = {GRT_BAKED_PARAMS 0.0f};
+  const M mk = M::from_params(kBaked);
+#else
+  const M& mk = m;
+#endif
+  grt::RayEnd e;
+  const float4 p = r.pos[i], v = r.vel[i];
+  e.pos[0] = p.x; e.pos[1] = p.y; e.pos[2] = p.z; e.pos[3] = p.w;
+  e.vel[0] = v.x; e.vel[1] = v.y; e.vel[2] = v.z; e.vel[3] = v.w;
+  e.rdl = r.rdl[i];
+  e.status = r.status[i];
+  e.ku_uobsu = r.ku_uobsu[i];
+  for (int k = 0; k < 3; ++k) {
+    e.polar[k] = r.polar[(k + 1) * r.polar_s0 + i * r.polar_s1];
+    e.polar_vel[k] = r.polar_vel[(k + 1) * r.polar_vel_s0 + i * r.polar_vel_s1];
+  }
+  e.planar = r.inv_quat != nullptr;
+  for (int k = 0; k < 4; ++k)
+    e.inv_quat[k] =
+        e.planar ? r.inv_quat[k * r.inv_quat_s0 + i * r.inv_quat_s1] : 0.0f;
+  grt::RayRender o;
+  grt::render_ray(mk, c, e, o);
+  r.tex[i] = make_float2(o.tex[0], o.tex[1]);
+  r.z_shift[i] = o.z_shift;
+  r.side[i] = o.side;
+  r.terminated[i] = o.terminated;
+  r.angles[i] = make_float2(o.angles[0], o.angles[1]);
+}
+
 using Metric = grt::GRT_METRIC;
 
 }  // namespace
@@ -202,6 +280,47 @@ extern "C" int grt_raymarch(const float* mparams, const float* feats,
   return planar ? GRT_LAUNCH(true, false, false)
                 : GRT_LAUNCH(false, false, false);
 #undef GRT_LAUNCH
+}
+
+// The render data of n ray endpoints (render_data.cuh): one launch on
+// `stream`.  `mparams` as grt_raymarch's; `consts` the three floats of
+// grt::RenderConsts (the squared universe and terminator radii, the far test
+// radius) and `singular`, `traversable` its branches; `strides` the six
+// strides of the (4, N) polar position, polar velocity and inverse
+// quaternions (`inv_quat` null: not planar).  Writes tex (N, 2), z_shift
+// (N,), side (N,) int, terminated (N,) int and angles (N, 2).  Returns the
+// CUDA error of the launch (0 = launched).
+extern "C" int grt_render_data(const float* mparams, const float* consts,
+                               int singular, int traversable, int n,
+                               const void* pos, const void* vel,
+                               const void* rdl, const void* status,
+                               const void* ku_uobsu, const void* polar,
+                               const void* polar_vel, const void* inv_quat,
+                               const long long* strides, void* tex,
+                               void* z_shift, void* side, void* terminated,
+                               void* angles, void* stream) {
+  if (n <= 0) return 0;
+  const RenderArrays r{static_cast<const float4*>(pos),
+                       static_cast<const float4*>(vel),
+                       static_cast<const float*>(rdl),
+                       static_cast<const int*>(status),
+                       static_cast<const float*>(ku_uobsu),
+                       static_cast<const float*>(polar), strides[0],
+                       strides[1], static_cast<const float*>(polar_vel),
+                       strides[2], strides[3],
+                       static_cast<const float*>(inv_quat), strides[4],
+                       strides[5], static_cast<float2*>(tex),
+                       static_cast<float*>(z_shift), static_cast<int*>(side),
+                       static_cast<int*>(terminated),
+                       static_cast<float2*>(angles)};
+  const grt::RenderConsts c{consts[0], consts[1], consts[2], singular,
+                            traversable};
+  const Metric m = Metric::from_params(mparams);
+  const int blocks = (n + GRT_THREADS - 1) / GRT_THREADS;
+  render_data_kernel<Metric><<<blocks, GRT_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(m, c, n,
+                                                                    r);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The metric this library was built for and the number of its parameters.

@@ -532,6 +532,9 @@ def trace_rays(metric: Metric, state: RayState, params,
       (:func:`trace_rays_reference`), never the kernel.
     * ``"scan"``: :func:`trace_rays_scan`, reverse-differentiable with
       respect to ``params`` and the launch state, on the state's device.
+      ``render.pipeline.compute_render_data`` has no option: in grad mode,
+      an input or a parameter that requires grad sends it to its eager
+      twin on any device, else a CUDA state takes its kernel.
 
     ``image_width``: the rays are the pixels of a row-major image of this
     width, which lets the kernel group them by pixel tile; it changes no

@@ -38,7 +38,15 @@ values, and a library whose compiled-in values are not its instance's is
 refused when it is loaded.  A library is keyed on a hash of ``csrc/``, of the emitted
 header, of the baked values and of the flags.
 
-The wrapper launches on CUDA tensors or raises: there is no fallback, and a
+Each library also holds the render-data kernel of its metric
+(``csrc/render_data.cuh``; ``render_data_cuda``): after the march, the
+snap of every endpoint to the universe sphere, the frame basis there,
+z_shift and the texture coordinates in one launch, bit for bit
+``render.pipeline.compute_render_data_reference`` on the card, in place of
+its ~2,600 eager ops.  ``render.pipeline.compute_render_data`` takes it
+for every state on the card but one that asks for a gradient.
+
+The wrappers launch on CUDA tensors or raise: there is no fallback, and a
 metric without a kernel instance, or one that differs from the registered
 metric its instance was written from (``check_compiled_metric``), raises
 ``NotImplementedError``; so does a metric the emitter cannot emit, naming
@@ -457,6 +465,10 @@ def get_lib(name):
             if baked != inst.baked:
                 raise RuntimeError(f"{path} was built with the parameters "
                                    f"{baked} compiled in, not {inst.baked}")
+            lib.grt_render_data.restype = ctypes.c_int
+            lib.grt_render_data.argtypes = [
+                fp, fp, *[ctypes.c_int] * 3, *[vp] * 8,
+                ctypes.POINTER(ctypes.c_longlong), *[vp] * 6]
             _libs[key] = (inst, lib)
         return _libs[key][1]
 
@@ -497,15 +509,31 @@ def tile_ray_index(n_rays: int, width: int) -> np.ndarray:
     return np.where((x < width) & (y < height), y * width + x, -1)
 
 
-def _check(name, t: torch.Tensor, shape, dtype):
+def _check(name, t: torch.Tensor, shape, dtype, what="trace_rays_cuda",
+           contiguous=True):
     if not t.is_cuda:
-        raise ValueError(f"trace_rays_cuda: {name} is on {t.device}, "
+        raise ValueError(f"{what}: {name} is on {t.device}, "
                          "the kernel needs CUDA tensors")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"trace_rays_cuda: {name} is {t.dtype} "
+        raise ValueError(f"{what}: {name} is {t.dtype} "
                          f"{tuple(t.shape)}, expected {dtype} {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"trace_rays_cuda: {name} is not contiguous")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _param_values(metric: Metric, inst: Instance, params, what: str) -> tuple:
+    """The float32 values of ``inst``'s parameters that a launch takes: a
+    baked metric's own (``runtime.hotswap.bake``), as its function evaluates
+    with them.  Raises for a parameter that requires grad."""
+    if isinstance(metric.fn, BakedFn):
+        params = dict(metric.fn.params)
+    if any(isinstance(params[k], torch.Tensor) and params[k].requires_grad
+           for k in inst.params):
+        # The kernel is forward-only: it takes the parameters as host
+        # floats, and a gradient through them would be lost without a word.
+        raise ValueError(f"{what}: a parameter requires grad; the "
+                         "kernel takes detached host floats")
+    return tuple(float(np.float32(float(params[k]))) for k in inst.params)
 
 
 def trace_rays_cuda(metric: Metric, state: RayState, params,
@@ -525,16 +553,8 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     (``runtime.hotswap.bake``) launches its baked library with the values
     it was baked with, as its function evaluates with them."""
     inst = instance_of(metric)
-    if isinstance(metric.fn, BakedFn):
-        params = dict(metric.fn.params)
     param_names = inst.params
-    if any(isinstance(params[k], torch.Tensor) and params[k].requires_grad
-           for k in param_names):
-        # The kernel is forward-only: it takes the parameters as host
-        # floats, and a gradient through them would be lost without a word.
-        raise ValueError("trace_rays_cuda: a parameter requires grad; the "
-                         "kernel takes detached host floats")
-    values = tuple(float(np.float32(float(params[k]))) for k in param_names)
+    values = _param_values(metric, inst, params, "trace_rays_cuda")
 
     n = state.position.shape[0]
     width = 0 if image_width is None else int(image_width)
@@ -579,6 +599,67 @@ def trace_rays_cuda(metric: Metric, state: RayState, params,
     LAUNCHES_BY_METRIC[inst.label] = LAUNCHES_BY_METRIC.get(inst.label, 0) + 1
     profiling.count("launches")
     return out
+
+
+def render_data_cuda(metric: Metric, state: RayState, ku_uobsu: torch.Tensor,
+                     polar: torch.Tensor, polar_vel: torch.Tensor, params,
+                     features: Features,
+                     inv_quat: torch.Tensor | None = None) -> tuple:
+    """The render data of every endpoint of ``state`` by the render-data
+    kernel of ``metric``'s library (``csrc/render_data.cuh``): one launch on
+    the current stream, no wait for the device.  ``polar`` and
+    ``polar_vel`` are the (4, N) polar position and velocity of the chart
+    (``metric.to_polar``, ``to_polar_velocity``), read through their
+    strides; ``inv_quat`` the planar rays' (4, N) inverse quaternions, or
+    None.  Returns ``(tex_coord (N, 2), z_shift (N,), side (N,) int32,
+    terminated (N,) int32, angles (N, 2))``, bit for bit the fields of
+    ``render.pipeline.compute_render_data_reference`` on the card.  Each
+    call adds to the open frame's ``render_data_kernel`` counter."""
+    what = "render_data_cuda"
+    inst = instance_of(metric)
+    values = _param_values(metric, inst, params, what)
+    n = state.position.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    for name, t, shape, dtype in (
+            ("position", state.position, (n, 4), f32),
+            ("velocity", state.velocity, (n, 4), f32),
+            ("running_dlambda_dnew", state.running_dlambda_dnew, (n,), f32),
+            ("status", state.status, (n,), i32),
+            ("ku_uobsu", ku_uobsu, (n,), f32)):
+        _check(name, t, shape, dtype, what)
+    quat = () if inv_quat is None else (("inv_quat", inv_quat),)
+    for name, t in (("polar", polar), ("polar_vel", polar_vel), *quat):
+        _check(name, t, (4, n), f32, what, contiguous=False)
+    strides = (ctypes.c_longlong * 6)(
+        *polar.stride(), *polar_vel.stride(),
+        *((0, 0) if inv_quat is None else inv_quat.stride()))
+
+    cfg = metric.config
+    # The radii as the eager ops cast their Python scalars to float32.
+    r_u, r_t = float(features.universe_size), float(cfg.singular_terminator)
+    consts = (ctypes.c_float * 3)(r_u * r_u, r_t * r_t, 0.5 * (r_u + r_t))
+    mparams = (ctypes.c_float * max(len(values), 1))(*values)
+    dev = state.position.device
+    tex = torch.empty((n, 2), dtype=f32, device=dev)
+    z_shift = torch.empty((n,), dtype=f32, device=dev)
+    side = torch.empty((n,), dtype=i32, device=dev)
+    terminated = torch.empty((n,), dtype=i32, device=dev)
+    angles = torch.empty((n, 2), dtype=f32, device=dev)
+    lib = get_lib(inst)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grt_render_data(
+            mparams, consts, int(cfg.singular),
+            int(cfg.traversable_event_horizon), n,
+            state.position.data_ptr(), state.velocity.data_ptr(),
+            state.running_dlambda_dnew.data_ptr(), state.status.data_ptr(),
+            ku_uobsu.data_ptr(), polar.data_ptr(), polar_vel.data_ptr(),
+            None if inv_quat is None else inv_quat.data_ptr(), strides,
+            tex.data_ptr(), z_shift.data_ptr(), side.data_ptr(),
+            terminated.data_ptr(), angles.data_ptr(), stream)
+    _raise_on(lib, rc, "render-data kernel launch")
+    profiling.count("render_data_kernel")
+    return tex, z_shift, side, terminated, angles
 
 
 def trace_rays_recorded_cuda(metric: Metric, state: RayState, params,

@@ -4,17 +4,18 @@
 Stages, each a plain function on tensors of one device: ``init_camera_rays``
 (observer tetrad, pixel directions, null rays), ``integrate.trace_rays`` (the
 CUDA ray-march kernel on a GPU), ``compute_render_data`` (snap to the
-universe or the terminator sphere, texture coordinates, redshift factor) and
-``shade`` (EWA sky sampling, redshift colour).  For a spherically symmetric
-metric the rays are first rotated into the equator (``ops/planar.py``), the
-march pins theta, and ``compute_render_data`` rotates the endpoints back.
+universe or the terminator sphere, texture coordinates, redshift factor: on
+a GPU one launch of the render-data kernel) and ``shade`` (EWA sky
+sampling, redshift colour).  For a spherically symmetric metric the rays are
+first rotated into the equator (``ops/planar.py``), the march pins theta,
+and ``compute_render_data`` rotates the endpoints back.
 
 The adaptive frame (``adaptive_sampling=True``) marches a 16x coarser
 prepass image, the quarter grid (every even pixel, minus the rays the
 prepass proves black) and the three other pixels of the top-k quarter blocks
 by angular error; the remaining pixels are interpolated.  Each march is one
-launch of the same kernel; every other stage is plain torch ops, none of
-which waits for the device.
+launch of the same kernel, and so is each render data; every other stage
+is plain torch ops, none of which waits for the device.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 
 from .. import camera as cam
 from ..metrics.base import Metric
-from ..ops import geometry, integrate, packing, planar as pl_planar, tetrad
+from ..ops import (geometry, integrate, packing, planar as pl_planar,
+                   raymarch, tetrad)
 from ..ops.integrate import Features, RayState, TraceOptions
 from ..utils import profiling
 from . import background as bg
@@ -284,6 +286,15 @@ def _fix_ray_position_batched(p3, v3, sphere_radius):
     return torch.stack([nr * sign, nth, nph])
 
 
+def _asks_for_grad(state: RayState, ku_uobsu: Tensor, params,
+                   inv_quat: Tensor | None) -> bool:
+    """Grad mode is on and an input or a parameter of
+    :func:`compute_render_data` requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, Tensor) and t.requires_grad
+        for t in (*state, ku_uobsu, inv_quat, *params.values()))
+
+
 def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
                         params, features: Features = Features(),
                         inv_quat: Tensor | None = None) -> RenderData:
@@ -291,7 +302,37 @@ def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
     to the universe sphere (or a singular metric's terminator sphere),
     textured by final (theta, phi), with the observed/emitted energy ratio
     z_shift.  ``inv_quat``: the planar rays' inverse quaternions, which
-    rotate the equatorial endpoints back to each ray's true plane."""
+    rotate the equatorial endpoints back to each ray's true plane.
+
+    A state on a CUDA device runs one launch of the render-data kernel
+    (``ops.raymarch.render_data_cuda``), bit for bit its eager twin
+    :func:`compute_render_data_reference`; like the march's ``"while"`` it
+    launches or raises (a metric without a kernel instance raises
+    ``NotImplementedError``).  The twin serves a state on the CPU, and, on
+    any device, a call in grad mode with an input or a parameter that
+    requires grad: the kernel is forward-only, and the twin differentiates
+    as the march's ``"scan"`` does.  Each call adds to the open frame's
+    ``render_data_kernel`` or ``render_data_eager`` counter."""
+    if (not state.position.is_cuda
+            or _asks_for_grad(state, ku_uobsu, params, inv_quat)):
+        profiling.count("render_data_eager")
+        return compute_render_data_reference(metric, state, ku_uobsu, params,
+                                             features, inv_quat)
+    pos, vel = state.position.T, state.velocity.T
+    polar = metric.to_polar(pos, params)
+    polar_vel = metric.to_polar_velocity(pos, vel, params)
+    fields = raymarch.render_data_cuda(metric, state, ku_uobsu, polar,
+                                       polar_vel, params, features, inv_quat)
+    return RenderData(*fields, steps=state.steps)
+
+
+def compute_render_data_reference(metric: Metric, state: RayState,
+                                  ku_uobsu: Tensor, params,
+                                  features: Features = Features(),
+                                  inv_quat: Tensor | None = None
+                                  ) -> RenderData:
+    """The plain torch render data on the state's device: the CPU's path
+    and the twin of the render-data kernel (:func:`compute_render_data`)."""
     cfg = metric.config
     n = state.position.shape[0]
     pos = state.position.T

@@ -138,6 +138,35 @@ def test_bound_is_operations_over_peak_for_a_marching_frame():
     assert chip_smoke.bound_ms(n, 0)[0] == byt
 
 
+@pytest.mark.parametrize("name,planar,extra", [
+    ("kerr_boyer", False, 0), ("schwarzschild", True, 16),
+    ("schwarzschild_skewed", False, 24)])
+def test_render_data_work_counts_each_array_once(name, planar, extra):
+    """chip_smoke's bound of the render-data kernel: 72 B a ray where the
+    polar position and velocity are views of the state (the identity
+    chart), 12 B more each where the chart makes them anew, 16 B for the
+    planar quaternion; one frame-basis pass a ray at the far rays of these
+    metrics, and the larger of the two times."""
+    m = metrics.get_metric(name)
+    params = m.params()
+    pos, vel = chip_smoke.make_rays(64)
+    fin = integrate.init_ray_state(m, torch.from_numpy(pos),
+                                   torch.from_numpy(vel), params,
+                                   integrate.Features())
+    quat = torch.zeros((4, 64)) if planar else None
+    w = chip_smoke.render_data_work(m, fin, None, params,
+                                    integrate.Features(), quat)
+    assert w["bytes_per_ray"] == 72 + extra
+    assert w["second_pass_rays"] == 0 and w["snapped_rays"] == 64
+    assert w["operations"] == 64 * (
+        chip_smoke.RENDER_OPS_PASS + chip_smoke.RENDER_OPS_SNAP
+        + chip_smoke.RENDER_OPS_REST
+        + (chip_smoke.RENDER_OPS_UNROTATE if planar else 0))
+    assert w["bound_ms"] == max(w["bytes_bound_ms"], w["ops_bound_ms"])
+    assert w["bytes_bound_ms"] == pytest.approx(
+        64 * (72 + extra) / 3.35e12 * 1e3)
+
+
 def test_metric_of_the_kernel_is_registered():
     """Every kernel instance belongs to a registered metric and takes that
     metric's parameters, all of them, in the order of its C++ struct."""

@@ -123,7 +123,8 @@ def test_a_dense_frame_takes_its_stage_spans(recorder):
     (f,) = recorder.recent_frames()
     assert [s.name for s in f.spans] == DENSE
     assert all(s.parent is f.spans[0] for s in f.spans[1:])
-    assert f.counters == {}  # no kernel launch on the CPU
+    # No kernel launch on the CPU: render data takes its eager path.
+    assert f.counters == {"render_data_eager": 1}
     assert f.host_ms("frame") >= sum(f.host_ms(n) for n in DENSE[1:])
     assert f.device_ms("frame") is None and f.host_ms("prepass") is None
 
@@ -149,8 +150,10 @@ def test_adaptive_frames_take_their_stage_spans(recorder):
     assert all(s.parent is second.spans[0] for s in second.spans[1:])
     nq = 8 * 8
     share = pl._refine_k(nq, 0.375) / nq
-    assert second.counters == {"refine_share": share}
-    assert set(first.counters) == {"refine_share", "refine_demand"}
+    assert second.counters == {"refine_share": share,
+                               "render_data_eager": 2}
+    assert set(first.counters) == {"refine_share", "refine_demand",
+                                   "render_data_eager"}
     assert 0.0 < first.counters["refine_demand"] <= 1.0
 
 
@@ -180,4 +183,4 @@ def test_the_cli_bench_prints_each_frame_stages(recorder, capsys):
         assert stages.startswith("Stages (host / device ms): frame ")
         assert [p.split()[0] for p in stages.split(": ", 1)[1].split(
             "; ")[0].split(", ")] == DENSE
-        assert stages.endswith("; launches 0")
+        assert stages.endswith("; launches 0; render_data_kernel 0 of 1")
