@@ -20,6 +20,7 @@ is plain torch ops, none of which waits for the device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -221,13 +222,19 @@ def init_camera_rays(metric: Metric, camera: cam.Camera, params,
                      settings: RenderSettings,
                      features: Features = Features(), *, device):
     """Full-image ray batch on ``device``, flattened to N = W*H
-    (row-major).  Returns ``(state, ku_uobsu, inv_quat)``."""
+    (row-major).  Returns ``(state, ku_uobsu, inv_quat)``.  Its two parts
+    are spans of the recorder: ``camera`` (the observer at one point) and
+    ``launch_state`` (every ray's direction, null fix and launch
+    acceleration)."""
     W, H = settings.width, settings.height
     camera = camera.to(device)
-    position, es = camera_frame(metric, camera, params)
-    return rays_for_pixels(metric, camera, position, es, params, settings,
-                           features, *_grid_coords(W, H, 1.0, device),
-                           planar=_planar_enabled(metric, settings))
+    with profiling.span("camera"):
+        position, es = camera_frame(metric, camera, params)
+    with profiling.span("launch_state"):
+        return rays_for_pixels(metric, camera, position, es, params,
+                               settings, features,
+                               *_grid_coords(W, H, 1.0, device),
+                               planar=_planar_enabled(metric, settings))
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +302,21 @@ def _asks_for_grad(state: RayState, ku_uobsu: Tensor, params,
         for t in (*state, ku_uobsu, inv_quat, *params.values()))
 
 
+def _chart_to_polar(metric: Metric, state: RayState, params):
+    """The (4, N) polar position and velocity of every endpoint: the
+    chart's eager ``to_polar`` and ``to_polar_velocity``.  Where the chart
+    is not the identity they are the recorder's ``chart`` span, and the
+    open frame counts ``chart_eager``."""
+    pos, vel = state.position.T, state.velocity.T
+    span = contextlib.nullcontext()
+    if metric.config.to_polar not in ("", "polar_to_polar"):
+        profiling.count("chart_eager")
+        span = profiling.span("chart")
+    with span:
+        return (metric.to_polar(pos, params),
+                metric.to_polar_velocity(pos, vel, params))
+
+
 def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
                         params, features: Features = Features(),
                         inv_quat: Tensor | None = None) -> RenderData:
@@ -312,15 +334,14 @@ def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
     any device, a call in grad mode with an input or a parameter that
     requires grad: the kernel is forward-only, and the twin differentiates
     as the march's ``"scan"`` does.  Each call adds to the open frame's
-    ``render_data_kernel`` or ``render_data_eager`` counter."""
+    ``render_data_kernel`` or ``render_data_eager`` counter, and on both
+    paths a chart that is not the identity to ``chart_eager``."""
     if (not state.position.is_cuda
             or _asks_for_grad(state, ku_uobsu, params, inv_quat)):
         profiling.count("render_data_eager")
         return compute_render_data_reference(metric, state, ku_uobsu, params,
                                              features, inv_quat)
-    pos, vel = state.position.T, state.velocity.T
-    polar = metric.to_polar(pos, params)
-    polar_vel = metric.to_polar_velocity(pos, vel, params)
+    polar, polar_vel = _chart_to_polar(metric, state, params)
     fields = raymarch.render_data_cuda(metric, state, ku_uobsu, polar,
                                        polar_vel, params, features, inv_quat)
     return RenderData(*fields, steps=state.steps)
@@ -340,8 +361,7 @@ def compute_render_data_reference(metric: Metric, state: RayState,
     rdl = state.running_dlambda_dnew
     status = state.status
 
-    polar = metric.to_polar(pos, params)
-    polar_vel = metric.to_polar_velocity(pos, vel, params)
+    polar, polar_vel = _chart_to_polar(metric, state, params)
 
     snapped_far = _fix_ray_position_batched(polar[1:], polar_vel[1:],
                                             features.universe_size)

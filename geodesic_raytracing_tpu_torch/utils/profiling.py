@@ -22,17 +22,21 @@ While a ``torch.profiler`` session records, each span also enters
 ``record_function(name)``, so the stage names sit on the profiler's clock
 in its trace.  Frames are dispatched from one thread.
 
-Span names: ``frame``; dense ``ray_init``, ``render_data``, ``shade``;
-adaptive ``camera``, ``prepass`` (absent where the prepass is reused),
-``quarter_setup``, ``refine_setup``, ``controller_wait``, ``finish``;
-``trace`` (every ``integrate.trace_rays`` call); set-up
+Span names: ``frame``; dense ``ray_init`` (inside it ``camera``, the
+observer at one point, and ``launch_state``, every ray's launch state),
+``render_data`` (inside it ``chart``, the eager transform of the endpoints
+to the polar chart, where the metric's chart is not the identity),
+``shade``; adaptive ``camera``, ``prepass`` (absent where the prepass is
+reused), ``quarter_setup``, ``refine_setup``, ``controller_wait``,
+``finish``; ``trace`` (every ``integrate.trace_rays`` call); set-up
 ``setup.sky_atlas``.  Counters of a frame: ``launches`` (ray-march kernel
 launches), ``render_data_kernel`` and ``render_data_eager``
 (``compute_render_data`` calls served by the render-data kernel and by its
-eager twin), ``refine_share`` (the refine launch's blocks over the quarter
-blocks) and ``refine_demand`` (the share of quarter blocks the error test
-asked to refine, recorded against its own frame when the budget controller
-reads it, ``latency`` frames later).
+eager twin), ``chart_eager`` (``compute_render_data`` calls that took the
+chart's eager transform), ``refine_share`` (the refine launch's blocks over
+the quarter blocks) and ``refine_demand`` (the share of quarter blocks the
+error test asked to refine, recorded against its own frame when the budget
+controller reads it, ``latency`` frames later).
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ and counts ``render_data_eager``; the rule that sends a call that asks for a
 gradient to the eager path on the card too is tested through its predicate
 (``_asks_for_grad``).  The tests that take a fixture ``cuda`` need a CUDA
 device and skip without one: there the kernel equals the eager path bit for
-bit on the 3840x2160 final states of the benchmark's two configurations and
-on an adaptive frame's quarter and refine sets, each call counts one
+bit on the 3840x2160 final states of the benchmark's three configurations
+(the two-body metric's in its cylindrical chart) and on an adaptive frame's
+quarter and refine sets, each call counts one
 ``render_data_kernel``, a gradient takes the eager path and a metric without
 a kernel instance raises.  Run them on the card with
 
@@ -142,6 +143,28 @@ def test_kernel_equals_eager_on_2160_frames(cuda, recorder, name):
     assert_same_render_data(got, ref)
     (f,) = recorder.recent_frames()
     assert f.counters == {"render_data_kernel": 1}
+
+
+def test_kernel_equals_eager_on_the_double_kerr_2160_frame(cuda, recorder):
+    """The benchmark's ``double_kerr_binary`` frame at 3840x2160 (two Kerr
+    holes on a strut, the flagship camera at azimuth 0), every ray: the
+    cylindrical chart's eager transform before the kernel, the complex-pair
+    metric in the kernel's two-pass frame basis.  The call counts one
+    kernel call and one eager chart transform."""
+    m, params, feats, final, ku, iquat = marched("double_kerr", 3840, 2160,
+                                                 cuda)
+    assert iquat is None and m.config.to_polar == "cylindrical_to_polar"
+    with profiling.frame(cuda):
+        got = pl.compute_render_data(m, final, ku, params, feats, iquat)
+    ref = pl.compute_render_data_reference(m, final, ku, params, feats,
+                                           iquat)
+    assert_same_render_data(got, ref)
+    # Both fates reach the frame basis.
+    st = ref.terminated
+    assert (st == integrate.ESCAPED).any() and (st == integrate.DEAD).any()
+    (f,) = recorder.recent_frames()
+    assert f.counters == {"render_data_kernel": 1, "chart_eager": 1}
+    assert [s.name for s in f.spans] == ["frame", "chart"]
 
 
 def test_kernel_equals_eager_on_adaptive_sets(cuda, recorder, monkeypatch):

@@ -118,6 +118,7 @@ extern "C" int grt_host_render_data(
   TRY(Minkowski)
   TRY(KerrSchild)
   TRY(SchwarzschildIngoingEF)
+  TRY(DoubleKerr)
   TRY(EMITTED)
 #undef TRY
   return 1;
@@ -254,18 +255,18 @@ def same_bits(a: torch.Tensor, b: torch.Tensor, ulps: int = 0) -> bool:
     return bool(((d <= ulps) | nan).all())
 
 
-def endpoints(m, params, features, planar, n_placed=18):
-    """The ends of a 128-step march of a 16x12 frame from r = 7 pitched at
-    the origin, with the last ``n_placed`` rays replaced by hand-placed
-    endpoints (polar r 20.5, -20.5, 0.5, -0.8, 1.02, 1.08, 3 and, inside
-    Kerr's ergosphere, where the frame basis takes its second pass, 0.8 and
-    0.7; escaped, dead or still active).  Returns ``(state, ku,
+def endpoints(m, params, features, planar, n_placed=18, max_steps=128):
+    """The ends of a ``max_steps``-step march of a 16x12 frame from r = 7
+    pitched at the origin, with the last ``n_placed`` rays replaced by
+    hand-placed endpoints (polar r 20.5, -20.5, 0.5, -0.8, 1.02, 1.08, 3
+    and, inside Kerr's ergosphere, where the frame basis takes its second
+    pass, 0.8 and 0.7; escaped, dead or still active).  Returns ``(state, ku,
     inv_quat)``."""
     cam = Camera.default(device="cpu").rotate(pitch=-math.pi / 2)
     settings = pl.RenderSettings(width=16, height=12, planar=planar)
     state, ku, iquat = pl.init_camera_rays(m, cam, params, settings,
                                            features, device="cpu")
-    opts = integrate.TraceOptions(max_steps=128,
+    opts = integrate.TraceOptions(max_steps=max_steps,
                                   planar=pl._planar_enabled(m, settings))
     state = integrate.trace_rays_reference(m, state, params, features, opts)
 
@@ -299,7 +300,10 @@ def _traversable(m):
 # 4-D) and with one (the same struct: the branch is the config's); flat
 # space's constant metric in a cartesian chart; charts whose to_polar is
 # not the identity; the rank-1 Kerr-Schild struct; a null coordinate (no
-# g_rr) with a traversable horizon; an emitted pack struct.
+# g_rr) with a traversable horizon; an emitted pack struct; the cylindrical
+# chart of the complex-pair two-body metric, whose g_{t phi} puts the frame
+# basis' Gram-Schmidt through an off-diagonal entry (its eager march costs
+# ~36 ms a step on one core, so its endpoints march 32 steps).
 CASES = [
     ("kerr_boyer", "kerr_boyer", "KerrBoyer", True),
     ("schwarzschild_planar", "schwarzschild", "Schwarzschild", True),
@@ -316,7 +320,9 @@ CASES = [
     ("schwarzschild_ingoing_ef", "schwarzschild_ingoing_ef",
      "SchwarzschildIngoingEF", True),
     ("pack_reissner_nordstrom", None, None, True),
+    ("double_kerr", "double_kerr", "DoubleKerr", True),
 ]
+MARCH_STEPS = {"double_kerr": 32}
 
 
 @pytest.mark.parametrize("case,name,struct,planar", CASES,
@@ -330,7 +336,8 @@ def test_host_render_data_matches_eager(host_lib, emitted, case, name,
         m = _traversable(m)
     params = m.params()
     features = integrate.Features.for_metric(m)
-    state, ku, iquat = endpoints(m, params, features, planar)
+    state, ku, iquat = endpoints(m, params, features, planar,
+                                 max_steps=MARCH_STEPS.get(case, 128))
     assert (iquat is not None) == (planar and m.spherically_symmetric)
     with LibmMode(host_lib):
         ref = pl.compute_render_data_reference(m, state, ku, params,

@@ -20,7 +20,9 @@ from geodesic_raytracing_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
-DENSE = ["frame", "ray_init", "trace", "render_data", "shade"]
+DENSE = ["frame", "ray_init", "camera", "launch_state", "trace",
+         "render_data", "shade"]
+STAGES = ["ray_init", "trace", "render_data", "shade"]  # the frame's own
 
 
 @pytest.fixture
@@ -117,16 +119,47 @@ def test_a_disabled_recorder_records_nothing(recorder):
 
 
 def test_a_dense_frame_takes_its_stage_spans(recorder):
+    """The stages are the frame's children; ray init's two parts, the
+    camera at one point and every ray's launch state, are ray init's."""
     scene = _scene("schwarzschild")
     assert [s.name for s in recorder.setup_spans()] == ["setup.sky_atlas"]
     _frame("schwarzschild", scene=scene)
     (f,) = recorder.recent_frames()
     assert [s.name for s in f.spans] == DENSE
-    assert all(s.parent is f.spans[0] for s in f.spans[1:])
-    # No kernel launch on the CPU: render data takes its eager path.
+    top, ray_init = f.spans[0], f.spans[1]
+    assert [s.name for s in f.spans if s.parent is top] == STAGES
+    assert [s.name for s in f.spans if s.parent is ray_init] == [
+        "camera", "launch_state"]
+    # No kernel launch on the CPU: render data takes its eager path; the
+    # polar chart is the identity, so no eager chart transform.
     assert f.counters == {"render_data_eager": 1}
-    assert f.host_ms("frame") >= sum(f.host_ms(n) for n in DENSE[1:])
+    assert f.host_ms("frame") >= sum(f.host_ms(n) for n in STAGES)
+    assert f.host_ms("ray_init") >= (f.host_ms("camera")
+                                     + f.host_ms("launch_state"))
     assert f.device_ms("frame") is None and f.host_ms("prepass") is None
+
+
+def test_a_cylindrical_chart_takes_the_chart_span(recorder):
+    """A tiny ``double_kerr`` frame (cylindrical chart) transforms its
+    endpoints to the polar chart eagerly inside render data: the ``chart``
+    span and the ``chart_eager`` counter, which the CLI's line prints; a
+    Schwarzschild frame (the identity chart) takes neither."""
+    m = metrics.get_metric("double_kerr")
+    cam = Camera.default(device="cpu").rotate(pitch=-math.pi / 2)
+    sky = bg.checker_background(64, 128, device="cpu")
+    settings = pl.RenderSettings(width=4, height=3, anisotropy=2,
+                                 trace=TraceOptions(max_steps=4))
+    pl.render_frame(m, cam, m.params(), sky, settings, device="cpu")
+    _frame("schwarzschild", size=4)
+    dk, schw = recorder.recent_frames()
+    assert [s.name for s in dk.spans] == DENSE[:6] + ["chart", "shade"]
+    (chart,) = [s for s in dk.spans if s.name == "chart"]
+    assert chart.parent.name == "render_data"
+    assert dk.counters == {"render_data_eager": 1, "chart_eager": 1}
+    assert profiling.describe(dk).endswith(
+        "; launches 0; render_data_kernel 0 of 1; chart_eager 1")
+    assert [s.name for s in schw.spans] == DENSE
+    assert schw.counters == {"render_data_eager": 1}
 
 
 def test_adaptive_frames_take_their_stage_spans(recorder):
