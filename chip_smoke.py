@@ -14,7 +14,9 @@ comes (prepass, quarter grid and refinement: three launches in a first
 frame, two in a steady one; the first frame's prepass launch and each launch
 of the 480x270 frame marched once more by the plain twin).  It counts each
 launch's work (steps, trial iterations, idle lanes), holds the kernel's time
-against its bound, holds the adaptive frame against the dense one and the
+against its bound, holds the observer kernel (the camera's tetrad, one
+launch a frame) bit for bit to its eager twin and its time against its
+bound, holds the adaptive frame against the dense one and the
 kernel frames against the plain frames at 480x270, checks that a steady
 adaptive frame never waits for the device, times both frames stage by stage,
 and runs the CLI on the card.  Then the second path: every other kernel
@@ -614,6 +616,160 @@ def render_data_row(tag, metric, fin, ku, params, feats, inv_quat,
         "library_ms": None,  # no PyTorch call computes render data
         "planar": inv_quat is not None,
         **work,
+    }
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi``'s clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+class OpCount:
+    """A torch dispatch mode that counts the float32 operations of the ops
+    it sees: an op's output elements, and for a contraction (``mv``,
+    ``mm``, ``dot``, ``sum``) a multiply and an add per input element;
+    views, copies and allocations count nothing."""
+
+    FREE = frozenset((
+        "view", "_unsafe_view", "alias", "as_strided", "expand", "select",
+        "slice", "unsqueeze", "squeeze", "permute", "transpose", "t",
+        "unbind", "split", "split_with_sizes", "detach", "clone", "copy_",
+        "_to_copy", "empty", "empty_strided", "new_empty", "zeros",
+        "zeros_like", "new_zeros", "ones", "ones_like", "full", "full_like",
+        "new_full", "fill_", "zero_", "eye", "scalar_tensor", "lift_fresh",
+        "lift_fresh_copy", "stack", "cat", "index", "index_put",
+        "index_put_", "arange", "_local_scalar_dense",
+        "_new_zeros_with_same_feature_meta"))
+
+    def __init__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        count = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.__name__.split(".")[0]
+                if name not in OpCount.FREE:
+                    sizes = [a.numel() for a in args
+                             if isinstance(a, torch.Tensor)]
+                    if name in ("mv", "mm", "dot", "sum"):
+                        count.ops += 2 * max(sizes, default=0)
+                    elif isinstance(out, torch.Tensor):
+                        count.ops += out.numel()
+                return out
+
+        self.ops = 0
+        self.mode = Mode()
+
+
+def observer_ops(metric, position, params, speed) -> int:
+    """The float32 operations of one observer kernel launch at
+    ``position``: those of the eager twin ``observer_tetrad_reference``
+    (whose operations the kernel makes one for one) less its chart part
+    ``generic_axes`` (eager, the kernel's input), counted by ``OpCount`` on
+    this run's inputs (so a second frame-basis pass counts where it runs)."""
+    from geodesic_raytracing_tpu_torch import camera as cam
+
+    whole, chart = OpCount(), OpCount()
+    with whole.mode:
+        cam.observer_tetrad_reference(metric, position, params, speed)
+    with chart.mode:
+        cam.generic_axes(metric, position, params)
+    return whole.ops - chart.ops
+
+
+def observer_row(tag, metric, camera, params, launches, rounds=20) -> dict:
+    """The kernels-table row of ``metric``'s observer kernel at the smoke
+    frame's ``camera``: ``camera.observer_tetrad`` (the kernel) against
+    ``observer_tetrad_reference`` (its eager twin) bit for bit, asserted,
+    at the camera and at the camera with a frame speed; the launch's ms, the
+    median of ``rounds`` launches back to back queued behind a device sleep
+    (each between two CUDA events); the twin's ms, the median of 3 so
+    queued; the bound, one 1-element launch timed as the kernel is (the
+    launch latency) plus the kernel's float32 operations
+    (``observer_ops``) issued one a cycle at the largest SM clock, the
+    least one thread's dependent chain of them can take.  ``launches``: the
+    ``camera_kernel`` counter of the path's own frame."""
+    import torch
+    from geodesic_raytracing_tpu_torch import camera as cam
+    from geodesic_raytracing_tpu_torch.ops import raymarch
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    dev = torch.device("cuda")
+    camera = camera.to(dev)
+    position = pl.camera_to_generic(metric, camera, params)
+    speeds = {"at rest": camera.basis_speed,
+              "moving": torch.tensor([0.1, -0.2, 0.05], device=dev)}
+    for what, speed in speeds.items():
+        got = cam.observer_tetrad(metric, position, params, speed)
+        ref = cam.observer_tetrad_reference(metric, position, params, speed)
+        differing = int((got.view(torch.int32)
+                         != ref.view(torch.int32)).sum())
+        print(f"{tag} {metric.name} camera {what}: observer kernel vs eager "
+              f"twin, elements differing {differing} of 16")
+        assert differing == 0, (metric.name, what, got, ref)
+
+    speed = camera.basis_speed
+    axes = cam.generic_axes(metric, position, params)
+    one = torch.zeros((1,), device=dev)
+
+    def queued(launch, n):
+        """Per-launch ms of ``n`` launches back to back behind a sleep."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        ev[0].record()
+        for i in range(n):
+            launch()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+
+    ms = statistics.median(queued(lambda: raymarch.observer_tetrad_cuda(
+        metric, position, axes, params, speed), rounds))
+    launch_ms = statistics.median(queued(one.zero_, rounds))
+    plain = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(600_000_000)
+        ev[0].record()
+        cam.observer_tetrad_reference(metric, position, params, speed)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain.append(ev[0].elapsed_time(ev[1]))
+    ops = observer_ops(metric, position, params, speed)
+    clock = sm_clock_hz()
+    bound = launch_ms + ops / clock * 1e3
+    print(f"{tag} {metric.name} observer kernel {ms * 1e3:.2f} us (median "
+          f"of {rounds} back to back), eager twin "
+          f"{statistics.median(plain):.3f} ms; bound {bound * 1e3:.2f} us "
+          f"= a 1-element launch {launch_ms * 1e3:.2f} us + {ops} float32 "
+          f"operations at one a cycle, {clock / 1e6:.0f} MHz; share of the "
+          f"bound {bound / ms:.4f}; {launches} launch(es) in the path's "
+          f"frame")
+    return {
+        "name": f"observer_{metric.name}",
+        "route": "cuda",
+        "source": "geodesic_raytracing_tpu_torch/csrc/observer.cuh",
+        "replaces": "geodesic_raytracing_tpu/camera.py:107",
+        "launches": launches,
+        "max_abs_err": 0.0,  # bit for bit, asserted above
+        "ms": ms,
+        "plain_ms": statistics.median(plain),
+        "bound_ms": bound,
+        "bound_by": "launch latency and one thread's operations",
+        "launch_ms": launch_ms,
+        "operations": ops,
+        "sm_clock_hz": clock,
+        "share_of_bound": bound / ms,
+        "library_ms": None,  # no PyTorch call computes an observer tetrad
     }
 
 
@@ -1485,11 +1641,13 @@ def second_path(dev, sky) -> dict:
                                     feats, device=dev)
         torch.cuda.synchronize()
         counts = dict(raymarch.LAUNCHES_BY_METRIC)
-    rd_launches = profiling.recent_frames()[-1].counters.get(
-        "render_data_kernel", 0)
+    counters = profiling.recent_frames()[-1].counters
+    rd_launches = counters.get("render_data_kernel", 0)
+    cam_launches = counters.get("camera_kernel", 0)
     black = checked(dense_img, "dense")
     assert counts == {"schwarzschild": 1}, counts
     assert rd_launches == 1, rd_launches
+    assert cam_launches == 1 and "camera_eager" not in counters, counters
     (d_in, d_out, d_width, d_opts), = launch
     assert d_opts.planar and d_width == 1920
     assert bool((d_in.position[:, 2] == d_in.position[0, 2]).all())
@@ -1581,6 +1739,8 @@ def second_path(dev, sky) -> dict:
     out["render_data"] = render_data_row("[16 render data]", metric, d_out,
                                          ku, params, feats, iq, rd_launches)
     del ku, iq
+    out["observer"] = observer_row("[16 observer]", metric, camera, params,
+                                   cam_launches)
 
     steady = []
     with stage_events(pl, integrate) as read:
@@ -3798,6 +3958,7 @@ def main(argv=None) -> int:
     if args.parallel_rank:
         return parallel_rank(args.parallel_rank)
 
+    from geodesic_raytracing_tpu_torch import camera as cam
     from geodesic_raytracing_tpu_torch import cli
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
@@ -3952,9 +4113,11 @@ def main(argv=None) -> int:
                               device=dev)
         torch.cuda.synchronize()
         launches = raymarch.launches()
-    rd_launches = profiling.recent_frames()[-1].counters.get(
-        "render_data_kernel", 0)
+    counters = profiling.recent_frames()[-1].counters
+    rd_launches = counters.get("render_data_kernel", 0)
+    cam_launches = counters.get("camera_kernel", 0)
     assert rd_launches == 1, rd_launches
+    assert cam_launches == 1 and "camera_eager" not in counters, counters
     dense_img = img
     finite = bool(torch.isfinite(img).all())
     black = float((img == 0).all(dim=-1).float().mean())
@@ -4024,16 +4187,27 @@ def main(argv=None) -> int:
     took("3")
 
     # -- 4. kernel frame vs plain frame at 480x270 ---------------------------
+    # The plain frame's rays start from the observer kernel's eager twin (a
+    # camera whose frame_override is the twin's tetrad): the same bits.
     small = dataclasses.replace(settings, width=480, height=270)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     state, ku, _ = pl.init_camera_rays(metric, camera, params, small, feats,
                                        device=dev)
+    camera_d = camera.to(dev)
+    position = pl.camera_to_generic(metric, camera_d, params)
+    plain_camera = camera_d.on_geodesic(
+        position, cam.observer_tetrad_reference(metric, position, params,
+                                                camera_d.basis_speed))
+    p_state, p_ku, _ = pl.init_camera_rays(metric, plain_camera, params,
+                                           small, feats, device=dev)
+    assert same_bits(state, p_state) and torch.equal(
+        ku.view(torch.int32), p_ku.view(torch.int32)), "camera kernel vs twin"
     torch.cuda.synchronize()
     ev[0].record()
     fk = raymarch.trace_rays_cuda(metric, state, params, feats, small.trace,
                                   image_width=small.width)
     ev[1].record()
-    fp = integrate.trace_rays_reference(metric, state, params, feats,
+    fp = integrate.trace_rays_reference(metric, p_state, params, feats,
                                         small.trace)
     ev[2].record()
     torch.cuda.synchronize()
@@ -4043,9 +4217,10 @@ def main(argv=None) -> int:
                              small.width)
     small_bound, _, _ = bound_ms(small.width * small.height,
                                  small_work["trials"])
-    imgs = [pl.shade(render_data(metric, f, ku, params, feats), sky, small)
-            for render_data, f in ((pl.compute_render_data, fk),
-                                   (pl.compute_render_data_reference, fp))]
+    imgs = [pl.shade(render_data(metric, f, k_, params, feats), sky, small)
+            for render_data, f, k_ in (
+                (pl.compute_render_data, fk, ku),
+                (pl.compute_render_data_reference, fp, p_ku))]
     rmse, bad = golden_gate(to_srgb8(imgs[0]), to_srgb8(imgs[1]))
     print(f"[4 gate] 480x270 kernel vs plain frame: RMSE {rmse:.4f}, "
           f"pixels off by >32 {bad:.5f}; trace kernel {small_ms:.3f} ms, "
@@ -4094,6 +4269,8 @@ def main(argv=None) -> int:
     rd_row = render_data_row("[5 render data]", metric, fin5, ku5, params,
                              feats, None, rd_launches)
     del s5, ku5, fin5
+    ob_row = observer_row("[5 observer]", metric, camera, params,
+                          cam_launches)
     dense_mrays = bench_protocol_mrays(
         lambda: pl.render_frame(metric, camera, params, sky, settings, feats,
                                 device=dev), n_rays)
@@ -4393,6 +4570,7 @@ def main(argv=None) -> int:
     took("15")
     schw = second_path(dev, sky)
     rd_schw = schw.pop("render_data")
+    ob_schw = schw.pop("observer")
     took("16")
     planar = planar_vs_4d(dev, sky)
     took("17")
@@ -4532,7 +4710,8 @@ def main(argv=None) -> int:
             # 2-rank check and the banding cost.
             "parallel": par_row,
         },
-    }, rd_row, rd_schw, *(instance_row(m) for m in sorted(per_metric)),
+    }, rd_row, rd_schw, ob_row, ob_schw,
+        *(instance_row(m) for m in sorted(per_metric)),
         *content["rows"]]}
     print(json.dumps(table))
     print(smi)

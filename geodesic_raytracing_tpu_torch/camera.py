@@ -11,8 +11,9 @@ import torch
 
 from .coordinates import transforms as tr
 from .metrics.base import Metric
-from .ops import tetrad
+from .ops import raymarch, tetrad
 from .ops.geometry import dot
+from .utils import profiling
 
 Tensor = torch.Tensor
 
@@ -117,47 +118,81 @@ def _orthonormalise3(v1: Tensor, v2: Tensor, v3: Tensor):
     return u1, u2, u3
 
 
+def generic_axes(metric: Metric, position: Tensor, params) -> tuple:
+    """The chart part of the observer tetrad: the global Cartesian axes at
+    the generic ``position``, as generic velocities ``(gx, gy, gz)`` (4,)
+    in ``position``'s dtype (``calculate_tetrads`` cl.cl:2350-2380; the side
+    of a wormhole from the sign of r).
+
+    At one point a chart's ``torch.func.jvp`` may come out in float64: the
+    tangent it gives a Python-float parameter is a float64 zero, and at one
+    point every operand is a 0-d tensor, so it promotes (the ingoing
+    Eddington-Finkelstein and Misner charts).  The axes are cast back, as
+    the JAX package's are float32 throughout."""
+    dev = position.device
+    polar_camera = metric.to_polar(position, params)
+    apolar = polar_camera[1:4].clone()
+    apolar[0] = torch.abs(polar_camera[1])
+    cart_camera = tr.polar_to_cartesian3(apolar)
+    sign_r = torch.where(polar_camera[1] < 0, -1.0, 1.0)
+
+    def to_generic(c3):
+        s3 = tr.cartesian_velocity_to_polar_velocity(cart_camera, c3)
+        s3 = torch.cat([(s3[0] * sign_r)[None], s3[1:]])
+        v4 = torch.cat([torch.zeros((1,), device=dev), s3])
+        return metric.from_polar_velocity(polar_camera, v4,
+                                          params).to(position.dtype)
+
+    # The Cartesian axes, made on the device (a frame uploads nothing).
+    return tuple(to_generic(axis) for axis in torch.eye(3, device=dev))
+
+
 def observer_tetrad(metric: Metric, position: Tensor, params,
-                    basis_speed3: Tensor | None = None,
-                    orient: bool = True) -> Tensor:
+                    basis_speed3: Tensor | None = None) -> Tensor:
     """Observer tetrad at a generic position (4,): frame basis, orientation
     to the global polar axes, then the Lorentz boost (``calculate_tetrads``
-    cl.cl:2288-2439).  Returns ``es`` (4, 4) with ``es[a][mu] = e_a^mu``."""
+    cl.cl:2288-2439).  Returns ``es`` (4, 4) with ``es[a][mu] = e_a^mu``.
+
+    On a CUDA device and asking for no gradient, it is the chart part
+    (:func:`generic_axes`, eager) and one launch of the observer kernel
+    (``ops.raymarch.observer_tetrad_cuda``), bit for bit its eager twin
+    :func:`observer_tetrad_reference`; a metric without a kernel instance
+    raises ``NotImplementedError``, as the march does.  The twin serves the
+    CPU and a call in grad mode where the position, the speed or a parameter
+    requires grad.  Each call adds to the open frame's ``camera_kernel`` or
+    ``camera_eager`` counter."""
+    if position.is_cuda and not raymarch.asks_for_grad(
+            position, basis_speed3, params=params):
+        return raymarch.observer_tetrad_cuda(
+            metric, position, generic_axes(metric, position, params), params,
+            basis_speed3)
+    profiling.count("camera_eager")
+    return observer_tetrad_reference(metric, position, params, basis_speed3)
+
+
+def observer_tetrad_reference(metric: Metric, position: Tensor, params,
+                              basis_speed3: Tensor | None = None) -> Tensor:
+    """:func:`observer_tetrad` in eager torch ops on any device (the
+    observer kernel's twin; differentiable)."""
     dev = position.device
     gab = metric.fn(position, params)
     es, _ = tetrad.frame_basis(gab)
+    inv_es = tetrad.tetrad_inverse(es)
+    gx, gy, gz = generic_axes(metric, position, params)
 
-    if orient:
-        polar_camera = metric.to_polar(position, params)
-        apolar = polar_camera[1:4].clone()
-        apolar[0] = torch.abs(polar_camera[1])
-        cart_camera = tr.polar_to_cartesian3(apolar)
+    # Normalise with y first so camera controls work intuitively.
+    tE1 = tetrad.coordinate_to_tetrad(gy, inv_es)
+    tE2 = tetrad.coordinate_to_tetrad(gx, inv_es)
+    tE3 = tetrad.coordinate_to_tetrad(gz, inv_es)
 
-        inv_es = tetrad.tetrad_inverse(es)
-        sign_r = torch.where(polar_camera[1] < 0, -1.0, 1.0)
+    b1, b2, b3 = _orthonormalise3(tE1[1:], tE2[1:], tE3[1:])
 
-        def to_generic(c3):
-            s3 = tr.cartesian_velocity_to_polar_velocity(cart_camera, c3)
-            s3 = torch.cat([(s3[0] * sign_r)[None], s3[1:]])
-            v4 = torch.cat([torch.zeros((1,), device=dev), s3])
-            return metric.from_polar_velocity(polar_camera, v4, params)
+    def back(b3v):
+        return tetrad.tetrad_to_coordinate(
+            torch.cat([torch.zeros((1,), device=dev), b3v]), es)
 
-        # The Cartesian axes, made on the device (a frame uploads nothing).
-        gx, gy, gz = (to_generic(axis) for axis in torch.eye(3, device=dev))
-
-        # Normalise with y first so camera controls work intuitively.
-        tE1 = tetrad.coordinate_to_tetrad(gy, inv_es)
-        tE2 = tetrad.coordinate_to_tetrad(gx, inv_es)
-        tE3 = tetrad.coordinate_to_tetrad(gz, inv_es)
-
-        b1, b2, b3 = _orthonormalise3(tE1[1:], tE2[1:], tE3[1:])
-
-        def back(b3v):
-            return tetrad.tetrad_to_coordinate(
-                torch.cat([torch.zeros((1,), device=dev), b3v]), es)
-
-        # x <- basis2, y <- basis1, z <- basis3 (cl.cl:2389-2398).
-        es = torch.stack([es[0], back(b2), back(b1), back(b3)])
+    # x <- basis2, y <- basis1, z <- basis3 (cl.cl:2389-2398).
+    es = torch.stack([es[0], back(b2), back(b1), back(b3)])
 
     if basis_speed3 is None:
         basis_speed3 = torch.zeros(3, device=dev)

@@ -58,6 +58,15 @@
 // 67 TFLOP/s the two weigh about the same, a quarter of a millisecond for
 // 8.3M rays.
 //
+// And it holds the observer tetrad at the camera's one point
+// (`grt_observer_tetrad`, observer.cuh): one launch of one thread computes
+// the metric there, the frame basis with all four legs, its inverse, the
+// orientation of the three axes the chart made and the Lorentz boost, in
+// place of the ~2,760 eager ops of its twin (camera.py::
+// observer_tetrad_reference), each a launch a few floats wide.  What bounds
+// it: the launch, and the latency of a chain of a few thousand dependent
+// float operations in one thread; nothing here is worth a second thread.
+//
 // The kernels allocate nothing and do not synchronise; the wrapper
 // (ops/raymarch.py) launches them on the current stream and checks each
 // launch.
@@ -66,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "march.cuh"
+#include "observer.cuh"
 #include "render_data.cuh"
 
 #ifndef GRT_METRIC
@@ -241,6 +251,26 @@ __global__ void __launch_bounds__(GRT_THREADS)
   r.angles[i] = make_float2(o.angles[0], o.angles[1]);
 }
 
+// The observer tetrad of one position, in one thread: reads x, gx, gy, gz
+// (4,) and the frame 3-speed (null: 0), writes es (4, 4) row-major.
+template <class M>
+__global__ void observer_kernel(M m, const float* x, const float* gx,
+                                const float* gy, const float* gz,
+                                const float* speed, float* es) {
+#ifdef GRT_BAKED_PARAMS
+  constexpr float kBaked[] = {GRT_BAKED_PARAMS 0.0f};
+  const M mk = M::from_params(kBaked);
+#else
+  const M& mk = m;
+#endif
+  const float rest[3] = {0.0f, 0.0f, 0.0f};
+  float out[4][4];
+  grt::observer_tetrad(mk, x, gx, gy, gz, speed != nullptr ? speed : rest,
+                       out);
+  for (int a = 0; a < 4; ++a)
+    for (int mu = 0; mu < 4; ++mu) es[4 * a + mu] = out[a][mu];
+}
+
 using Metric = grt::GRT_METRIC;
 
 }  // namespace
@@ -320,6 +350,23 @@ extern "C" int grt_render_data(const float* mparams, const float* consts,
   render_data_kernel<Metric><<<blocks, GRT_THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(m, c, n,
                                                                     r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The observer tetrad at the generic position `x` (4,), oriented by the
+// generic axes gx, gy, gz (4,) and boosted to the frame 3-speed `speed` (3,;
+// null: at rest): one launch of one thread on `stream`.  `mparams` as
+// grt_raymarch's.  Writes es (4, 4), es[a][mu] = e_a^mu.  Returns the CUDA
+// error of the launch (0 = launched).
+extern "C" int grt_observer_tetrad(const float* mparams, const void* x,
+                                   const void* gx, const void* gy,
+                                   const void* gz, const void* speed,
+                                   void* es, void* stream) {
+  const Metric m = Metric::from_params(mparams);
+  observer_kernel<Metric><<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, static_cast<const float*>(x), static_cast<const float*>(gx),
+      static_cast<const float*>(gy), static_cast<const float*>(gz),
+      static_cast<const float*>(speed), static_cast<float*>(es));
   return static_cast<int>(cudaGetLastError());
 }
 

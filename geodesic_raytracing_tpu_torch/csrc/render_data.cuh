@@ -204,10 +204,10 @@ GRT_HD GRT_INLINE void swap0(int order[4], int j) {
   for (int i = 1; i < 4; ++i) order[i] = i == j ? r0 : order[i];
 }
 
-// One pass of _frame_basis_swap_batched with the starting swap `swap`: the
-// timelike leg it returns first (es_sw[0]) in e0, and its tl.
-GRT_HD GRT_INLINE int frame_basis_pass(const float g[4][4], int swap,
-                                       float e0[4]) {
+// One pass of _frame_basis_swap_batched with the starting swap `swap`, up to
+// its swap of the timelike leg: the legs sorted by slot (its `es`) and tl.
+GRT_HD GRT_INLINE int frame_basis_legs(const float g[4][4], int swap,
+                                       float es[4][4]) {
   int order[4] = {0, 1, 2, 3};
   swap0(order, swap);
   // diag_gather, the nonzero test and the first nonzero index (argmax of
@@ -245,7 +245,6 @@ GRT_HD GRT_INLINE int frame_basis_pass(const float g[4][4], int swap,
 
   // Legs sorted by their slot in `order`, their norms, and tl: the first
   // leg of least norm where that is negative (a NaN gives 0).
-  float es[4][4];
   for (int slot = 0; slot < 4; ++slot)
     for (int mu = 0; mu < 4; ++mu) {
       float acc = 0.0f;
@@ -265,11 +264,25 @@ GRT_HD GRT_INLINE int frame_basis_pass(const float g[4][4], int swap,
     }
   }
   if (nan || !(least < 0.0f)) tl = 0;
+  return tl;
+}
+
+// The e_tl of a pass: its leg tl, as the eager sum of selects from 0.
+GRT_HD GRT_INLINE void leg_tl(const float es[4][4], int tl, float e0[4]) {
   for (int mu = 0; mu < 4; ++mu) {
     float acc = 0.0f;
     for (int i = 0; i < 4; ++i) acc = acc + (tl == i ? es[i][mu] : 0.0f);
     e0[mu] = acc;
   }
+}
+
+// One pass of _frame_basis_swap_batched with the starting swap `swap`: the
+// timelike leg it returns first (es_sw[0]) in e0, and its tl.
+GRT_HD GRT_INLINE int frame_basis_pass(const float g[4][4], int swap,
+                                       float e0[4]) {
+  float es[4][4];
+  const int tl = frame_basis_legs(g, swap, es);
+  leg_tl(es, tl, e0);
   return tl;
 }
 

@@ -44,7 +44,13 @@ snap of every endpoint to the universe sphere, the frame basis there,
 z_shift and the texture coordinates in one launch, bit for bit
 ``render.pipeline.compute_render_data_reference`` on the card, in place of
 its ~2,600 eager ops.  ``render.pipeline.compute_render_data`` takes it
-for every state on the card but one that asks for a gradient.
+for every state on the card but one that asks for a gradient.  So does the
+observer tetrad at the camera's one point (``csrc/observer.cuh``;
+``observer_tetrad_cuda``): the frame basis, orientation and boost in one
+launch of one thread, bit for bit ``camera.observer_tetrad_reference`` on
+the card in place of its ~2,760 eager ops, taken by
+``camera.observer_tetrad``.  ``asks_for_grad`` is the rule that sends a
+call to the eager twins instead: the kernels are forward-only.
 
 The wrappers launch on CUDA tensors or raise: there is no fallback, and a
 metric without a kernel instance, or one that differs from the registered
@@ -469,6 +475,8 @@ def get_lib(name):
             lib.grt_render_data.argtypes = [
                 fp, fp, *[ctypes.c_int] * 3, *[vp] * 8,
                 ctypes.POINTER(ctypes.c_longlong), *[vp] * 6]
+            lib.grt_observer_tetrad.restype = ctypes.c_int
+            lib.grt_observer_tetrad.argtypes = [fp, *[vp] * 7]
             _libs[key] = (inst, lib)
         return _libs[key][1]
 
@@ -660,6 +668,49 @@ def render_data_cuda(metric: Metric, state: RayState, ku_uobsu: torch.Tensor,
     _raise_on(lib, rc, "render-data kernel launch")
     profiling.count("render_data_kernel")
     return tex, z_shift, side, terminated, angles
+
+
+def observer_tetrad_cuda(metric: Metric, position: torch.Tensor, axes,
+                         params,
+                         basis_speed3: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """The observer tetrad at the generic ``position`` (4,) by the
+    observer kernel of ``metric``'s library (``csrc/observer.cuh``): one
+    launch of one thread on the current stream, no wait for the device.
+    ``axes``: the generic axes ``(gx, gy, gz)`` (4,) of the chart part
+    (``camera.generic_axes``); ``basis_speed3``: the frame 3-speed (3,),
+    None at rest.  Returns ``es`` (4, 4), bit for bit
+    ``camera.observer_tetrad_reference`` on the card.  Each call adds to the
+    open frame's ``camera_kernel`` counter."""
+    what = "observer_tetrad_cuda"
+    inst = instance_of(metric)
+    values = _param_values(metric, inst, params, what)
+    speed = () if basis_speed3 is None else (basis_speed3,)
+    ins = [t.contiguous() for t in (position, *axes, *speed)]
+    for name, t, n in zip(("position", "gx", "gy", "gz", "basis_speed3"),
+                          ins, (4, 4, 4, 4, 3)):
+        _check(name, t, (n,), torch.float32, what)
+    mparams = (ctypes.c_float * max(len(values), 1))(*values)
+    dev = position.device
+    es = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    lib = get_lib(inst)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grt_observer_tetrad(
+            mparams, *(t.data_ptr() for t in ins[:4]),
+            ins[4].data_ptr() if speed else None, es.data_ptr(), stream)
+    _raise_on(lib, rc, "observer-tetrad kernel launch")
+    profiling.count("camera_kernel")
+    return es
+
+
+def asks_for_grad(*tensors, params) -> bool:
+    """Grad mode is on and one of ``tensors`` (None skipped) or a parameter
+    requires grad: such a call takes the kernels' eager twins, which
+    differentiate (the kernels take detached host floats)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in (*tensors, *params.values()))
 
 
 def trace_rays_recorded_cuda(metric: Metric, state: RayState, params,

@@ -485,7 +485,7 @@ def _launch(metric: Metric, camera: cam.Camera, dirs: Tensor, params,
     from the camera's static observer (no planar rotation)."""
     position = pipeline.camera_to_generic(metric, camera, params)
     es = cam.observer_tetrad(metric, position, params,
-                             basis_speed3=camera.basis_speed, orient=True)
+                             basis_speed3=camera.basis_speed)
     state, ku, _ = pipeline.rays_for_directions(metric, position, es, params,
                                                 features, dirs.T)
     return state, ku

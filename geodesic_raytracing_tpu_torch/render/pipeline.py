@@ -124,7 +124,7 @@ def camera_frame(metric: Metric, camera: cam.Camera, params):
         return camera.frame_override
     position = camera_to_generic(metric, camera, params)
     es = cam.observer_tetrad(metric, position, params,
-                             basis_speed3=camera.basis_speed, orient=True)
+                             basis_speed3=camera.basis_speed)
     return position, es
 
 
@@ -293,15 +293,6 @@ def _fix_ray_position_batched(p3, v3, sphere_radius):
     return torch.stack([nr * sign, nth, nph])
 
 
-def _asks_for_grad(state: RayState, ku_uobsu: Tensor, params,
-                   inv_quat: Tensor | None) -> bool:
-    """Grad mode is on and an input or a parameter of
-    :func:`compute_render_data` requires grad."""
-    return torch.is_grad_enabled() and any(
-        isinstance(t, Tensor) and t.requires_grad
-        for t in (*state, ku_uobsu, inv_quat, *params.values()))
-
-
 def _chart_to_polar(metric: Metric, state: RayState, params):
     """The (4, N) polar position and velocity of every endpoint: the
     chart's eager ``to_polar`` and ``to_polar_velocity``.  Where the chart
@@ -337,7 +328,8 @@ def compute_render_data(metric: Metric, state: RayState, ku_uobsu: Tensor,
     ``render_data_kernel`` or ``render_data_eager`` counter, and on both
     paths a chart that is not the identity to ``chart_eager``."""
     if (not state.position.is_cuda
-            or _asks_for_grad(state, ku_uobsu, params, inv_quat)):
+            or raymarch.asks_for_grad(*state, ku_uobsu, inv_quat,
+                                      params=params)):
         profiling.count("render_data_eager")
         return compute_render_data_reference(metric, state, ku_uobsu, params,
                                              features, inv_quat)

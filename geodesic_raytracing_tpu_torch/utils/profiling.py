@@ -32,6 +32,8 @@ reused), ``quarter_setup``, ``refine_setup``, ``controller_wait``,
 ``setup.sky_atlas``.  Counters of a frame: ``launches`` (ray-march kernel
 launches), ``render_data_kernel`` and ``render_data_eager``
 (``compute_render_data`` calls served by the render-data kernel and by its
+eager twin), ``camera_kernel`` and ``camera_eager``
+(``camera.observer_tetrad`` calls served by the observer kernel and by its
 eager twin), ``chart_eager`` (``compute_render_data`` calls that took the
 chart's eager transform), ``refine_share`` (the refine launch's blocks over
 the quarter blocks) and ``refine_demand`` (the share of quarter blocks the
@@ -373,19 +375,21 @@ reset = RECORDER.reset
 def describe(f: Frame) -> str:
     """One line of a frame's spans, by name in the order they opened (host
     / device ms, summed over the spans of a name; device "-" off the card),
-    its ``launches``, its render data calls served by the kernel of all
-    (``render_data_kernel k of n``, where it made any) and its other
-    counters: the CLI's view of the recorder."""
+    its ``launches``, its render data and observer tetrad calls served by
+    their kernels of all (``render_data_kernel k of n``, ``camera_kernel k
+    of n``, where it made any) and its other counters: the CLI's view of the
+    recorder."""
     parts = []
     for name in dict.fromkeys(s.name for s in f.spans):
         dev = f.device_ms(name)
         parts.append(f"{name} {f.host_ms(name):.3f} / "
                      + ("-" if dev is None else f"{dev:.3f}"))
     counters = dict(f.counters)
-    kernel = counters.pop("render_data_kernel", 0)
-    calls = kernel + counters.pop("render_data_eager", 0)
     line = (f"Stages (host / device ms): {', '.join(parts)}"
             f"; launches {counters.pop('launches', 0):g}")
-    if calls:
-        line += f"; render_data_kernel {kernel:g} of {calls:g}"
+    for stage in ("render_data", "camera"):
+        kernel = counters.pop(f"{stage}_kernel", 0)
+        calls = kernel + counters.pop(f"{stage}_eager", 0)
+        if calls:
+            line += f"; {stage}_kernel {kernel:g} of {calls:g}"
     return line + "".join(f"; {k} {v:g}" for k, v in counters.items())

@@ -4,8 +4,8 @@ the card against its eager twin.
 On the CPU every call takes the eager path (``compute_render_data_reference``)
 and counts ``render_data_eager``; the rule that sends a call that asks for a
 gradient to the eager path on the card too is tested through its predicate
-(``_asks_for_grad``).  The tests that take a fixture ``cuda`` need a CUDA
-device and skip without one: there the kernel equals the eager path bit for
+(``raymarch.asks_for_grad``).  The tests that take a fixture ``cuda`` need a
+CUDA device and skip without one: there the kernel equals the eager path bit for
 bit on the 3840x2160 final states of the benchmark's three configurations
 (the two-body metric's in its cylindrical chart) and on an adaptive frame's
 quarter and refine sets, each call counts one
@@ -83,7 +83,7 @@ def marched(name, width, height, device, max_steps=None):
 @pytest.mark.parametrize("name", ["kerr_boyer", "schwarzschild"])
 def test_the_cpu_takes_the_eager_path_and_counts_it(recorder, name):
     m, params, feats, final, ku, iquat = marched(name, 16, 12, "cpu", 64)
-    assert not pl._asks_for_grad(final, ku, params, iquat)
+    assert not raymarch.asks_for_grad(*final, ku, iquat, params=params)
     with profiling.frame("cpu"):
         got = pl.compute_render_data(m, final, ku, params, feats, iquat)
     ref = pl.compute_render_data_reference(m, final, ku, params, feats,
@@ -100,12 +100,13 @@ def test_a_gradient_keeps_the_eager_path():
     m, params, feats, final, ku, iquat = marched("schwarzschild", 8, 4,
                                                  "cpu", 16)
     rs = torch.tensor(params["rs"], requires_grad=True)
-    assert pl._asks_for_grad(final, ku, {"rs": rs}, iquat)
+    assert raymarch.asks_for_grad(*final, ku, iquat, params={"rs": rs})
     for k, q in ((ku.clone().requires_grad_(), iquat),
                  (ku, iquat.clone().requires_grad_())):
-        assert pl._asks_for_grad(final, k, params, q)
+        assert raymarch.asks_for_grad(*final, k, q, params=params)
     with torch.no_grad():
-        assert not pl._asks_for_grad(final, ku, {"rs": rs}, iquat)
+        assert not raymarch.asks_for_grad(*final, ku, iquat,
+                                          params={"rs": rs})
 
 
 def test_the_wrapper_refuses_cpu_tensors():
@@ -134,7 +135,7 @@ def test_kernel_equals_eager_on_2160_frames(cuda, recorder, name):
     """The benchmark configurations' 3840x2160 dense frames (Kerr 4-D,
     planar Schwarzschild with its quaternions), every ray."""
     m, params, feats, final, ku, iquat = marched(name, 3840, 2160, cuda)
-    assert not pl._asks_for_grad(final, ku, params, iquat)
+    assert not raymarch.asks_for_grad(*final, ku, iquat, params=params)
     assert (iquat is not None) == (name == "schwarzschild")
     with profiling.frame(cuda):
         got = pl.compute_render_data(m, final, ku, params, feats, iquat)
@@ -229,4 +230,5 @@ def test_a_camera_frame_on_the_card_counts_one_kernel_call(cuda, recorder):
                                  trace=integrate.TraceOptions(max_steps=512))
     pl.render_frame(m, cam, m.params(), sky, settings, device=cuda)
     (f,) = recorder.recent_frames()
-    assert f.counters == {"launches": 1, "render_data_kernel": 1}
+    assert f.counters == {"launches": 1, "render_data_kernel": 1,
+                          "camera_kernel": 1}

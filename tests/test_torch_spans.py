@@ -130,9 +130,10 @@ def test_a_dense_frame_takes_its_stage_spans(recorder):
     assert [s.name for s in f.spans if s.parent is top] == STAGES
     assert [s.name for s in f.spans if s.parent is ray_init] == [
         "camera", "launch_state"]
-    # No kernel launch on the CPU: render data takes its eager path; the
-    # polar chart is the identity, so no eager chart transform.
-    assert f.counters == {"render_data_eager": 1}
+    # No kernel launch on the CPU: the camera and render data take their
+    # eager paths; the polar chart is the identity, so no eager chart
+    # transform.
+    assert f.counters == {"camera_eager": 1, "render_data_eager": 1}
     assert f.host_ms("frame") >= sum(f.host_ms(n) for n in STAGES)
     assert f.host_ms("ray_init") >= (f.host_ms("camera")
                                      + f.host_ms("launch_state"))
@@ -155,11 +156,13 @@ def test_a_cylindrical_chart_takes_the_chart_span(recorder):
     assert [s.name for s in dk.spans] == DENSE[:6] + ["chart", "shade"]
     (chart,) = [s for s in dk.spans if s.name == "chart"]
     assert chart.parent.name == "render_data"
-    assert dk.counters == {"render_data_eager": 1, "chart_eager": 1}
+    assert dk.counters == {"camera_eager": 1, "render_data_eager": 1,
+                           "chart_eager": 1}
     assert profiling.describe(dk).endswith(
-        "; launches 0; render_data_kernel 0 of 1; chart_eager 1")
+        "; launches 0; render_data_kernel 0 of 1; camera_kernel 0 of 1"
+        "; chart_eager 1")
     assert [s.name for s in schw.spans] == DENSE
-    assert schw.counters == {"render_data_eager": 1}
+    assert schw.counters == {"camera_eager": 1, "render_data_eager": 1}
 
 
 def test_adaptive_frames_take_their_stage_spans(recorder):
@@ -183,10 +186,10 @@ def test_adaptive_frames_take_their_stage_spans(recorder):
     assert all(s.parent is second.spans[0] for s in second.spans[1:])
     nq = 8 * 8
     share = pl._refine_k(nq, 0.375) / nq
-    assert second.counters == {"refine_share": share,
+    assert second.counters == {"camera_eager": 1, "refine_share": share,
                                "render_data_eager": 2}
-    assert set(first.counters) == {"refine_share", "refine_demand",
-                                   "render_data_eager"}
+    assert set(first.counters) == {"camera_eager", "refine_share",
+                                   "refine_demand", "render_data_eager"}
     assert 0.0 < first.counters["refine_demand"] <= 1.0
 
 
@@ -216,4 +219,5 @@ def test_the_cli_bench_prints_each_frame_stages(recorder, capsys):
         assert stages.startswith("Stages (host / device ms): frame ")
         assert [p.split()[0] for p in stages.split(": ", 1)[1].split(
             "; ")[0].split(", ")] == DENSE
-        assert stages.endswith("; launches 0; render_data_kernel 0 of 1")
+        assert stages.endswith("; launches 0; render_data_kernel 0 of 1"
+                               "; camera_kernel 0 of 1")
