@@ -47,11 +47,8 @@ scenes take the flagship camera: with them the kernel has all 31 metric
 instances of the JAX registry.  Every plain march on
 the card replays its step from a CUDA graph (``trace_rays_reference``'s
 default there), held bit for bit to the eager march in phases 2 and 14.
-Then the eighth path (phase 28): content packs and hot-swap.  Metric
-structs emitted from torch functions (``ops/emit.py``) against the hand
-structs (also a parameter exponent, the rank-1 Kerr-Schild
-decompositions and the double-Kerr complex pairs, and an op zoo of the
-newest ops against the plain march), the example pack
+Then the eighth path (phase 28): content packs and hot-swap.  An op zoo
+of the emitter's newest ops against the plain march, the example pack
 ``examples/pack_torch`` through the frames and the CLI, the hot-swap of a
 baked (static) library behind the dynamic one in streams of adaptive frames,
 an image sky, and the CLI's extras (``content_path``).
@@ -145,6 +142,9 @@ OPS_PER_TRIAL = 65 + 89 + 111
 # mode drops theta's trial position and velocity (10); the scheduled step has
 # 6 operations where the controller has 36; a singular terminator adds a
 # compare; a cartesian chart's r adds 6.  PERF.md section 6 has the terms.
+# Counted on the metric structs written by hand before every struct was
+# emitted from its torch metric, and frozen: the emitted structs count
+# within -10% of them (PERF.md section 6).
 OPS_BY_INSTANCE = {
     ("kerr_boyer", False): OPS_PER_TRIAL,
     ("schwarzschild", False): 20 + 46 + 111,
@@ -196,10 +196,11 @@ OPS_BY_INSTANCE = {
     # of csrc/march.cuh (97), the step with the cartesian chart's r (117).
     # The two-body instances: double_schwarzschild's metric by hand (260);
     # the complex potentials' metric with its two tangents counted by the
-    # same rule by scripts/torch_opcount.py from the kernel's own code
-    # (multibody.cuh and complex.cuh after inlining, the dead tangents and
-    # the Zero imaginary parts folded away, common terms shared: 984, 1,563,
-    # 1,182; the script gives 0.90-1.02 of the hand counts of the Kerr
+    # same rule by scripts/torch_opcount.py from the kernel's own code (the
+    # hand-written structs with complex.cuh, after inlining, the dead
+    # tangents and the Zero imaginary parts folded away, common terms
+    # shared: 984, 1,563, 1,182; the script gives 0.90-1.02 of the hand
+    # counts of the Kerr
     # family, double_schwarzschild and ernst); the contraction and the
     # pruned inverse of the five entries, each carrying both tangents, by
     # march.cuh's folding (92; 62 for the diagonal); the step with the
@@ -235,71 +236,48 @@ CATALOGUES = CATALOGUE_A + CATALOGUE_B + CATALOGUE_C
 DENSE_PLAIN_DEPTH = 1024
 
 # The eighth path (phase 28): content packs and hot-swap.  The example pack
-# of torch metrics; the hand-written instances whose torch functions the
-# smoke registers again under a pack name (``<name>_pack``), so that the
-# kernel runs the struct ops/emit.py writes for them, as for a pack metric.
+# of torch metrics; the op zoo's 480x270 frame (SMALL_FORMS); the metrics of
+# the hot-swap streams besides the pack's (a parameter exponent in dynamic
+# mode for the second).
 PACK_TORCH = ROOT / "examples" / "pack_torch"
-EMITTED_TWINS = ("schwarzschild", "kerr_boyer")
-# The metrics whose emitted forms came last (a parameter exponent in dynamic
-# mode, the rank-1 decomposition, complex pairs of coordinates): each pack
-# twin's 1080p dense launch against its hand instance on every ray, and
-# against the plain march at 480x270 (SMALL_FORMS), cut to
-# DENSE_PLAIN_DEPTH; the first one's hot-swap stream too.
-EMITTED_FORMS = ("janis_newman_winicour", "kerr_schild", "kerr_newman_schild",
-                 "double_kerr", "double_kerr_alt", "double_unequal_kerr")
 SMALL_FORMS = (480, 270)
-# Operations per trial iteration of the emitted and baked instances, by the
-# rule of OPS_BY_INSTANCE: the hand count of the struct they are emitted
-# from, less the difference that ``scripts/torch_opcount.py --emit`` counts
-# between the emitted and the hand struct's acceleration in the kernel's own
-# code (kerr_boyer 142 against 143, baked 140; schwarzschild 62 against 62,
-# baked 60; janis_newman_winicour 177 against 176, baked 85; kerr_schild
-# 224 against 224; kerr_newman_schild 235 against 235; double_kerr 1,002
-# against 1,068; double_kerr_alt 1,553 against 1,647; double_unequal_kerr
-# 1,136 against 1,266: the emitted structs evaluate more of their
-# parameter-only terms in from_params), and reissner_nordstrom as
-# schwarzschild with the 4 operations its acceleration has more (66 against
-# 62; baked 66).
+HOTSWAP_METRICS = ("kerr_boyer", "janis_newman_winicour")
+# Operations per trial iteration of the baked instances and the pack's, by
+# the rule of OPS_BY_INSTANCE: the count of the struct they are baked from,
+# less the difference that ``scripts/torch_opcount.py`` counts
+# between the two structs' acceleration in the kernel's own code
+# (kerr_boyer 142, baked 140; janis_newman_winicour 177, baked 85), and
+# reissner_nordstrom as schwarzschild with the 4 operations its acceleration
+# has more (66 against 62; baked 66).
 OPS_EMITTED = {
-    ("janis_newman_winicour_pack", False): 204,
-    ("janis_newman_winicour_pack", True): 176,
-    ("janis_newman_winicour_pack [baked]", False): 112,
-    ("janis_newman_winicour_pack [baked]", True): 84,
-    ("kerr_schild_pack", False): 373,
-    ("kerr_newman_schild_pack", False): 384,
-    ("double_kerr_pack", False): 1125,
-    ("double_kerr_alt_pack", False): 1676,
-    ("double_unequal_kerr_pack", False): 1259,
-    ("kerr_boyer_pack", False): 264,
+    ("janis_newman_winicour [baked]", False): 112,
+    ("janis_newman_winicour [baked]", True): 84,
     ("kerr_boyer [baked]", False): 262,
-    ("schwarzschild_pack", False): 177,
-    ("schwarzschild_pack", True): 150,
     ("reissner_nordstrom", False): 181,
     ("reissner_nordstrom", True): 154,
     ("reissner_nordstrom [baked]", False): 181,
     ("reissner_nordstrom [baked]", True): 154,
 }
-# Registers of the 31 hand instances, default and planar option, as measured
-# before the emitted and baked instances were added (PERF.md section 6): they
-# change none of them (phase 1 checks it).
+# Registers of the 31 metrics' instances, default and planar option, as
+# measured on the card: phase 1 checks that no change moves them.
 REGISTERS = {
-    "kerr_boyer": (61, 56), "schwarzschild": (52, 46),
-    "schwarzschild_fast": (51, 54), "schwarzschild_skewed": (53, 47),
-    "schwarzschild_ingoing_ef": (51, 45), "de_sitter": (52, 54),
-    "minkowski": (48, 48), "minkowski_skew": (48, 48),
-    "wormhole (morris-thorne)": (48, 56),
-    "black_hole_cosmic_string": (51, 48), "ernst": (60, 55),
-    "kerr_newman_boyer": (63, 62), "kerr_ingoing_ef": (62, 56),
-    "kerr_rational_polynomial": (64, 61), "misner_4d": (44, 47),
-    "cosmic_string_spinning": (48, 46), "alcubierre": (51, 46),
-    "configurable_wormhole": (53, 48), "ellis_drainhole": (51, 48),
-    "godel_cylindrical": (55, 48), "janis_newman_winicour": (56, 55),
-    "krasnikov_cylindrical": (54, 54), "krasnikov_tube": (56, 56),
-    "schwarzschild_ingoing_ef_hawking": (53, 46),
-    "symmetric_warp_drive": (56, 54), "kerr_schild": (64, 62),
-    "kerr_newman_schild": (64, 56), "double_schwarzschild": (64, 64),
-    "double_kerr": (64, 64), "double_kerr_alt": (64, 64),
-    "double_unequal_kerr": (64, 64),
+    "alcubierre": (51, 46), "black_hole_cosmic_string": (51, 48),
+    "configurable_wormhole": (53, 46), "cosmic_string_spinning": (47, 44),
+    "de_sitter": (52, 54), "double_kerr": (64, 64),
+    "double_kerr_alt": (64, 64), "double_schwarzschild": (64, 64),
+    "double_unequal_kerr": (64, 64), "ellis_drainhole": (51, 48),
+    "ernst": (59, 56), "godel_cylindrical": (55, 48),
+    "janis_newman_winicour": (56, 56), "kerr_boyer": (63, 56),
+    "kerr_ingoing_ef": (62, 54), "kerr_newman_boyer": (63, 56),
+    "kerr_newman_schild": (64, 56), "kerr_rational_polynomial": (62, 56),
+    "kerr_schild": (64, 62), "krasnikov_cylindrical": (54, 54),
+    "krasnikov_tube": (60, 56), "minkowski": (48, 48),
+    "minkowski_skew": (48, 48), "misner_4d": (44, 47),
+    "schwarzschild": (52, 46), "schwarzschild_fast": (51, 54),
+    "schwarzschild_ingoing_ef": (51, 45),
+    "schwarzschild_ingoing_ef_hawking": (51, 46),
+    "schwarzschild_skewed": (53, 47), "symmetric_warp_drive": (56, 54),
+    "wormhole (morris-thorne)": (45, 56),
 }
 # Hot-swap streams (phase 28): adaptive 1080p frames until this many were
 # served by the static program, or the time limit (s) passes (a failure).
@@ -1090,8 +1068,9 @@ def sweep(variants, metric, params, camera, settings, feats, rounds=5):
     dev = torch.device("cuda")
     default_flags = raymarch.NVCC_FLAGS
     flags = [raymarch.with_flags(*shlex.split(v)) for v in variants]
+    inst = raymarch.instance_of(metric)
     with concurrent.futures.ThreadPoolExecutor(len(flags)) as pool:
-        list(pool.map(lambda f: raymarch.build("kerr_boyer", f),
+        list(pool.map(lambda f: raymarch.build(inst, f),
                       dict.fromkeys(flags)))
     small = dataclasses.replace(settings, width=480, height=270)
     states = [(pl.init_camera_rays(metric, camera, params, s, feats,
@@ -1114,10 +1093,10 @@ def sweep(variants, metric, params, camera, settings, feats, rounds=5):
                   + ", ".join(f"{k} {v:.4f}" for k, v in by_tile.items()))
         st, sp, err, _ = compare_states(out, first)
         same = same_bits(out, first)
-        built = raymarch.BUILD_INFO["kerr_boyer", f]
+        built = raymarch.BUILD_INFO[inst.label, f]
         infos.append({**raymarch.ptxas_summary(built["ptxas"]),
                       **sass_stats(built["path"]),
-                      **raymarch.kernel_config("kerr_boyer"), **work, "status_eq": st,
+                      **raymarch.kernel_config(inst), **work, "status_eq": st,
                       "steps_eq": sp, "max_dpos": err, "identical": same})
     times = [([], []) for _ in flags]
     for _ in range(rounds):
@@ -1461,7 +1440,7 @@ def check_instances(dev, skip=("kerr_boyer",)) -> dict:
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
 
     errs = {}
-    for name in sorted(set(raymarch.INSTANCES) - set(skip)):
+    for name in sorted(set(metrics.CATALOGUE) - set(skip)):
         m = metrics.get_metric(name)
         params, feats = m.params(), integrate.Features.for_metric(m)
         modes = [(False, ((64, 0.0), (4096, 0.0), (4096, 0.03)))]
@@ -1902,8 +1881,7 @@ def golden_scenes(dev) -> dict:
 
     sky = bg.checker_background(device=dev)
     camera = Camera.default(device=dev).rotate(pitch=-math.pi / 2)
-    scenes = {n: (n, {}) for n in sorted(raymarch.INSTANCES)
-              if n != "kerr_boyer"}
+    scenes = {n: (n, {}) for n in metrics.CATALOGUE if n != "kerr_boyer"}
     scenes.update(SCENE_METRIC)
     out = {}
     for key, (name, sets_over) in scenes.items():
@@ -1937,12 +1915,13 @@ def every_metric_dense(dev, sky, skip=("kerr_boyer",)):
     ``({metric: row},
     {metric of CATALOGUES: its dense frame})``."""
     import torch
+    from geodesic_raytracing_tpu_torch import metrics
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
     from geodesic_raytracing_tpu_torch.render import pipeline as pl
 
     rows, frames = {}, {}
-    for name in sorted(raymarch.INSTANCES):
+    for name in metrics.CATALOGUE:
         if name in skip:
             continue
         metric, params, camera, asettings, _ = flagship_config(
@@ -2989,18 +2968,6 @@ def triangle_path(dev) -> dict:
     return out
 
 
-def pack_twin(name: str):
-    """Register the torch function of the hand-written instance ``name``
-    again as ``<name>_pack``, as a content pack would: the kernel then
-    launches the struct that ops/emit.py writes for it."""
-    from geodesic_raytracing_tpu_torch import metrics
-
-    m = metrics.get_metric(name)
-    return metrics.register(dataclasses.replace(
-        m, name=f"{name}_pack",
-        config=dataclasses.replace(m.config, name=f"{name}_pack")))
-
-
 def op_zoo_fn(x, params):
     """Schwarzschild perturbed by 1% through the aten ops and pair
     functions that ops/emit.py writes for packs and no catalogue metric
@@ -3041,16 +3008,14 @@ def op_zoo():
 
 def content_instances() -> list:
     """Phase 1's part of phase 28: load the example pack (it registers
-    ``reissner_nordstrom``), register the pack twins, and return the
-    instances of all of them, emitted from their functions, to build."""
+    ``reissner_nordstrom``), register the op zoo, and return the instances
+    of both, emitted from their functions, to build."""
     from geodesic_raytracing_tpu_torch import content, metrics
     from geodesic_raytracing_tpu_torch.ops import raymarch
 
     pack = content.load_pack(PACK_TORCH)
     assert not pack.broken and list(pack.metrics) == ["reissner_nordstrom"]
-    ms = [pack_twin(n) for n in EMITTED_TWINS + EMITTED_FORMS]
-    ms.append(op_zoo())
-    ms.append(metrics.get_metric("reissner_nordstrom"))
+    ms = [op_zoo(), metrics.get_metric("reissner_nordstrom")]
     return [raymarch.instance_of(m) for m in ms]
 
 
@@ -3084,26 +3049,16 @@ def sky_png(path, h=1024, w=2048, seed=28) -> None:
 def content_path(dev) -> dict:
     """Phase 28, the eighth path: content packs and hot-swap.
 
-    (a) The emitter against the hand structs: the torch functions of
-    ``schwarzschild`` and ``kerr_boyer`` registered as pack metrics
-    (``pack_twin``), each one's dense 1080p flagship frame through
-    ``render_frame`` (the emitted dynamic instance), its launch against the
-    hand instance on the same input (bit for bit or not) and, cut to
-    ``DENSE_PLAIN_DEPTH``, against the plain march with the parameters as
-    0-d tensors (the dynamic instance's twin); time, registers, spills and
-    share of the bound beside the hand instance's.
-    (a2) The same for the pack twins of ``EMITTED_FORMS`` (a parameter
-    exponent, the rank-1 decompositions, complex pairs), each held to the
-    plain march at 480x270 instead, with nvcc's seconds beside the hand
-    instance's; and the op zoo (``op_zoo_fn``) at 480x270 against the plain
-    march.
+    (a) The op zoo (``op_zoo_fn``): its emitted dynamic instance's 480x270
+    launch against the plain march with the parameters as 0-d tensors (the
+    dynamic instance's twin).
     (b) The pack path: ``reissner_nordstrom`` of ``examples/pack_torch``, its
     dense and adaptive 1080p frames, every launch against the plain march,
     the card's 480x270 frame against the CPU's by the golden gate, the CLI
     with ``--content`` once.
-    (c) Hot-swap: adaptive 1080p frames of ``kerr_boyer``, of the
-    ``janis_newman_winicour`` pack twin (a parameter exponent: its dynamic
-    program serves) and of ``reissner_nordstrom`` through
+    (c) Hot-swap: adaptive 1080p frames of ``kerr_boyer``, of
+    ``janis_newman_winicour`` (a parameter exponent: its dynamic program
+    serves) and of ``reissner_nordstrom`` through
     ``runtime.hotswap.kernel_program``, the
     static (baked) build requested at frame 0: frames served by each
     program, the build's seconds, frame times before and after the swap;
@@ -3172,114 +3127,8 @@ def content_path(dev) -> dict:
                 "measured_at": "1920x1080 dense, flagship camera",
                 "work": r, **extra}
 
-    # -- (a) the emitter against the hand structs ------------------------
-    t_a = time.perf_counter()
-    hand_inputs = {}
-    for base in EMITTED_TWINS:
-        hand = metrics.get_metric(base)
-        twin = metrics.get_metric(f"{base}_pack")
-        inst = raymarch.instance_of(twin)
-        img, s_in, s_out, width, opts, counts = dense(twin)
-        assert counts == {twin.name: 1}, counts
-        params, feats = twin.params(), integrate.Features.for_metric(twin)
-        k_hand = raymarch.trace_rays_cuda(hand, s_in, params, feats, opts,
-                                          image_width=width)
-        torch.cuda.synchronize()
-        same = same_bits(k_hand, s_out)
-        differ = rays_differing(k_hand, s_out)
-        err, plain_ms = held(f"emitted {base}", twin, s_in, params,
-                             emit.tensor_params(params, dev), feats, opts,
-                             width)
-        ms_e = median_launch_ms(twin, s_in, params, feats, opts, width)
-        ms_h = median_launch_ms(hand, s_in, params, feats, opts, width)
-        r_e = work_row(f"1080p dense {twin.name} (emitted)", twin, s_in,
-                       s_out, params, feats, opts, width, ms_e,
-                       ops=OPS_EMITTED[twin.name, bool(opts.planar)])
-        r_h = work_row(f"1080p dense {base} (hand struct)", hand, s_in,
-                       k_hand, params, feats, opts, width, ms_h)
-        p_e = ptxas_of(inst)
-        p_h = ptxas_of(raymarch.hand_instance(base))
-        print(f"[28 emitted] {base}: frame launches {counts}; the emitted "
-              f"launch against the hand struct's on the same "
-              f"{s_in.status.numel()} rays: same bits {same} ({differ} rays "
-              f"differ); emitted {ms_e:.3f} ms (share "
-              f"{r_e['share_of_bound']:.4f}), hand {ms_h:.3f} ms (share "
-              f"{r_h['share_of_bound']:.4f})"
-              f", ratio {ms_e / ms_h:.4f}; registers / spill bytes emitted "
-              f"{p_e['default']['registers']}/"
-              f"{p_e['default']['spill_store_bytes']} (planar "
-              f"{p_e['planar']['registers']}), hand "
-              f"{p_h['default']['registers']}/"
-              f"{p_h['default']['spill_store_bytes']} (planar "
-              f"{p_h['planar']['registers']})")
-        out["rows"].append(row(base, f"{base} [emitted]", counts[twin.name],
-                               r_e, plain_ms, err, same_bits_as_hand=same,
-                               rays_differing_from_hand=differ,
-                               hand_ms=ms_h, hand=r_h, ptxas=p_e,
-                               hand_ptxas=p_h, struct=inst.struct,
-                               planar=bool(opts.planar)))
-        hand_inputs[base] = (s_in, s_out, width, opts)
-        del img, k_hand
-    out["emitted_s"] = time.perf_counter() - t_a
-
-    # -- (a2) the last emitted forms against the hand structs -------------
-    # Their plain twins take the parameters as 0-d tensors on the host: the
-    # graphed plain march cannot read a parameter exponent on the host
-    # (param_pow) while it captures its step, and the dynamic structs
-    # evaluate every expression of parameters alone there too, in from_params
-    # (their complex pairs' cube root and csqrt in double).
+    # -- (a) the op zoo ---------------------------------------------------
     t_f = time.perf_counter()
-    for base in EMITTED_FORMS:
-        hand = metrics.get_metric(base)
-        twin = metrics.get_metric(f"{base}_pack")
-        inst = raymarch.instance_of(twin)
-        img, s_in, s_out, width, opts, counts = dense(twin)
-        assert counts == {twin.name: 1}, counts
-        params, feats = twin.params(), integrate.Features.for_metric(twin)
-        k_hand = raymarch.trace_rays_cuda(hand, s_in, params, feats, opts,
-                                          image_width=width)
-        torch.cuda.synchronize()
-        same = same_bits(k_hand, s_out)
-        differ = rays_differing(k_hand, s_out)
-        _, ss_in, _, s_width, s_opts, s_counts = dense(twin, SMALL_FORMS)
-        assert s_counts == {twin.name: 1}, s_counts
-        err, plain_ms = held(f"emitted {base} 480x270", twin, ss_in, params,
-                             emit.tensor_params(params, "cpu"), feats,
-                             s_opts, s_width)
-        ms_e = median_launch_ms(twin, s_in, params, feats, opts, width)
-        ms_h = median_launch_ms(hand, s_in, params, feats, opts, width)
-        r_e = work_row(f"1080p dense {twin.name} (emitted)", twin, s_in,
-                       s_out, params, feats, opts, width, ms_e,
-                       ops=OPS_EMITTED[twin.name, bool(opts.planar)])
-        r_h = work_row(f"1080p dense {base} (hand struct)", hand, s_in,
-                       k_hand, params, feats, opts, width, ms_h)
-        p_e = ptxas_of(inst)
-        p_h = ptxas_of(raymarch.hand_instance(base))
-        print(f"[28 forms] {base}: frame launches {counts}; the emitted "
-              f"launch against the hand struct's on the same "
-              f"{s_in.status.numel()} rays: same bits {same} ({differ} rays "
-              f"differ); emitted {ms_e:.3f} ms (share "
-              f"{r_e['share_of_bound']:.4f}), hand {ms_h:.3f} ms (share "
-              f"{r_h['share_of_bound']:.4f}), ratio {ms_e / ms_h:.4f}; "
-              f"registers / spill bytes emitted "
-              f"{p_e['default']['registers']}/"
-              f"{p_e['default']['spill_store_bytes']} (planar "
-              f"{p_e['planar']['registers']}/"
-              f"{p_e['planar']['spill_store_bytes']}), hand "
-              f"{p_h['default']['registers']}/"
-              f"{p_h['default']['spill_store_bytes']} (planar "
-              f"{p_h['planar']['registers']}/"
-              f"{p_h['planar']['spill_store_bytes']}); nvcc emitted "
-              f"{p_e['build_s']} s, hand {p_h['build_s']} s")
-        out["rows"].append(row(base, f"{base} [emitted]", counts[twin.name],
-                               r_e, plain_ms, err, same_bits_as_hand=same,
-                               rays_differing_from_hand=differ,
-                               hand_ms=ms_h, hand=r_h, ptxas=p_e,
-                               hand_ptxas=p_h, struct=inst.struct,
-                               planar=bool(opts.planar),
-                               plain_measured_at="480x270 dense"))
-        hand_inputs[base] = (s_in, s_out, width, opts)
-        del img, k_hand
     # The op zoo: those aten ops and pair functions in one emitted
     # instance, its 480x270 launch against the plain march (the
     # parameters on the card: a tensor bound of clamp must be there).
@@ -3293,7 +3142,7 @@ def content_path(dev) -> dict:
     out["op_zoo"] = {"launches": z_counts, "max_abs_err": z_err,
                      "plain_ms": z_plain, "struct": raymarch.instance_of(
                          zoo).struct}
-    out["forms_s"] = time.perf_counter() - t_f
+    out["zoo_s"] = time.perf_counter() - t_f
 
     # -- (b) the pack path -----------------------------------------------
     t_b = time.perf_counter()
@@ -3380,6 +3229,8 @@ def content_path(dev) -> dict:
 
     # -- (c) hot-swap ----------------------------------------------------
     def stream(metric, s_in, s_out, width, opts):
+        """A hot-swap stream of ``metric``; its baked launch held on the
+        dense 1080p frame's launch ``(s_in, s_out, width, opts)``."""
         t0 = time.perf_counter()
         _, params, camera, asettings, feats = flagship_config(
             device=dev, metric=metric.name)
@@ -3392,7 +3243,7 @@ def content_path(dev) -> dict:
         # The baked library is built anew in every run (one left by an
         # earlier run would load at once), so that the frames served while
         # nvcc runs show that none waits for it.
-        binst = raymarch.baked_instance(metric, params)
+        binst = raymarch.emitted_instance(metric, params)
         stale = raymarch.library_path(binst)
         for path in (stale, stale.with_suffix(".ptxas.txt")):
             path.unlink(missing_ok=True)
@@ -3464,17 +3315,18 @@ def content_path(dev) -> dict:
                             "stream_s": time.perf_counter() - t0})
 
     t_c = time.perf_counter()
-    out["rows"].append(stream(metrics.get_metric("kerr_boyer"),
-                              *hand_inputs["kerr_boyer"]))
-    # A parameter exponent (the JNW pack twin): its dynamic program serves
-    # while the baked library builds.
-    out["rows"].append(stream(
-        metrics.get_metric(f"{EMITTED_FORMS[0]}_pack"),
-        *hand_inputs[EMITTED_FORMS[0]]))
+    # Kerr, and a parameter exponent (janis_newman_winicour): its dynamic
+    # program serves while the baked library builds.
+    for name in HOTSWAP_METRICS:
+        metric = metrics.get_metric(name)
+        _, *launch, counts = dense(metric)
+        assert counts == {name: 1}, counts
+        out["rows"].append(stream(metric, *launch))
+        del launch
     # The CLI loaded the pack again: its metric is the registered one now.
     out["rows"].append(stream(metrics.get_metric(rn.name), *rn_dense))
     out["hotswap_s"] = time.perf_counter() - t_c
-    del hand_inputs, rn_dense
+    del rn_dense
 
     # -- (d) an image sky ------------------------------------------------
     t_d = time.perf_counter()
@@ -3959,7 +3811,7 @@ def main(argv=None) -> int:
         return parallel_rank(args.parallel_rank)
 
     from geodesic_raytracing_tpu_torch import camera as cam
-    from geodesic_raytracing_tpu_torch import cli
+    from geodesic_raytracing_tpu_torch import cli, metrics
     from geodesic_raytracing_tpu_torch.bench_config import flagship_config
     from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
     from geodesic_raytracing_tpu_torch.render import background as bg
@@ -4001,32 +3853,37 @@ def main(argv=None) -> int:
         return 0
 
     # -- 1. device and build ------------------------------------------------
-    # Every metric's library at once, one nvcc each, and phase 28's emitted
-    # instances with them.
+    # Every metric's struct emitted, its library built, one nvcc each, and
+    # phase 28's pack instances with them.
     raymarch.NVCC_FLAGS = raymarch.with_flags(*shlex.split(args.kernel_flags))
+    t0 = time.perf_counter()
+    catalogue = [raymarch.instance_of(metrics.get_metric(n))
+                 for n in metrics.CATALOGUE]
+    emit_s = time.perf_counter() - t0
     # The emission (make_fx of the pack metrics) runs beside the 31 builds.
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        hand_builds = pool.submit(raymarch.build_all)
+        builds = pool.submit(raymarch.build_all, catalogue)
         emitted = content_instances()
         emitted_s = raymarch.build_all(emitted)
-        build_all_s = hand_builds.result()
+        build_all_s = builds.result()
+    kerr = raymarch.instance_of(metrics.get_metric("kerr_boyer"))
     t0 = time.perf_counter()
-    raymarch.get_lib("kerr_boyer")
+    raymarch.get_lib(kerr)
     build_s = time.perf_counter() - t0
     built = raymarch.BUILD_INFO["kerr_boyer", raymarch.NVCC_FLAGS]
     ptxas = raymarch.ptxas_summary(built["ptxas"])
-    config = raymarch.kernel_config("kerr_boyer")
+    config = raymarch.kernel_config(kerr)
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {name} | nvcc build of "
-          f"{len(raymarch.INSTANCES)} libraries at once {build_all_s:.2f} s "
-          f"(and of {len(emitted)} emitted ones beside them, "
-          f"{emitted_s:.2f} s), "
+          f"{torch.version.cuda} | {name} | {len(catalogue)} structs "
+          f"emitted in {emit_s:.2f} s, their nvcc builds at once "
+          f"{build_all_s:.2f} s (and of {len(emitted)} pack instances beside "
+          f"them, {emitted_s:.2f} s), "
           f"kerr_boyer's {built['seconds']} s (load {build_s:.2f} s)")
     print(f"[1 device] nvcc {' '.join(raymarch.NVCC_FLAGS)} | ptxas {ptxas} "
           f"| {config}")
     assert ptxas["spill_store_bytes"] == 0 and ptxas["spill_load_bytes"] == 0
     ptxas_by_metric = {}
-    for mname in sorted(raymarch.INSTANCES):
+    for mname in metrics.CATALOGUE:
         info = raymarch.BUILD_INFO[mname, raymarch.NVCC_FLAGS]
         inst = raymarch.ptxas_instances(info["ptxas"])
         assert len(inst) == 6, (mname, sorted(inst))
@@ -4048,7 +3905,7 @@ def main(argv=None) -> int:
                for m, d in ptxas_by_metric.items()
                if (d["instances"]["default"]["registers"],
                    d["instances"]["P"]["registers"]) != REGISTERS[m]}
-    print(f"[1 build] hand instances whose registers (default, planar) "
+    print(f"[1 build] instances whose registers (default, planar) "
           f"differ from REGISTERS: {changed or 'none'}")
     for inst in emitted:
         pe = ptxas_of(inst)

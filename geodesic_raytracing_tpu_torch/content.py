@@ -21,9 +21,9 @@ metric functions against ``geodesic_raytracing_tpu_torch.metrics.base``
         my_origin.py    # def origin(polar, params): ...
       sorting.json
 
-Loading a pack registers its metrics.  On the card a pack metric has no
-hand-written kernel struct: at its first launch ``ops/emit.py`` writes one
-from its function and the ray-march kernel is built with it
+Loading a pack registers its metrics.  On the card a pack metric runs as a
+built-in one does: at its first launch ``ops/emit.py`` writes its kernel
+struct from its function and the ray-march kernel is built with it
 (``ops.raymarch.instance_of``); what the emitter cannot emit raises there,
 naming the op.
 """

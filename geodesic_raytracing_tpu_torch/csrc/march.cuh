@@ -7,16 +7,19 @@
 // (raymarch.cu) calls `march_ray`; the host tests compile this same header
 // with g++ and check it against the plain torch march.
 //
-// The metric is a template parameter M (metrics.cuh): its MetricConfig picks
-// the step's branches with `if constexpr` (the adaptive controller or the
-// scheduled step, the singular and the cylindrical terminator, the blow-up
-// test, the singularity kill), as the trace options do (StepOptions: planar
-// mode, the Euler integrator, affine reparameterisation).  Its metric
-// function returns typed entries (sym.cuh), so that the Christoffel
-// contraction and the cofactor inverse below, written once, drop every term
-// of an absent entry or a dead tangent at compile time and keep the
-// reference's order of operations for the terms that stay
-// (ops/geometry.py::acceleration_batched is the plain form they mirror).
+// The metric is a template parameter M, a struct that ops/emit.py writes
+// from the torch metric (its header comes in before this one, with
+// -include; the emitter's header writer lists what a struct provides).  Its
+// MetricConfig picks the step's branches with `if constexpr` (the adaptive
+// controller or the scheduled step, the singular and the cylindrical
+// terminator, the blow-up test, the singularity kill), as the trace options
+// do (StepOptions: planar mode, the Euler integrator, affine
+// reparameterisation).  Its metric function returns typed entries
+// (sym.cuh), so that the Christoffel contraction and the cofactor inverse
+// below, written once, drop every term of an absent entry or a dead tangent
+// at compile time and keep the reference's order of operations for the
+// terms that stay (ops/geometry.py::acceleration_batched is the plain form
+// they mirror).
 #pragma once
 
 #include <math.h>
@@ -25,7 +28,7 @@
 #include <type_traits>
 #include <utility>
 
-#include "metrics.cuh"
+#include "sym.cuh"
 
 namespace grt {
 

@@ -28,20 +28,19 @@
 // the width, and GRT_FULL_TANGENTS (march.cuh) and GRT_SEPARATE_TRIG
 // (dual.cuh) restore the unpruned duals and the separate sinf and cosf calls.
 //
-// One library is built per metric: -DGRT_METRIC names the metric struct of
-// metrics.cuh (default KerrBoyer).  A library holds one kernel instance per
-// value of the trace options that the step branches on at compile time
-// (march.cuh's StepOptions: planar mode, the Euler integrator, affine
-// reparameterisation: six instances), and its entry point picks the instance
-// from its arguments.
+// One library is built per metric: ops/emit.py writes the metric's struct
+// from its torch function into a header, which the build brings in with
+// -include, and -DGRT_METRIC names the struct.  A library holds one kernel
+// instance per value of the trace options that the step branches on at
+// compile time (march.cuh's StepOptions: planar mode, the Euler integrator,
+// affine reparameterisation: six instances), and its entry point picks the
+// instance from its arguments.
 //
 // A baked build (GRT_BAKED_PARAMS defined as v0,v1,..., each value followed
 // by a comma, in a header given with -include: nvcc splits a -D value at its
-// commas) builds its metric inside the kernel from those compile-time values,
-// so that nvcc folds the parameters through the step; the launch's metric
-// argument is then not read, and grt_baked_params reports the values.  The
-// metric struct may also come from a header that ops/emit.py wrote
-// (-include <header> -DGRT_METRIC=<struct>).
+// commas) builds its metric inside the kernel from those compile-time values;
+// the launch's metric argument is then not read, and grt_baked_params
+// reports the values.
 //
 // Each library also holds the render-data kernel of its metric
 // (`grt_render_data`, render_data.cuh): after the march, one thread per ray
@@ -79,7 +78,7 @@
 #include "render_data.cuh"
 
 #ifndef GRT_METRIC
-#define GRT_METRIC KerrBoyer
+#error "GRT_METRIC names the metric struct of an -include'd emitted header"
 #endif
 
 #ifndef GRT_THREADS

@@ -15,9 +15,9 @@
 // follow torch's CUDA kernels rather than a literal reading of the Python:
 // a division by a Python scalar is a multiplication by the float32
 // reciprocal of the scalar (torch's div_true_kernel_cuda), and a clamp keeps
-// a NaN (clamp_min).  The metric is the march's struct (metrics.cuh, or an
-// emitted header), evaluated at the endpoint with constant duals, so `g` is
-// the value the march evaluates.
+// a NaN (clamp_min).  The metric is the march's emitted struct, evaluated
+// at the endpoint with constant duals, so `g` is the value the march
+// evaluates.
 //
 // Compiled into every ray-march library (raymarch.cu, `grt_render_data`) and,
 // as plain C++, by the host test (tests/test_torch_render_data_host.py).

@@ -111,4 +111,15 @@ GRT_HD GRT_INLINE auto gtan(const S& g) {
   }
 }
 
+// A Kerr-Schild metric's decomposition g = eta + f l l at an event: f and
+// the spatial components of l (l_0 = 1), which the struct's `fl` returns
+// instead of a metric function (march.cuh takes the rank-1 acceleration).
+template <class F, class L1, class L2, class L3>
+struct Rank1 {
+  F f;
+  L1 l1;
+  L2 l2;
+  L3 l3;
+};
+
 }  // namespace grt

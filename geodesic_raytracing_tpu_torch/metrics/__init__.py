@@ -15,8 +15,12 @@ from .base import (
 from . import (  # noqa: F401
     catalogue_exotic, catalogue_kerr, catalogue_multibody, catalogue_simple)
 
+# The ported catalogue's names, before a content pack registers more.
+CATALOGUE = tuple(sorted(REGISTRY))
+
 __all__ = [
     "BASE_CONFIGS",
+    "CATALOGUE",
     "Metric",
     "MetricConfig",
     "REGISTRY",

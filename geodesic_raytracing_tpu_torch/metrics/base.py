@@ -144,9 +144,8 @@ def at_origin(polar: Tensor, params) -> Tensor:
 
 def alcubierre_origin(polar: Tensor, params) -> Tensor:
     """scripts/origins/alcubierre_origin.js — distance to the moving warp
-    bubble at x = v t, from the polar event.  The kernel's
-    ``Alcubierre::origin_distance`` (csrc/warp.cuh) computes the same
-    composition."""
+    bubble at x = v t, from the polar event.  The kernel's struct emits
+    it as its ``origin_distance`` (``ops/emit.py``)."""
     t, r, theta, phi = polar[0], polar[1], polar[2], polar[3]
     st = torch.sin(theta)
     cx = r * st * torch.cos(phi)

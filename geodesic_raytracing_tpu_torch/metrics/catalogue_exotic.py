@@ -4,12 +4,10 @@
 ``krasnikov_tube``, ``krasnikov_cylindrical`` and ``godel_cylindrical``, with
 the reference's configs field for field.
 
-The same expressions are written once more as the C++ metric structs of
-``csrc/exotic.cuh`` (Misner, the spinning string, Godel) and
-``csrc/warp.cuh`` (Alcubierre, the Krasnikov tubes) for the ray-march
-kernel; a change here must be made there too.  Quotients by a parameter are
-written as products with its reciprocal, and parameter-only expressions are
-evaluated in double (``geometry.param64``), as in ``catalogue_simple``.
+The ray-march kernel's metric structs are emitted from these functions
+(``ops/emit.py``).  Quotients by a parameter are written as products with
+its reciprocal, and parameter-only expressions are evaluated in double
+(``geometry.param64``), as in ``catalogue_simple``.
 """
 
 from __future__ import annotations

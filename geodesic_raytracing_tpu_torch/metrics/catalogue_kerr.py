@@ -5,14 +5,12 @@
 g = eta + f l l (``Metric.rank1``) the integrator's rank-1 acceleration
 takes.
 
-The same expressions, term for term, are written once more as the C++ metric
-structs of ``csrc/kerr_boyer.cuh`` and ``csrc/kerr_schild.cuh`` for the ray-
-march kernel; a change here must be made there too (the kernel-vs-plain
-checks in ``tests/test_torch_raymarch_host.py`` and ``chip_smoke.py`` catch
-a drift). Quotients are ``c * recip(x)`` and squares ``q * q``, as in
-``catalogue_simple``. A product of three or more parameters is evaluated by
-Python in double precision and rounded once to float32 where it meets a
-tensor; the C++ structs write such a product out in double the same way.
+The ray-march kernel's metric structs are emitted from these functions
+(``ops/emit.py``). Quotients are ``c * recip(x)`` and squares ``q * q``, as
+in ``catalogue_simple``. A product of three or more parameters is evaluated
+by Python in double precision and rounded once to float32 where it meets a
+tensor; the emitted structs evaluate such a product in double the same
+way.
 """
 
 from __future__ import annotations

@@ -4,14 +4,13 @@ of ``geodesic_raytracing_tpu.metrics.catalogue_multibody``):
 ``double_kerr``, ``double_kerr_alt`` and ``double_unequal_kerr`` on explicit
 (re, im) pairs (``ops.complexify``).
 
-The same expressions, term for term, are written once more as the C++
-metric structs of ``csrc/multibody.cuh`` for the ray-march kernel; a change
-here must be made there too.  Every expression of parameters alone,
-complex ones included (the strut's sigma, the constants of the potentials,
+The ray-march kernel's metric structs are emitted from these functions
+(``ops/emit.py``).  Every expression of parameters alone, complex ones
+included (the strut's sigma, the constants of the potentials,
 ``double_unequal_kerr``'s cube root), is evaluated in double
 (``geometry.param64``) and rounded once to float32 where it meets a
 coordinate, so that no product of two parameter expressions is formed in
-float32; the C++ structs evaluate them in double in ``from_params``.
+float32; the emitted structs evaluate them in double in ``from_params``.
 Quotients by a coordinate expression are products with its reciprocal.
 """
 

@@ -11,12 +11,12 @@ configs field for field.
 Quotients are written ``c * recip(x)`` (the reference's ``c / x``; the same
 value for ``c = 1``, within an ulp otherwise) and ``x / 3`` as
 ``x * (1 / 3)``: the forms torch's own division of a scalar takes, written
-out so that the CPU, the GPU and the kernel's C++ twin of each metric
-(``csrc/<metric>.cuh``, term for term; a change here must be made there
-too) do the same operations.  A product or function of parameters alone is
-evaluated in double (``geometry.param64``: by Python for float parameters,
-in float64 for a fitted tensor); the C++ twin evaluates it in double in the
-struct's ``from_params`` and rounds once, as the value meets a tensor.
+out so that the CPU, the GPU and the kernel's struct of each metric, which
+``ops/emit.py`` writes from these functions, do the same operations.  A
+product or function of parameters alone is evaluated in double
+(``geometry.param64``: by Python for float parameters, in float64 for a
+fitted tensor); the emitted struct evaluates it in double in its
+``from_params`` and rounds once, as the value meets a tensor.
 """
 
 from __future__ import annotations
@@ -296,10 +296,7 @@ ernst = register(
 
 
 # ---------------------------------------------------------------------------
-# Catalogue slice B.  The C++ twins are in csrc/wormhole.cuh
-# (janis_newman_winicour, schwarzschild_ingoing_ef_hawking,
-# configurable_wormhole, ellis_drainhole) and csrc/warp.cuh
-# (symmetric_warp_drive); a change here must be made there too.
+# Catalogue slice B.
 # ---------------------------------------------------------------------------
 
 def janis_newman_winicour_fn(x, params):

@@ -2,11 +2,11 @@
 
 The JAX reference has no counterpart file: JAX traces a metric, built-in or
 from a content pack, into the Pallas kernel's body.  The CUDA kernel
-(``csrc/raymarch.cu``) is a template over a metric struct
-(``csrc/metrics.cuh`` lists what one provides), so a metric that has no
-hand-written struct gets one written for it here, as a C++ header that the
-kernel's build includes (``ops/raymarch.py``: ``-include <header>
--DGRT_METRIC=<struct>``).
+(``csrc/raymarch.cu``) is a template over a metric struct, and every
+metric's struct, registered or a content pack's, is written here from its
+torch function, as a C++ header that the kernel's build includes
+(``ops/raymarch.py``: ``-include <header> -DGRT_METRIC=<struct>``):
+the metric function is the one source of the kernel's metric.
 
 How.  The metric function is recorded as an aten graph by ``make_fx`` (fake
 tensors: Python control flow on a coordinate's value raises), with
@@ -28,7 +28,7 @@ parameter on the host (``geometry.param_pow``: a ``PowRule`` member set in
 the config's origin is not ``at_origin``, ``origin_distance`` are emitted
 the same way on constant duals.  A rank-1 metric (``Metric.rank1``, a
 pack's ``RANK1``) is emitted from its decomposition instead: ``fl(x, y,
-z)`` returns ``Rank1{f, l1, l2, l3}`` (``csrc/kerr_schild.cuh``) and the
+z)`` returns ``Rank1{f, l1, l2, l3}`` (``csrc/sym.cuh``) and the
 march takes its rank-1 acceleration; l_0 must be the constant 1 and the
 decomposition must depend on x, y and z.
 
@@ -484,7 +484,8 @@ class _Emitter:
         ctype = {"dual": "const auto", "f32": "const float",
                  "f64": "const double", "bool": "const bool"}[kind]
         # A double expression of parameters goes to from_params whatever
-        # its op: the hand structs evaluate them there, on the host's libm.
+        # its op: it is evaluated there once, on the host's libm, as Python
+        # evaluates it.
         if param_only and (exact or kind == "f64") and self.hoist \
                 and kind != "dual":
             mtype = {"f32": "float", "f64": "double", "bool": "bool"}[kind]
@@ -997,6 +998,26 @@ def _rank1_return(metric, em, outs) -> str:
     return f"Rank1<{types}>{{{', '.join(parts)}}}"
 
 
+# The struct a header holds gives the march (csrc/march.cuh) and the
+# render-data and observer kernels its compile-time facts and its metric
+# function:
+#   name, n_params, from_params(const float*)   identity and parameters (a
+#                        baked struct has its values as literals instead)
+#   adaptive_precision, detect_singularities, singular,
+#   singular_terminator, has_cylindrical_singularity,
+#   cylindrical_terminator, unconditionally_nonsingular   the MetricConfig
+#   weight(i), udiv      precision weights of the chart and their maximum
+#   n_deps, dep(k)       the coordinates g depends on; dep(k) seeds tangent k
+#   polar_r(x)           polar[1] of the chart's to_polar (the escape
+#                        radius, and the at_origin distance)
+#   origin_distance(x)   only where the config's origin_distance is not
+#                        at_origin (the step schedule's distance)
+#   g(x0, x1, x2, x3)    the metric as a Sym of typed entries (sym.cuh); each
+#                        coordinate is a dual that carries the tangent it
+#                        seeds, or none (up to kTangents = 4 of them)
+#   fl(x1, x2, x3)       instead of g, for a rank-1 metric g = eta + f l l:
+#                        Rank1{f, l1, l2, l3} (sym.cuh), which the march's
+#                        rank-1 acceleration takes
 def emit_metric(metric: mbase.Metric, params=None) -> Header:
     """The metric struct of ``metric`` as a C++ header: dynamic when
     ``params`` is None, else baked with these parameter values."""
@@ -1038,10 +1059,10 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
         origin = _function(_scalar_fn(metric, names, baked, "origin"),
                            dynamic, len(names), pnames, "o")
 
-    src = "\n".join(em.body) + ret + polar_ret
-    tag = hashlib.sha256((metric.name + repr(baked) + src).encode()
-                         ).hexdigest()[:8]
-    struct = f"Emitted_{_ident(metric.name)}_{tag}"
+    # The struct's name ends in a hash of its whole text (the config's
+    # facts, the baked values and the functions), filled in at the end.
+    struct = f"Emitted_{_ident(metric.name)}_@TAG@"
+
     def ind(lines, k):
         return [" " * k + ln for ln in lines]
 
@@ -1061,7 +1082,6 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
         "#include <type_traits>",
         "",
         '#include "complex.cuh"',
-        '#include "kerr_schild.cuh"',
         '#include "sym.cuh"',
         "",
         "namespace grt {",
@@ -1116,8 +1136,10 @@ def emit_metric(metric: mbase.Metric, params=None) -> Header:
         "}  // namespace grt",
         "",
     ]
-    return Header(struct=struct, params=names,
-                  text="\n".join(text) + "\n",
+    text = "\n".join(text) + "\n"
+    tag = hashlib.sha256(text.encode()).hexdigest()[:8]
+    return Header(struct=struct.replace("@TAG@", tag), params=names,
+                  text=text.replace("@TAG@", tag),
                   baked=None if dynamic else tuple(baked.values()))
 
 

@@ -13,30 +13,31 @@ pixels of a row.  No tile packing is needed: the kernel reads the (N, 4)
 
 The kernel is a C++ template over the metric and over the trace options the
 step branches on (planar mode, the Euler integrator, affine
-reparameterisation).  One library is built per metric (``INSTANCES``), each
-holding the six option instances; the options travel as launch arguments
-and the library's entry point picks the instance.
+reparameterisation).  The metric is a struct that ``ops/emit.py`` writes
+from the metric's torch function, the one source of the kernel's metric:
+one library is built per emitted struct, each holding the six option
+instances; the options travel as launch arguments and the library's entry
+point picks the instance.
 
 Build: ``nvcc`` into a shared library with a plain C interface, loaded with
 ctypes (no PyTorch headers, so the build takes seconds), at a metric's first
-use (``build_all`` builds every metric's at once, one ``nvcc`` each), into
-``build/grt_torch/`` keyed on a hash of the sources in ``csrc/`` and of the
-flags.  ``NVCC_FLAGS`` are the flags of the next build: no
-``--use_fast_math`` (its sin and cos are too coarse for photon-ring rays),
-and ``-fmad=false``, with which the kernel follows the eager torch march op
-for op in float32.  ``with_flags`` derives a variant for measurement.
+use (``build_all`` builds every registered metric's at once, one ``nvcc``
+each), into ``build/grt_torch/`` keyed on a hash of the sources in
+``csrc/``, of the emitted header, of the baked values and of the flags, so
+that a later process loads it without ``nvcc``.  ``NVCC_FLAGS`` are the
+flags of the next build: no ``--use_fast_math`` (its sin and cos are too
+coarse for photon-ring rays), and ``-fmad=false``, with which the kernel
+follows the eager torch march op for op in float32.  ``with_flags`` derives
+a variant for measurement.
 
-Besides the hand-written structs of ``csrc/`` (``INSTANCES``), a library
-can hold a struct that ``ops/emit.py`` wrote from a torch metric function
-(an emitted instance: a registered metric without a hand struct, such as a
-content pack's, is emitted at its first use; ``emitted_instance`` emits
-any metric on request), and either kind can be baked
-(``baked_instance``): ``GRT_BAKED_PARAMS`` (a header line) makes the
-kernel build its metric from compile-time constants, so that ``nvcc`` folds
-the parameters through the step; a baked metric launches with its own
+``instance_of`` gives the instance a metric launches: its struct emitted at
+the metric's first use in the process (``emitted_instance``), dynamic (the
+parameters are launch arguments) or, for a baked metric
+(``runtime.hotswap.bake``), baked: traced with its values as Python floats
+and built with ``GRT_BAKED_PARAMS`` (a header line), so that the library
+reports the values it has compiled in; a baked metric launches with its own
 values, and a library whose compiled-in values are not its instance's is
-refused when it is loaded.  A library is keyed on a hash of ``csrc/``, of the emitted
-header, of the baked values and of the flags.
+refused when it is loaded.
 
 Each library also holds the render-data kernel of its metric
 (``csrc/render_data.cuh``; ``render_data_cuda``): after the march, the
@@ -52,11 +53,11 @@ the card in place of its ~2,760 eager ops, taken by
 ``camera.observer_tetrad``.  ``asks_for_grad`` is the rule that sends a
 call to the eager twins instead: the kernels are forward-only.
 
-The wrappers launch on CUDA tensors or raise: there is no fallback, and a
-metric without a kernel instance, or one that differs from the registered
-metric its instance was written from (``check_compiled_metric``), raises
-``NotImplementedError``; so does a metric the emitter cannot emit, naming
-the op.  Its plain twin is ``integrate.trace_rays_reference``.
+The wrappers launch on CUDA tensors or raise: there is no fallback, and an
+unregistered metric, or one that differs from the registered metric of its
+name (``check_compiled_metric``), raises ``NotImplementedError``; so does a
+metric the emitter cannot emit, naming the op.  Its plain twin is
+``integrate.trace_rays_reference``.
 """
 
 from __future__ import annotations
@@ -87,46 +88,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# The kernel's metric instances: metric name -> (the metric struct of
-# csrc/metrics.cuh, the metric's parameters in the order of that struct).
-INSTANCES = {
-    "kerr_boyer": ("KerrBoyer", ("rs", "a")),
-    "schwarzschild": ("Schwarzschild", ("rs",)),
-    "schwarzschild_fast": ("SchwarzschildFast", ("rs",)),
-    "schwarzschild_skewed": ("SchwarzschildSkewed", ()),
-    "schwarzschild_ingoing_ef": ("SchwarzschildIngoingEF", ("rs",)),
-    "de_sitter": ("DeSitter", ("cosmological_constant",)),
-    "minkowski": ("Minkowski", ()),
-    "minkowski_skew": ("MinkowskiSkew", ()),
-    "wormhole (morris-thorne)": ("Wormhole", ("n",)),
-    "black_hole_cosmic_string": ("BlackHoleCosmicString", ("rs", "B")),
-    "ernst": ("Ernst", ("B", "rs")),
-    "kerr_newman_boyer": ("KerrNewmanBoyer", ("rs", "r2q", "a")),
-    "kerr_ingoing_ef": ("KerrIngoingEF", ("rs", "a")),
-    "kerr_rational_polynomial": ("KerrRationalPolynomial", ("m", "a")),
-    "misner_4d": ("Misner4D", ("phi0",)),
-    "cosmic_string_spinning": ("CosmicStringSpinning", ("a", "k")),
-    "janis_newman_winicour": ("JanisNewmanWinicour", ("r0", "mu")),
-    "schwarzschild_ingoing_ef_hawking": ("SchwarzschildIngoingEFHawking",
-                                         ("rs_base", "lifetime")),
-    "configurable_wormhole": ("ConfigurableWormhole", ("M", "p", "a")),
-    "ellis_drainhole": ("EllisDrainhole", ("m", "n")),
-    "symmetric_warp_drive": ("SymmetricWarpDrive", ()),
-    "alcubierre": ("Alcubierre", ("velocity", "sigma", "R")),
-    "krasnikov_tube": ("KrasnikovTube", ("e", "D", "pmax", "littled")),
-    "krasnikov_cylindrical": ("KrasnikovCylindrical", ("e", "D", "pmax")),
-    "godel_cylindrical": ("GodelCylindrical", ("a",)),
-    "kerr_schild": ("KerrSchild", ("a", "rs")),
-    "kerr_newman_schild": ("KerrNewmanSchild", ("a", "rs", "Q")),
-    "double_schwarzschild": ("DoubleSchwarzschild", ("M1", "M2", "z")),
-    "double_kerr": ("DoubleKerr", ("R", "M", "a")),
-    "double_kerr_alt": ("DoubleKerrAlt", ("R", "M", "q")),
-    "double_unequal_kerr": ("DoubleUnequalKerr",
-                            ("m1", "m2", "fa1", "fa2", "R")),
-}
-
-# What a metric struct of csrc/ has compiled in besides the metric function:
-# the MetricConfig fields the step branches on and the chart.  (The config's
+# What an emitted struct has compiled in besides the metric function: the
+# MetricConfig fields the step branches on and the chart.  (The config's
 # max_acceleration_change travels in Features, at run time.)
 COMPILED_CONFIG = ("adaptive_precision", "detect_singularities", "singular",
                    "singular_terminator", "has_cylindrical_singularity",
@@ -135,7 +98,7 @@ COMPILED_CONFIG = ("adaptive_precision", "detect_singularities", "singular",
                    "origin_distance")
 
 # Kernel launches made by trace_rays_cuda (one per call), by the label of
-# the instance launched (the metric's name for its default instance); each
+# the instance launched (the metric's name for its dynamic instance); each
 # also adds to the open frame's ``launches`` counter (``utils.profiling``).
 LAUNCHES_BY_METRIC: dict = {}
 
@@ -144,17 +107,16 @@ LAUNCHES_BY_METRIC: dict = {}
 class Instance:
     """The metric a kernel library is built for.  ``label``: its key in
     ``LAUNCHES_BY_METRIC`` and ``BUILD_INFO`` (the metric's name for the
-    metric's default instance); ``metric``: the metric's name; ``struct``:
-    the metric struct (in namespace ``grt``); ``params``: the parameters in
-    the struct's order; ``header``: the emitted header's text, or None for a
-    struct of ``csrc/``; ``baked``: the float32 parameter values compiled
-    in, or None."""
+    metric's dynamic instance); ``metric``: the metric's name; ``struct``:
+    the emitted struct (in namespace ``grt``); ``params``: the parameters in
+    the struct's order; ``header``: the emitted header's text; ``baked``:
+    the float32 parameter values compiled in, or None."""
 
     label: str
     metric: str
     struct: str
     params: tuple
-    header: str | None = None
+    header: str
     baked: tuple | None = None
 
 
@@ -244,22 +206,6 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
-def _instance(name: str) -> tuple:
-    try:
-        return INSTANCES[name]
-    except KeyError:
-        raise NotImplementedError(
-            f"no ray-march kernel instance for metric {name!r} (instances: "
-            f"{sorted(INSTANCES)}; a registered metric without one, such as "
-            "a content pack's, is emitted)") from None
-
-
-def hand_instance(name: str) -> Instance:
-    """The instance of the hand-written struct of metric ``name``."""
-    struct, params = _instance(name)
-    return Instance(label=name, metric=name, struct=struct, params=params)
-
-
 def _unbaked(metric: Metric) -> Metric:
     if isinstance(metric.fn, BakedFn):
         rank1 = metric.rank1
@@ -295,37 +241,20 @@ def emitted_instance(metric: Metric, params=None) -> Instance:
     return hit[0]
 
 
-def baked_instance(metric: Metric, params) -> Instance:
-    """``metric``'s instance with ``params`` compiled in: its hand struct
-    built with ``GRT_BAKED_PARAMS`` defined, or else its emitted struct
-    traced with the values as Python floats (``ops/emit.py``, baked
-    mode)."""
-    metric = _unbaked(metric)
-    if metric.name not in INSTANCES:
-        return emitted_instance(metric, params)
-    inst = hand_instance(metric.name)
-    return dataclasses.replace(
-        inst, label=f"{metric.name} [baked]",
-        baked=tuple(float(np.float32(params[k])) for k in inst.params))
-
-
 def instance_of(metric: Metric) -> Instance:
     """The instance ``trace_rays_cuda`` launches for ``metric`` (checked by
-    ``check_compiled_metric``): the hand struct of its name, or the emitted
-    struct of a registered metric without one; baked where the metric is
-    (``runtime.hotswap.bake``)."""
+    ``check_compiled_metric``): the struct emitted from its function, baked
+    where the metric is (``runtime.hotswap.bake``)."""
     check_compiled_metric(metric)
-    if isinstance(metric.fn, BakedFn):
-        return baked_instance(metric, dict(metric.fn.params))
-    if metric.name in INSTANCES:
-        return hand_instance(metric.name)
-    return emitted_instance(metric)
+    params = dict(metric.fn.params) if isinstance(metric.fn, BakedFn) \
+        else None
+    return emitted_instance(metric, params)
 
 
 def check_compiled_metric(metric: Metric) -> None:
-    """Raise NotImplementedError unless ``metric`` is what the kernel
-    instance of its name was written from: the registered metric's function,
-    its rank-1 decomposition (which picks the acceleration path),
+    """Raise NotImplementedError unless ``metric`` is the registered metric
+    of its name, whose struct the kernel is built with: its function, its
+    rank-1 decomposition (which picks the acceleration path),
     ``depends_on``, symmetry flag (it sets the precision weights) and every
     ``COMPILED_CONFIG`` field.  A metric whose config was replaced has no
     instance, whatever its name.  A baked metric is held so by the function
@@ -334,9 +263,12 @@ def check_compiled_metric(metric: Metric) -> None:
 
     metric = _unbaked(metric)
     known = REGISTRY.get(metric.name)
-    if metric.name not in INSTANCES and known is None:
-        _instance(metric.name)
-    differs = ["(not registered)"] if known is None else [
+    if known is None:
+        raise NotImplementedError(
+            f"no ray-march kernel instance for metric {metric.name!r}: a "
+            "registered metric's struct is emitted (a content pack registers "
+            "its metrics)")
+    differs = [
         f for f in ("fn", "rank1", "depends_on", "spherically_symmetric",
                     "diagonal", "structure")
         if getattr(metric, f) != getattr(known, f)] + [
@@ -359,31 +291,22 @@ def baked_define(values) -> str:
     return "#define GRT_BAKED_PARAMS " + "".join(f"{lit(v)}," for v in values)
 
 
-def _as_instance(name) -> Instance:
-    return name if isinstance(name, Instance) else hand_instance(name)
-
-
-def library_path(name, flags=None) -> Path:
-    """Where ``build`` puts the library of metric ``name`` (or of an
-    ``Instance``) for ``flags`` (default: ``NVCC_FLAGS``): keyed on
-    ``source_hash`` and on an emitted header's text and baked values.  Its
-    ptxas report lies beside it (``.ptxas.txt``)."""
-    inst = _as_instance(name)
-    tag = source_hash(flags)
-    if inst.header is not None or inst.baked is not None:
-        baked = "" if inst.baked is None else baked_define(inst.baked)
-        tag = hashlib.sha256("\0".join(
-            (tag, inst.header or "", baked)).encode()).hexdigest()[:16]
+def library_path(inst: Instance, flags=None) -> Path:
+    """Where ``build`` puts the library of ``inst`` for ``flags`` (default:
+    ``NVCC_FLAGS``): keyed on ``source_hash``, the emitted header's text and
+    the baked values.  Its ptxas report lies beside it (``.ptxas.txt``)."""
+    baked = "" if inst.baked is None else baked_define(inst.baked)
+    tag = hashlib.sha256("\0".join(
+        (source_hash(flags), inst.header, baked)).encode()).hexdigest()[:16]
     # Named by the struct: a metric's name may hold spaces and parentheses.
     return BUILD_DIR / f"libgrt_raymarch_{inst.struct}_{tag}.so"
 
 
-def build(name, flags=None) -> Path:
-    """Compile ``csrc/raymarch.cu`` for the metric ``name`` (or an
-    ``Instance``) with ``flags`` (default: ``NVCC_FLAGS``) unless a library
-    for the current sources, header, baked values and these flags exists.
-    Prints the ptxas register/spill report once."""
-    inst = _as_instance(name)
+def build(inst: Instance, flags=None) -> Path:
+    """Compile ``csrc/raymarch.cu`` for ``inst`` (its emitted header given
+    with ``-include``) with ``flags`` (default: ``NVCC_FLAGS``) unless a
+    library for the current sources, header, baked values and these flags
+    exists.  Prints the ptxas register/spill report once."""
     flags = tuple(NVCC_FLAGS if flags is None else flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = library_path(inst, flags)
@@ -399,10 +322,9 @@ def build(name, flags=None) -> Path:
         define = lib_path.with_suffix(".baked.h")
         define.write_text(baked_define(inst.baked) + "\n")
         extra += ["-include", str(define)]
-    if inst.header is not None:
-        header = lib_path.with_suffix(".cuh")
-        header.write_text(inst.header)
-        extra += ["-I", str(CSRC), "-include", str(header)]
+    header = lib_path.with_suffix(".cuh")
+    header.write_text(inst.header)
+    extra += ["-I", str(CSRC), "-include", str(header)]
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *flags, *extra, f"-DGRT_METRIC={inst.struct}", "-o",
            str(tmp), str(CSRC / "raymarch.cu")]
@@ -421,21 +343,23 @@ def build(name, flags=None) -> Path:
     return lib_path
 
 
-def build_all(names=None, flags=None) -> float:
-    """Build the libraries of ``names`` (metric names or ``Instance``s;
-    default: every metric instance of ``INSTANCES``) at once, one ``nvcc``
-    process each.  Returns the wall seconds."""
-    names = sorted(INSTANCES) if names is None else list(names)
+def build_all(instances=None, flags=None) -> float:
+    """Build the libraries of ``instances`` (default: the instance of every
+    registered metric) at once, one ``nvcc`` process each.  Returns the wall
+    seconds."""
+    from ..metrics import REGISTRY
+
+    if instances is None:
+        instances = [instance_of(REGISTRY[n]) for n in sorted(REGISTRY)]
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(lambda n: build(n, flags), names))
+    with concurrent.futures.ThreadPoolExecutor(len(instances)) as pool:
+        list(pool.map(lambda i: build(i, flags), instances))
     return time.perf_counter() - t0
 
 
-def get_lib(name):
-    """The kernel library of metric ``name`` (or of an ``Instance``) for the
-    current ``NVCC_FLAGS``, loaded (and built at first use)."""
-    inst = _as_instance(name)
+def get_lib(inst: Instance):
+    """The kernel library of ``inst`` for the current ``NVCC_FLAGS``, loaded
+    (and built at first use)."""
     key = (inst.label, tuple(NVCC_FLAGS))
     with _lock:
         hit = _libs.get(key)
@@ -487,11 +411,11 @@ def _raise_on(lib, rc: int, what: str) -> None:
                            f"{lib.grt_error_string(rc).decode()} ({rc})")
 
 
-def kernel_config(name) -> dict:
-    """``{"threads", "blocks_per_sm"}`` of metric ``name``'s kernel (the
-    instance of the default options): its block size and the blocks of it
-    that one SM holds at once."""
-    lib = get_lib(name)
+def kernel_config(inst: Instance) -> dict:
+    """``{"threads", "blocks_per_sm"}`` of ``inst``'s kernel (the instance
+    of the default options): its block size and the blocks of it that one
+    SM holds at once."""
+    lib = get_lib(inst)
     out = [ctypes.c_int() for _ in range(2)]
     _raise_on(lib, lib.grt_raymarch_config(*(ctypes.byref(c) for c in out)),
               "occupancy query")

@@ -10,14 +10,13 @@ metric_manager.hpp:172-219).
 The port's equivalents:
 
 * dynamic program: the ray-march kernel's library of the metric, which
-  takes the parameters as launch arguments (a hand struct of ``csrc/``, or
-  the struct ``ops/emit.py`` writes for a content pack's metric);
+  takes the parameters as launch arguments (the struct ``ops/emit.py``
+  writes from the metric's function);
 * static program: the same kernel built with the parameters as
-  compile-time constants (``ops.raymarch.baked_instance``:
-  ``GRT_BAKED_PARAMS`` for a hand struct, a header traced with the values
-  as Python floats for an emitted one), so that ``nvcc`` folds them through
-  the step; on the CPU, ``bake``'s function evaluates the metric with the
-  values as Python floats;
+  compile-time constants (``ops.raymarch.emitted_instance`` with the
+  values: a header traced with them as Python floats), so that ``nvcc``
+  folds them through the step; on the CPU, ``bake``'s function evaluates
+  the metric with the values as Python floats;
 * hot swap: ``nvcc`` runs on a worker thread and the dispatch switches
   atomically once the library is loaded.  A call never waits for a build;
   a failed build leaves the dynamic program serving and is kept in
@@ -158,7 +157,7 @@ def kernel_program(metric: Metric, run: Callable) -> HotSwapProgram:
     ``run(metric, params, *args, **kwargs)`` renders (or marches) with a
     metric; the dynamic program passes ``metric`` itself, the static one
     ``bake(metric, params)`` once its baked library is built and loaded
-    (``ops.raymarch.baked_instance``; an emitted metric is traced on the
+    (``ops.raymarch.emitted_instance``: the metric is traced on the
     requesting thread, ``nvcc`` runs on the worker)."""
     from ..ops import raymarch
 
@@ -166,7 +165,7 @@ def kernel_program(metric: Metric, run: Callable) -> HotSwapProgram:
         return run(metric, params, *args, **kwargs)
 
     def prepare(params):
-        return raymarch.baked_instance(metric, params)
+        return raymarch.emitted_instance(metric, params)
 
     def build_static(params, inst):
         raymarch.get_lib(inst)

@@ -1,7 +1,9 @@
 """Count the float operations of the ray-march kernel's metric instances from
 the kernel's own code.
 
-For each instance, a small C++ file instantiates two functions of
+Every instance's metric struct is the one ``ops/emit.py`` writes from the
+torch metric.  For each, a small C++ file includes it and instantiates two
+functions of
 ``geodesic_raytracing_tpu_torch/csrc/march.cuh`` on host types: ``metric``,
 the metric with its dual partials as one trial iteration evaluates them
 (``M::g`` on the seeded coordinates, or ``M::fl`` for a Kerr-Schild
@@ -21,22 +23,18 @@ The count of ``accel`` less that of ``metric`` is the contraction and the
 inverse.  The step, the probe and the controller are not counted here (see
 ``chip_smoke.OPS_BY_INSTANCE``).
 
-Usage (needs g++; no GPU, no torch):
+Usage (needs g++ and torch; no GPU): the dynamic and the baked struct
+(with the defaults) of each metric named, a registered metric by its name
+or a content pack's as ``DIR:NAME``; with no names, of every metric of the
+catalogue:
 
     python scripts/torch_opcount.py [metric ...]
-
-With no names it counts every instance of ``ops/raymarch.INSTANCES``.
-``--emit`` counts the structs that ``ops/emit.py`` writes instead, dynamic
-and baked with the defaults (this needs torch): a registered metric by its
-name, or a content pack's as ``DIR:NAME``:
-
-    python scripts/torch_opcount.py --emit kerr_boyer schwarzschild \
+    python scripts/torch_opcount.py kerr_boyer double_kerr \
         examples/pack_torch:reissner_nordstrom
 """
 
 from __future__ import annotations
 
-import ast
 import re
 import subprocess
 import sys
@@ -127,21 +125,9 @@ COND = re.compile(r"^\s*(\S+) = \S+ \? \S+ : \S+;$")
 PHI = re.compile(r"^\s*#\s*(\S+) = PHI <")
 
 
-def instances() -> dict[str, str]:
-    """``ops/raymarch.INSTANCES`` (metric name -> struct), read from the
-    source without importing the package."""
-    tree = ast.parse((REPO / "geodesic_raytracing_tpu_torch" / "ops" /
-                      "raymarch.py").read_text())
-    for node in ast.walk(tree):
-        if (isinstance(node, ast.Assign) and len(node.targets) == 1
-                and getattr(node.targets[0], "id", None) == "INSTANCES"):
-            return {k: v[0] for k, v in ast.literal_eval(node.value).items()}
-    raise RuntimeError("INSTANCES not found in ops/raymarch.py")
-
-
 def function_bodies(dump: str) -> dict[str, str]:
     """The GIMPLE body of every function in the dump, by the name its call
-    sites use (``grt::kerr_boyer_g<...>``, ``grt_opcount_metric``)."""
+    sites use (``grt_opcount_metric``, ``grt::acceleration<...>``)."""
     out = {}
     for m in re.finditer(r"^;; Function (.*?) \(\S+, funcdef_no=.*?\n(.*?)"
                          r"(?=^;; Function |\Z)", dump, re.M | re.S):
@@ -245,12 +231,10 @@ def count_function(name: str, bodies: dict[str, str]) -> dict[str, int]:
 
 
 def count_instance(struct: str, work: Path,
-                   header: str | None = None) -> dict[str, dict[str, int]]:
+                   header: str) -> dict[str, dict[str, int]]:
     src = work / f"opcount_{struct}.cpp"
-    src.write_text(SHIM if header is None
-                   else f'#include "{struct}.cuh"\n' + SHIM)
-    if header is not None:
-        (work / f"{struct}.cuh").write_text(header)
+    src.write_text(f'#include "{struct}.cuh"\n' + SHIM)
+    (work / f"{struct}.cuh").write_text(header)
     subprocess.run(["g++", *FLAGS, f"-DGRT_METRIC={struct}", "-I", str(CSRC),
                     "-I", str(work),
                     "-c", str(src), "-o", str(work / f"{struct}.o"),
@@ -266,13 +250,14 @@ def count_instance(struct: str, work: Path,
 
 def emitted(names: list[str]) -> list[tuple[str, str, str]]:
     """``(label, struct, header)`` of the dynamic and the baked struct that
-    ``ops/emit.py`` writes for each name (``NAME`` or ``DIR:NAME``)."""
+    ``ops/emit.py`` writes for each name (``NAME`` or ``DIR:NAME``; none:
+    every metric of the catalogue)."""
     sys.path.insert(0, str(REPO))
     from geodesic_raytracing_tpu_torch import content, metrics
     from geodesic_raytracing_tpu_torch.ops import emit
 
     out = []
-    for spec in names:
+    for spec in names or metrics.CATALOGUE:
         if ":" in spec:
             pack, name = spec.rsplit(":", 1)
             m = content.load_pack(REPO / pack, register=False).metrics[name]
@@ -280,16 +265,12 @@ def emitted(names: list[str]) -> list[tuple[str, str, str]]:
             m = metrics.get_metric(spec)
         for mode, params in (("dynamic", None), ("baked", m.params())):
             h = emit.emit_metric(m, params)
-            out.append((f"{m.name} [emitted {mode}]", h.struct, h.text))
+            out.append((f"{m.name} [{mode}]", h.struct, h.text))
     return out
 
 
 def main(argv: list[str]) -> None:
-    if argv[:1] == ["--emit"]:
-        rows = emitted(argv[1:])
-    else:
-        table = instances()
-        rows = [(n, table[n], None) for n in (argv or sorted(table))]
+    rows = emitted(argv)
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         print(f"{'instance':34s} {'metric':>7s} {'accel':>7s} "

@@ -1,10 +1,11 @@
 """The kernel's pruned dual numbers, compiled as host code.
 
 ``csrc/dual.cuh`` gives a dual the set of its live tangents as a type
-parameter and drops every term on a dead one.  This test builds
-``kerr_boyer_g`` with g++ (the route of ``test_torch_raymarch_host.py``) in
-both forms, pruned seeds (r: tangent 0, theta: tangent 1) and all tangents
-live on both, and holds the five metric entries and their ten partials
+parameter and drops every term on a dead one.  This test builds the emitted
+``kerr_boyer`` struct's ``g`` (``ops/emit.py``) with g++ (the route of
+``test_torch_raymarch_host.py``) in both forms, pruned seeds (r: tangent 0,
+theta: tangent 1) and all tangents live on both, and holds the five metric
+entries and their ten partials
 
 - pruned against unpruned: equal exactly (np.array_equal, so only the sign
   of a zero may differ);
@@ -16,10 +17,12 @@ live on both, and holds the five metric entries and their ten partials
   leaves an ulp of O(1) terms in a partial that cancels to a small value);
 
 and the whole host march built with ``-DGRT_FULL_TANGENTS`` against the
-pruned one: every output equal exactly.
+pruned one: every output equal exactly.  The other emitted structs' entries
+and partials are held the same way below (catalogue slices B and C).
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,55 +37,19 @@ from geodesic_raytracing_tpu.ops import geometry as jgeometry
 from geodesic_raytracing_tpu_torch import metrics
 from geodesic_raytracing_tpu_torch.ops import complexify as cx
 from geodesic_raytracing_tpu_torch.ops import geometry as tgeometry
-from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+from geodesic_raytracing_tpu_torch.ops import emit, integrate
+import torch_emit_host as eh
 from test_integrator import make_rays
-from test_torch_raymarch_host import SHIM as MARCH_SHIM
 
 torch.set_num_threads(1)
 
 CSRC = Path(integrate.__file__).resolve().parents[1] / "csrc"
 
-# out[i] = 15 floats: g (tt, rr, thth, phph, tph), d_r g, d_theta g.
-SHIM = r"""
-#include "kerr_boyer.cuh"
-// The two tangents the Kerr metric's seeds use (r: 0, theta: 1).
-constexpr unsigned kRTheta = 3u;
-template <class R, class Th>
-static void entries(const R& r, const Th& theta, float rs, float a,
-                    float* out) {
-  grt::Dual<kRTheta> g[5];
-  grt::kerr_boyer_g(r, theta, rs, a, g);
-  for (int e = 0; e < 5; ++e) {
-    out[e] = g[e].v;
-    out[5 + e] = g[e].d[0];
-    out[10 + e] = g[e].d[1];
-  }
-}
-extern "C" void grt_host_kerr_g(float rs, float a, int n, const float* r,
-                                const float* theta, int full, float* out) {
-  using namespace grt;
-  for (int i = 0; i < n; ++i) {
-    const auto rd = dual_seed<0>(r[i]);
-    const auto td = dual_seed<1>(theta[i]);
-    if (full)
-      entries(widen<kRTheta>(rd), widen<kRTheta>(td), rs, a, out + 15 * i);
-    else
-      entries(rd, td, rs, a, out + 15 * i);
-  }
-}
-// Values alone through the same template with T = float.
-extern "C" void grt_host_kerr_g_float(float rs, float a, int n,
-                                      const float* r, const float* theta,
-                                      float* out) {
-  for (int i = 0; i < n; ++i)
-    grt::kerr_boyer_g(r[i], theta[i], rs, a, out + 5 * i);
-}
-"""
-
 ENTRIES = ((0, 0), (1, 1), (2, 2), (3, 3), (0, 3))
 
-# Every metric struct's g and its partials at a batch of events, and each
-# dual op of catalogue slice B with its tangent, through the same headers.
+# The emitted structs' g and its partials at a batch of events, and each
+# dual op of catalogue slice B with its tangent, through the same headers
+# (INCLUDES: the emitted headers; TRYS, RANK1_TRYS: their dispatch lines).
 # Built twice: with pruned tangents, and with -DGRT_FULL_TANGENTS (every
 # seeding coordinate widened to all the seeded tangents).
 METRIC_SHIM = r"""
@@ -91,7 +58,7 @@ METRIC_SHIM = r"""
 #include <utility>
 
 #include "march.cuh"
-
+INCLUDES
 namespace {
 
 constexpr int kI[10] = {0, 0, 0, 0, 1, 1, 1, 2, 2, 3};
@@ -128,6 +95,21 @@ void eval(const float* mparams, int n, const float* x, float* out) {
   }
 }
 
+// The values alone, with constant duals (as render data and the observer
+// evaluate g): out[10 i + e] = g_e.
+template <class M>
+void eval_values(const float* mparams, int n, const float* x, float* out) {
+  const M m = M::from_params(mparams);
+  for (int i = 0; i < n; ++i) {
+    const float* xi = x + 4 * i;
+    const auto g = m.g(grt::dual_constant(xi[0]), grt::dual_constant(xi[1]),
+                       grt::dual_constant(xi[2]), grt::dual_constant(xi[3]));
+    float all[50];
+    put<M>(g, all, std::make_integer_sequence<int, 10>{});
+    memcpy(out + 10 * i, all, 10 * sizeof(float));
+  }
+}
+
 }  // namespace
 
 extern "C" int grt_host_metric(const char* metric, const float* mparams,
@@ -137,20 +119,19 @@ extern "C" int grt_host_metric(const char* metric, const float* mparams,
     eval<grt::M>(mparams, n, x, out);       \
     return 0;                               \
   }
-  TRY(JanisNewmanWinicour)
-  TRY(SchwarzschildIngoingEFHawking)
-  TRY(ConfigurableWormhole)
-  TRY(EllisDrainhole)
-  TRY(SymmetricWarpDrive)
-  TRY(Alcubierre)
-  TRY(KrasnikovTube)
-  TRY(KrasnikovCylindrical)
-  TRY(GodelCylindrical)
-  TRY(DoubleSchwarzschild)
-  TRY(DoubleKerr)
-  TRY(DoubleKerrAlt)
-  TRY(DoubleUnequalKerr)
-#undef TRY
+TRYS#undef TRY
+  return 1;
+}
+
+extern "C" int grt_host_metric_values(const char* metric,
+                                      const float* mparams, int n,
+                                      const float* x, float* out) {
+#define TRY(M)                                  \
+  if (strcmp(metric, #M) == 0) {                \
+    eval_values<grt::M>(mparams, n, x, out);    \
+    return 0;                                   \
+  }
+TRYS#undef TRY
   return 1;
 }
 
@@ -181,9 +162,7 @@ extern "C" int grt_host_rank1(const char* metric, const float* mparams,
     eval_rank1<grt::M>(mparams, n, x, out);     \
     return 0;                                   \
   }
-  TRY(KerrSchild)
-  TRY(KerrNewmanSchild)
-#undef TRY
+RANK1_TRYS#undef TRY
   return 1;
 }
 
@@ -289,31 +268,21 @@ def _events(n=512, seed=0):
 
 
 @pytest.fixture(scope="module")
-def host_g(tmp_path_factory):
-    so = _build(tmp_path_factory.mktemp("dual_host"), "dual_host", SHIM)
-    fp = ctypes.c_void_p
-    so.grt_host_kerr_g.restype = None
-    so.grt_host_kerr_g.argtypes = [ctypes.c_float, ctypes.c_float,
-                                   ctypes.c_int, fp, fp, ctypes.c_int, fp]
-    so.grt_host_kerr_g_float.restype = None
-    so.grt_host_kerr_g_float.argtypes = [ctypes.c_float, ctypes.c_float,
-                                         ctypes.c_int, fp, fp, fp]
+def host_g(host_b):
+    """``run(x, params, full)``: (15, n), the emitted ``kerr_boyer``
+    struct's five entries, their r partials and their theta partials at the
+    (4, n) events ``x``, pruned or (``full``) unpruned; ``full=None`` gives
+    the (5, n) values alone, from constant duals."""
+    kerr = [_IDX.index(e) for e in ENTRIES]
 
     def run(x, params, full):
-        """(15, n): the five entries, their r partials, their theta
-        partials; ``full=None`` gives the (5, n) float instantiation."""
-        n = x.shape[1]
-        r, th = np.ascontiguousarray(x[1]), np.ascontiguousarray(x[2])
+        xs = np.ascontiguousarray(x.T)
         if full is None:
-            out = np.zeros((n, 5), np.float32)
-            so.grt_host_kerr_g_float(params["rs"], params["a"], n,
-                                     r.ctypes.data, th.ctypes.data,
-                                     out.ctypes.data)
-        else:
-            out = np.zeros((n, 15), np.float32)
-            so.grt_host_kerr_g(params["rs"], params["a"], n, r.ctypes.data,
-                               th.ctypes.data, int(full), out.ctypes.data)
-        return out.T.copy()
+            return _host_metric(host_b[0], "kerr_boyer", xs, params,
+                                values=True)[:, kerr].T.copy()
+        out = _host_metric(host_b[int(full)], "kerr_boyer", xs, params)
+        cols = kerr + [20 + e for e in kerr] + [30 + e for e in kerr]
+        return out[:, cols].T.copy()
 
     return run
 
@@ -331,7 +300,7 @@ def test_pruned_equals_unpruned_exactly(host_g):
     full = host_g(x, m.params(), full=True)
     assert np.isfinite(full).all()
     np.testing.assert_array_equal(pruned, full)
-    # The float instantiation of the same template gives the same values.
+    # The values alone, from constant duals, are the same.
     np.testing.assert_array_equal(host_g(x, m.params(), full=None),
                                   pruned[:5])
 
@@ -365,23 +334,17 @@ def test_pruned_dual_matches_jax_partials(host_g):
 
 @pytest.fixture(scope="module")
 def host_marches(tmp_path_factory):
-    d = tmp_path_factory.mktemp("march_pruned_full")
-    libs = (_build(d, "march_pruned", MARCH_SHIM),
-            _build(d, "march_full", MARCH_SHIM, "-DGRT_FULL_TANGENTS"))
+    h = _headers()["kerr_boyer"]
+    libs = [eh.build([h], tmp_path_factory.mktemp(name), flags=flags)
+            for name, flags in (("march_pruned", ()),
+                                ("march_full", ["-DGRT_FULL_TANGENTS"]))]
 
-    def run(so, state, params, features, max_steps):
-        fn = so.grt_host_march_kerr_boyer
-        fn.restype = None
-        fn.argtypes = ([ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8)
-        arrs = [t.numpy().copy() for t in state]
-        fx = np.abs(arrs[1][:, 0]).copy()
-        feats = (ctypes.c_float * 6)(*features)
-        fn(params["rs"], params["a"], feats, len(fx), max_steps,
-           *[a.ctypes.data for a in arrs], fx.ctypes.data)
-        return arrs
+    def run(lib, state, params, features, max_steps):
+        got = eh.host_march(lib[h.struct], h, state, params, features,
+                            integrate.TraceOptions(max_steps=max_steps))
+        return [t.numpy() for t in got]
 
-    return lambda *a: tuple(run(so, *a) for so in libs)
+    return lambda *a: tuple(run(lib, *a) for lib in libs)
 
 
 def test_pruned_march_equals_unpruned_march(host_marches):
@@ -408,16 +371,32 @@ CATALOGUE_B = ("janis_newman_winicour", "schwarzschild_ingoing_ef_hawking",
                "krasnikov_cylindrical", "godel_cylindrical")
 
 
+@functools.lru_cache(maxsize=None)
+def _headers() -> dict:
+    """``{name: Header}``: the emitted dynamic structs this file holds."""
+    names = ("kerr_boyer", *CATALOGUE_B, *CATALOGUE_C_DENSE, *RANK1)
+    return {n: emit.emit_metric(metrics.get_metric(n)) for n in names}
+
+
 @pytest.fixture(scope="module")
 def host_b(tmp_path_factory):
-    """``(pruned, unpruned)`` builds of ``METRIC_SHIM``."""
+    """``(pruned, unpruned)`` builds of ``METRIC_SHIM`` with the emitted
+    structs of ``_headers``."""
     d = tmp_path_factory.mktemp("dual_host_b")
-    libs = (_build(d, "metric_pruned", METRIC_SHIM),
-            _build(d, "metric_full", METRIC_SHIM, "-DGRT_FULL_TANGENTS"))
+    hs = _headers()
+    rank1 = [h for n, h in hs.items() if n in RANK1]
+    dense = [h for n, h in hs.items() if n not in RANK1]
+    src = (METRIC_SHIM.replace("INCLUDES", eh.includes(hs.values(), d))
+           .replace("RANK1_TRYS", eh.dispatch(rank1))
+           .replace("TRYS", eh.dispatch(dense)))
+    libs = (_build(d, "metric_pruned", src),
+            _build(d, "metric_full", src, "-DGRT_FULL_TANGENTS"))
     for so in libs:
-        so.grt_host_metric.restype = ctypes.c_int
-        so.grt_host_metric.argtypes = [ctypes.c_char_p] + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        for fn in (so.grt_host_metric, so.grt_host_metric_values):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_char_p] + [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
         for fn in (so.grt_host_rank1, so.grt_host_pair_op):
             fn.restype = ctypes.c_int
         so.grt_host_rank1.argtypes = [ctypes.c_char_p] + [
@@ -540,13 +519,17 @@ _IDX = ((0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (1, 3), (2, 2),
         (2, 3), (3, 3))
 
 
-def _host_metric(so, name, x):
-    struct, names = raymarch.INSTANCES[name]
-    params = metrics.get_metric(name).params()
-    mp = np.array([params[k] for k in names] + [0.0], np.float32)
-    out = np.zeros((len(x), 50), np.float32)
-    assert so.grt_host_metric(struct.encode(), mp.ctypes.data, len(x),
-                              x.ctypes.data, out.ctypes.data) == 0
+def _host_metric(so, name, x, params=None, values=False):
+    """(n, 50): the emitted struct's 10 entries and their partials by each
+    coordinate at the (n, 4) events ``x`` (``values``: (n, 10), the
+    entries alone from constant duals); ``params``: default the metric's."""
+    h = _headers()[name]
+    params = params or metrics.get_metric(name).params()
+    mp = np.array([params[k] for k in h.params] + [0.0], np.float32)
+    out = np.zeros((len(x), 10 if values else 50), np.float32)
+    fn = so.grt_host_metric_values if values else so.grt_host_metric
+    assert fn(h.struct.encode(), mp.ctypes.data, len(x), x.ctypes.data,
+              out.ctypes.data) == 0
     return out
 
 
@@ -703,15 +686,15 @@ def test_rank1_decomposition_host_matches_torch_jvp(host_b, name):
     pruned equal to unpruned bit for bit, and against ``torch.func.jvp`` of
     the torch decomposition (``geometry.rank1_partials_batched``): rtol 1e-5
     and atol 1e-6 of the largest magnitude of each part."""
-    struct, names = raymarch.INSTANCES[name]
+    h = _headers()[name]
     m = metrics.get_metric(name)
     params = m.params()
     x = _c_events(name)
-    mp = np.array([params[k] for k in names] + [0.0], np.float32)
+    mp = np.array([params[k] for k in h.params] + [0.0], np.float32)
     outs = []
     for so in host_b:
         out = np.zeros((len(x), 16), np.float32)
-        assert so.grt_host_rank1(struct.encode(), mp.ctypes.data, len(x),
+        assert so.grt_host_rank1(h.struct.encode(), mp.ctypes.data, len(x),
                                  x.ctypes.data, out.ctypes.data) == 0
         outs.append(out)
     np.testing.assert_array_equal(*outs)

@@ -1,11 +1,12 @@
 """The emitted structs (``ops/emit.py``) of ``double_kerr`` and
 ``double_kerr_alt`` (complex pairs of coordinates through complex.cuh's dual
-``csqrt``; the heaviest plain marches, in a file of their own): dynamic and
-baked, each built by g++ as host code (``torch_emit_host``) and marched on
-the host test's 64 rays (every 7th born DEAD, 4096 trial iterations) against
-the plain march of its twin parameters by the rule
-``tests/test_torch_raymarch_host.py`` applies to the metric's hand instance,
-and against the hand instance's host march bit for bit.
+``csqrt``; the heaviest plain marches, in a file of their own), which the
+kernel is built with: dynamic and baked, each built by g++ as host code
+(``torch_emit_host``) and marched on the host test's 64 rays (every 7th born
+DEAD, 4096 trial iterations) against the plain march of its twin
+parameters, and the dynamic struct with the float parameters as the kernel
+launches it (``torch_emit_host.builtin_cases``), by the rule of the metric
+(``torch_emit_host.assert_as_host_test``).
 """
 
 import pytest
@@ -25,5 +26,5 @@ def built(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name,mode", eh.builtin_cases(NAMES))
-def test_emitted_builtin_matches_plain_and_hand(built, name, mode):
+def test_emitted_builtin_matches_plain(built, name, mode):
     eh.check_builtin(*built, name, mode)

@@ -9,8 +9,8 @@ JAX package's ``complexify.realify``.  Held as
 ``tests/test_torch_emit_pack_rank1.py`` holds its pack (the 64-ray march and
 the 64x64 frame against JAX's at ``tests/test_torch_content.py``'s
 tolerances), and its emitted structs, dynamic and baked, against the plain
-march by the host test's rule for a hand instance: fates and step counts
-equal on every ray, positions within 1e-4.
+march by the host test's rule for a registered metric outside the Kerr
+family: fates and step counts equal on every ray, positions within 1e-4.
 """
 
 import numpy as np

@@ -103,8 +103,8 @@ def test_failed_static_build_keeps_the_dynamic_program():
 
 def test_kernel_program_without_nvcc_serves_dynamic(monkeypatch, capsys,
                                                    tmp_path):
-    """The kernel program of a metric without a hand struct: the baked
-    header is emitted on the requesting thread, the library's build fails
+    """The kernel program of a pack's metric: the baked header is
+    emitted on the requesting thread, the library's build fails
     on the worker (no nvcc), the failure is kept and the dynamic program
     serves."""
     import test_torch_emit
@@ -152,8 +152,9 @@ def test_baked_instance_refuses_other_parameters(monkeypatch, tmp_path):
     metric launches its own values (a CPU state is then refused)."""
     m = metrics.get_metric("kerr_boyer")
     p = m.params(a=-0.7)
-    inst = raymarch.baked_instance(m, p)
-    assert inst.struct == "KerrBoyer" and inst.baked == (1.0, p["a"])
+    inst = raymarch.emitted_instance(m, p)
+    assert inst.struct.startswith("Emitted_kerr_boyer_")
+    assert inst.baked == (1.0, p["a"])
     assert raymarch.instance_of(bake(m, p)) == inst
     st = integrate.RayState(*(torch.zeros(1) for _ in range(7)))
     feats = integrate.Features.for_metric(m)

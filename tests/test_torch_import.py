@@ -194,9 +194,10 @@ def test_metric_without_kernel_instance_raises():
                                  integrate.Features.for_metric(m),
                                  integrate.TraceOptions(max_steps=8))
     with pytest.raises(NotImplementedError, match="no ray-march kernel"):
-        raymarch.build("kerr_boyer_variant")
+        raymarch.instance_of(other)
     assert raymarch.launches() == before
-    assert set(raymarch.INSTANCES) == set(metrics.list_metrics())
+    for name in metrics.CATALOGUE:
+        raymarch.check_compiled_metric(metrics.get_metric(name))
 
 
 def test_render_frame_refuses_adaptive_sampling():

@@ -317,8 +317,8 @@ def test_metric_and_partials_match_jax(name):
 @pytest.mark.parametrize("name", CATALOGUE_B)
 def test_metric_declarations_match_jax(name):
     """Registered, with a config equal to the JAX package's field by field,
-    the same declarations and parameters, and a kernel instance whose
-    parameter order is the metric's."""
+    the same declarations and parameters, and a kernel instance
+    (``check_compiled_metric`` accepts it)."""
     jm, tm = jmetrics.get_metric(name), tmetrics.get_metric(name)
     assert name in tmetrics.list_metrics()
     assert tm.depends_on == jm.depends_on
@@ -328,7 +328,6 @@ def test_metric_declarations_match_jax(name):
     assert tm.precision_weights() == jm.precision_weights()
     assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
     assert tm.params() == {k: float(v) for k, v in jm.params().items()}
-    assert set(raymarch.INSTANCES[name][1]) <= set(tm.params())
     raymarch.check_compiled_metric(tm)
     g = tm.fn(torch.from_numpy(events(name)), tm.params())
     g = g.reshape(4, 4, -1).abs().amax(dim=-1).numpy()
@@ -337,12 +336,15 @@ def test_metric_declarations_match_jax(name):
 
 
 def test_kernel_instances_left_are_slice_c():
-    """Catalogue slice C is done: all 31 metrics of the JAX registry have a
-    kernel instance, and ``trace_rays_cuda`` raises NotImplementedError for
-    a name outside them, before it looks at the tensors (a stand-in metric
-    of a made-up name), with no fallback to the plain march."""
-    assert len(raymarch.INSTANCES) == 31
-    assert set(raymarch.INSTANCES) == set(jmetrics.REGISTRY)
+    """Catalogue slice C is done: all 31 metrics of the JAX registry are
+    registered, each with a kernel instance (``check_compiled_metric``
+    accepts it), and ``trace_rays_cuda`` raises NotImplementedError for a
+    name outside them, before it looks at the tensors (a stand-in metric of
+    a made-up name), with no fallback to the plain march."""
+    assert len(tmetrics.CATALOGUE) == 31
+    assert set(tmetrics.CATALOGUE) == set(jmetrics.REGISTRY)
+    for name in tmetrics.CATALOGUE:
+        raymarch.check_compiled_metric(tmetrics.get_metric(name))
     state = tint.RayState(*(torch.zeros(1) for _ in range(7)))
     stand_in = tmetrics.get_metric("schwarzschild")
     fake = dataclasses.replace(stand_in, name="schwarzschild_spinless")

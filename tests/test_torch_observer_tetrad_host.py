@@ -36,6 +36,7 @@ from geodesic_raytracing_tpu_torch import camera as cam
 from geodesic_raytracing_tpu_torch import metrics
 from geodesic_raytracing_tpu_torch.ops import emit, raymarch, tetrad
 from geodesic_raytracing_tpu_torch.runtime import hotswap
+import torch_emit_host as eh
 from test_torch_render_data_host import CSRC, LibmMode, rn_metric, same_bits
 
 torch.set_num_threads(1)
@@ -44,8 +45,7 @@ SHIM = r"""
 #include <string.h>
 
 #include "observer.cuh"
-#include "emitted.cuh"
-
+INCLUDES
 namespace {
 
 template <class M>
@@ -69,19 +69,11 @@ extern "C" int grt_host_observer(const char* metric, const float* mparams,
     tetrad_of(grt::M::from_params(mparams), x, gx, gy, gz, speed, es);  \
     return 0;                                                           \
   }
-  TRY(KerrBoyer)
-  TRY(Schwarzschild)
-  TRY(DoubleKerr)
-  TRY(Wormhole)
-  TRY(SchwarzschildIngoingEF)
-  TRY(KerrIngoingEF)
-  TRY(Misner4D)
-  TRY(EMITTED)
-#undef TRY
+TRYS#undef TRY
   return 1;
 }
 
-// The baked build: the struct made from the compile-time values, as
+// The baked build: the baked struct made from the compile-time values, as
 // raymarch.cu's kernels make it.
 extern "C" void grt_host_observer_baked(const float* x, const float* gx,
                                         const float* gy, const float* gz,
@@ -122,8 +114,14 @@ BAKED = ("kerr_boyer", {"rs": 1.0, "a": 0.3})
 
 @pytest.fixture(scope="module")
 def emitted():
-    """The pack metric's emitted header (``ops/emit.py``)."""
-    return emit.emit_metric(rn_metric())
+    """``{name: Header}``: the emitted dynamic structs of the cases'
+    metrics (None: the pack metric's) and, under "baked", the baked struct
+    of ``BAKED`` (``ops/emit.py``)."""
+    out = {name: emit.emit_metric(rn_metric() if name is None
+                                  else metrics.get_metric(name))
+           for case, name, _ in CASES if not case.startswith("baked")}
+    out["baked"] = emit.emit_metric(metrics.get_metric(BAKED[0]), BAKED[1])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -133,13 +131,12 @@ def host_lib(tmp_path_factory, emitted):
         pytest.skip("g++ is not installed: the host build of "
                     "observer.cuh needs it")
     d = tmp_path_factory.mktemp("observer_host")
-    name, params = BAKED
-    inst = raymarch.hand_instance(name)
-    (d / "emitted.cuh").write_text(emitted.text)
-    (d / "baked.h").write_text(raymarch.baked_define(
-        [params[k] for k in inst.params]) + "\n")
-    (d / "shim.cpp").write_text(SHIM.replace("EMITTED", emitted.struct)
-                                .replace("BAKED_STRUCT", inst.struct))
+    baked = emitted["baked"]
+    hs = list(emitted.values())
+    (d / "baked.h").write_text(raymarch.baked_define(baked.baked) + "\n")
+    (d / "shim.cpp").write_text(SHIM.replace("INCLUDES", eh.includes(hs, d))
+                                .replace("TRYS", eh.dispatch(hs))
+                                .replace("BAKED_STRUCT", baked.struct))
     lib = d / "libobserver_host.so"
     # No sincosf: glibc's sinf and cosf, as the libm loops call them.
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-Wall",
@@ -165,10 +162,10 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data
 
 
-def host_tetrad(lib, struct, names, metric, position, params, speed=None):
-    """The host build's tetrad at ``position`` by the struct ``struct``
-    (its parameters ``names`` in its order; None: the baked build), the
-    axes from the same torch calls as the eager path."""
+def host_tetrad(lib, header, metric, position, params, speed=None):
+    """The host build's tetrad at ``position`` by the emitted struct of
+    ``header`` (from the compile-time values where it is baked), the axes
+    from the same torch calls as the eager path."""
     axes = [a.contiguous().numpy()
             for a in cam.generic_axes(metric, position, params)]
     x = position.contiguous().numpy()
@@ -176,11 +173,12 @@ def host_tetrad(lib, struct, names, metric, position, params, speed=None):
     es = np.empty((4, 4), np.float32)
     args = [_ptr(x), *map(_ptr, axes), None if s is None else _ptr(s),
             _ptr(es)]
-    if struct is None:
+    if header.baked is not None:
         lib.grt_host_observer_baked(*args)
     else:
-        mp = np.array([params[k] for k in names] + [0.0], np.float32)
-        assert lib.grt_host_observer(struct.encode(), _ptr(mp), *args) == 0
+        mp = np.array([params[k] for k in header.params] + [0.0], np.float32)
+        assert lib.grt_host_observer(header.struct.encode(), _ptr(mp),
+                                     *args) == 0
     return torch.from_numpy(es)
 
 
@@ -192,7 +190,7 @@ def cell_cameras(seed: int):
              None) for t in turns]
 
 
-# (case, metric, struct or None for the pack, cameras): the cells' three
+# (case, metric or None for the pack, cameras): the cells' three
 # metrics; Kerr also inside its ergosphere (r 0.8: g_tt > 0, so the first
 # pass finds its timelike leg elsewhere than at 0) and off the equator with
 # a frame 3-speed; Schwarzschild with a speed; the two-body metric off the
@@ -205,50 +203,43 @@ def cell_cameras(seed: int):
 SPEED = [-0.3, 0.1, 0.2]
 OFF = [0.0, 5.0, 1.1, 0.4]
 CASES = [
-    ("kerr_boyer", "kerr_boyer", "KerrBoyer",
+    ("kerr_boyer", "kerr_boyer",
      cell_cameras(11) + [([0.0, 0.8, math.pi / 2, 0.3], None),
                          (OFF, SPEED)]),
-    ("schwarzschild", "schwarzschild", "Schwarzschild",
-     cell_cameras(12) + [(OFF, SPEED)]),
-    ("double_kerr", "double_kerr", "DoubleKerr",
+    ("schwarzschild", "schwarzschild", cell_cameras(12) + [(OFF, SPEED)]),
+    ("double_kerr", "double_kerr",
      cell_cameras(13) + [([0.0, 6.0, 0.7, 1.3], SPEED)]),
-    ("wormhole", "wormhole (morris-thorne)", "Wormhole",
+    ("wormhole", "wormhole (morris-thorne)",
      [([0.0, -5.0, 1.2, 0.5], None), ([0.0, -3.0, 2.0, -1.0], SPEED),
       ([0.0, 4.0, 1.0, 2.0], None)]),
     ("schwarzschild_ingoing_ef", "schwarzschild_ingoing_ef",
-     "SchwarzschildIngoingEF", cell_cameras(16) + [(OFF, SPEED)]),
-    ("kerr_ingoing_ef", "kerr_ingoing_ef", "KerrIngoingEF",
-     cell_cameras(17) + [(OFF, SPEED)]),
-    ("misner_4d", "misner_4d", "Misner4D",
+     cell_cameras(16) + [(OFF, SPEED)]),
+    ("kerr_ingoing_ef", "kerr_ingoing_ef", cell_cameras(17) + [(OFF, SPEED)]),
+    ("misner_4d", "misner_4d",
      [([-2.0, 7.0, math.pi / 2, -math.pi / 2 + math.pi * float(t)], None)
       for t in torch.rand(3, generator=torch.Generator().manual_seed(18))]
      + [([-2.0, *OFF[1:]], SPEED)]),
-    ("pack_reissner_nordstrom", None, None, cell_cameras(14) + [(OFF, SPEED)]),
-    ("baked_kerr_boyer", BAKED[0], "baked",
-     cell_cameras(15) + [(OFF, SPEED)]),
+    ("pack_reissner_nordstrom", None, cell_cameras(14) + [(OFF, SPEED)]),
+    ("baked_kerr_boyer", BAKED[0], cell_cameras(15) + [(OFF, SPEED)]),
 ]
 
 
-@pytest.mark.parametrize("case,name,struct,cameras", CASES,
+@pytest.mark.parametrize("case,name,cameras", CASES,
                          ids=[c[0] for c in CASES])
 def test_host_observer_tetrad_matches_eager(host_lib, emitted, case, name,
-                                            struct, cameras):
-    if name is None:
-        m, names, struct = rn_metric(), emitted.params, emitted.struct
-    else:
-        m = metrics.get_metric(name)
-        names = raymarch.INSTANCES[name][1]
+                                            cameras):
+    m = rn_metric() if name is None else metrics.get_metric(name)
     params = m.params()
-    if struct == "baked":
-        m, struct = hotswap.bake(m, BAKED[1]), None
+    header = emitted[name]
+    if case.startswith("baked"):
+        m, header = hotswap.bake(m, BAKED[1]), emitted["baked"]
     for polar, speed in cameras:
         polar = torch.tensor(polar)
         speed = None if speed is None else torch.tensor(speed)
         position = m.from_polar(polar, params)
         with LibmMode(host_lib):
             ref = cam.observer_tetrad_reference(m, position, params, speed)
-            got = host_tetrad(host_lib, struct, names, m, position, params,
-                              speed)
+            got = host_tetrad(host_lib, header, m, position, params, speed)
         assert torch.isfinite(ref).all(), (case, polar)
         assert same_bits(got, ref), (case, polar, got - ref)
 

@@ -2,10 +2,17 @@
 
 ``csrc/march.cuh`` (the step with all its branches, the loop, the typed
 metric entries and their dual partials) is plain C++ when compiled by g++
-(its CUDA qualifier macros are empty).  This test builds it into a temporary
-shared library through a small C shim, loads it with ctypes and runs every
-metric instance and every trace option against the plain torch march: the
-only check of the kernel's arithmetic that runs without a GPU.
+(its CUDA qualifier macros are empty).  The kernel's metric is a struct
+that ``ops/emit.py`` writes from the torch metric; ``torch_emit_host``
+builds such structs with ``SHIM`` below (the march loop over an (N,)-ray
+state) into a temporary shared library, loaded with ctypes, and runs them
+against the plain torch march: the only check of the kernel's arithmetic
+that runs without a GPU.  This file holds the march's own branches
+(``kerr_boyer``'s 64 rays and step budget, a tilted ``schwarzschild``
+set, the Euler and reparameterised steps, the config branches no
+registered metric sets); every registered metric's struct, dynamic,
+baked, 4-D and planar, is held by the ``test_torch_emit_builtins_*``
+files.
 
 Tolerances.  ``kerr_boyer`` (those of ray set (a) in chip_smoke.py): fates
 equal on all 64 rays, step counts on at least 62, escaped positions within
@@ -14,10 +21,7 @@ the last ulp).  The other instances: fates and step counts equal on every
 ray, positions of all rays within 1e-4 (rtol and atol).
 """
 
-import ctypes
 import dataclasses
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -26,46 +30,20 @@ import torch
 
 from chip_smoke import ray_set
 from geodesic_raytracing_tpu_torch import metrics
-from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+from geodesic_raytracing_tpu_torch.ops import emit, integrate
 from test_integrator import make_rays
 
 torch.set_num_threads(1)
 
 CSRC = Path(integrate.__file__).resolve().parents[1] / "csrc"
 
-# The metric structs in the order of the shim's dispatch; the last two are
-# Schwarzschild with a replaced config (the cylindrical terminator at
-# r < 3, and no blow-up test), which no ported metric sets.
-STRUCTS = [raymarch.INSTANCES[n][0] for n in sorted(raymarch.INSTANCES)]
-STRUCTS += ["CylindricalSchwarzschild", "NonsingularSchwarzschild"]
-
+# The march loop of the host build: every ray of an (N,)-ray state in index
+# order through ``march_ray`` with a metric struct (an emitted header comes
+# in before it) and the step options of the arguments.
 SHIM = r"""
-#include <string.h>
-
 #include "march.cuh"
 
 namespace {
-
-struct CylindricalSchwarzschild : grt::Schwarzschild {
-  static constexpr const char* name = "cylindrical";
-  static constexpr bool has_cylindrical_singularity = true;
-  static constexpr float cylindrical_terminator = 3.0f;
-  static CylindricalSchwarzschild from_params(const float* p) {
-    CylindricalSchwarzschild m;
-    m.rs = p[0];
-    return m;
-  }
-};
-
-struct NonsingularSchwarzschild : grt::Schwarzschild {
-  static constexpr const char* name = "nonsingular";
-  static constexpr bool unconditionally_nonsingular = true;
-  static NonsingularSchwarzschild from_params(const float* p) {
-    NonsingularSchwarzschild m;
-    m.rs = p[0];
-    return m;
-  }
-};
 
 struct Arrays {
   float *pos, *vel, *acc, *next_ds, *rdl;
@@ -115,130 +93,40 @@ void march_options(const float* mparams, const grt::Features& f, int planar,
 }
 
 }  // namespace
-
-// Every instance: `metric` is the struct's name, `feats` the 8 floats of
-// grt::Features.  Returns 0, or 1 for an unknown struct.
-extern "C" int grt_host_march(const char* metric, const float* mparams,
-                              const float* feats, int planar, int euler,
-                              int reparam, int n, int max_steps, float* pos,
-                              float* vel, float* acc, float* next_ds,
-                              float* rdl, int* status, int* steps,
-                              const float* f_in_x) {
-  const Arrays a{pos, vel, acc, next_ds, rdl, status, steps, f_in_x};
-  const grt::Features f = grt::features_from(feats);
-#define TRY(M, NAME)                                                      \
-  if (strcmp(metric, NAME) == 0) {                                        \
-    march_options<M>(mparams, f, planar, euler, reparam, n, max_steps, a); \
-    return 0;                                                             \
-  }
-  TRY(grt::KerrBoyer, "KerrBoyer")
-  TRY(grt::Schwarzschild, "Schwarzschild")
-  TRY(grt::SchwarzschildFast, "SchwarzschildFast")
-  TRY(grt::SchwarzschildSkewed, "SchwarzschildSkewed")
-  TRY(grt::SchwarzschildIngoingEF, "SchwarzschildIngoingEF")
-  TRY(grt::DeSitter, "DeSitter")
-  TRY(grt::Minkowski, "Minkowski")
-  TRY(grt::MinkowskiSkew, "MinkowskiSkew")
-  TRY(grt::Wormhole, "Wormhole")
-  TRY(grt::BlackHoleCosmicString, "BlackHoleCosmicString")
-  TRY(grt::Ernst, "Ernst")
-  TRY(grt::KerrNewmanBoyer, "KerrNewmanBoyer")
-  TRY(grt::KerrIngoingEF, "KerrIngoingEF")
-  TRY(grt::KerrRationalPolynomial, "KerrRationalPolynomial")
-  TRY(grt::Misner4D, "Misner4D")
-  TRY(grt::CosmicStringSpinning, "CosmicStringSpinning")
-  TRY(grt::JanisNewmanWinicour, "JanisNewmanWinicour")
-  TRY(grt::SchwarzschildIngoingEFHawking, "SchwarzschildIngoingEFHawking")
-  TRY(grt::ConfigurableWormhole, "ConfigurableWormhole")
-  TRY(grt::EllisDrainhole, "EllisDrainhole")
-  TRY(grt::SymmetricWarpDrive, "SymmetricWarpDrive")
-  TRY(grt::Alcubierre, "Alcubierre")
-  TRY(grt::KrasnikovTube, "KrasnikovTube")
-  TRY(grt::KrasnikovCylindrical, "KrasnikovCylindrical")
-  TRY(grt::GodelCylindrical, "GodelCylindrical")
-  TRY(grt::KerrSchild, "KerrSchild")
-  TRY(grt::KerrNewmanSchild, "KerrNewmanSchild")
-  TRY(grt::DoubleSchwarzschild, "DoubleSchwarzschild")
-  TRY(grt::DoubleKerr, "DoubleKerr")
-  TRY(grt::DoubleKerrAlt, "DoubleKerrAlt")
-  TRY(grt::DoubleUnequalKerr, "DoubleUnequalKerr")
-  TRY(CylindricalSchwarzschild, "CylindricalSchwarzschild")
-  TRY(NonsingularSchwarzschild, "NonsingularSchwarzschild")
-#undef TRY
-  return 1;
-}
-
-// The kerr_boyer instance of the default options alone (the six reference
-// Features; the adaptive Verlet step reads no schedule constant).
-extern "C" void grt_host_march_kerr_boyer(
-    float rs, float a, const float* feats, int n, int max_steps, float* pos,
-    float* vel, float* acc, float* next_ds, float* rdl, int* status,
-    int* steps, const float* f_in_x) {
-  const grt::KerrBoyer m{{}, {}, rs, a};
-  const grt::Features f{feats[0], feats[1], feats[2], feats[3],
-                        feats[4], feats[5], 0.0f,     0.0f};
-  march_all<grt::DefaultOptions>(
-      m, f, n, max_steps,
-      Arrays{pos, vel, acc, next_ds, rdl, status, steps, f_in_x});
-}
 """
 
+# Schwarzschild with a replaced config: the cylindrical terminator at r < 3,
+# and no blow-up test, which no registered metric's config sets.
+REPLACED = {
+    "cylindrical": dict(has_cylindrical_singularity=True,
+                        cylindrical_terminator=3.0),
+    "nonsingular": dict(unconditionally_nonsingular=True),
+}
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the host build of march.cuh "
-                    "needs it")
-    d = tmp_path_factory.mktemp("march_host")
-    (d / "shim.cpp").write_text(SHIM)
-    lib = d / "libmarch_host.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-Wall",
-                    "-Werror", "-shared", "-fPIC", "-I", str(CSRC),
-                    str(d / "shim.cpp"), "-o", str(lib)], check=True,
-                   capture_output=True, timeout=600)
-    return ctypes.CDLL(str(lib))
+
+def replaced(key):
+    base = metrics.get_metric("schwarzschild")
+    return dataclasses.replace(base, config=dataclasses.replace(
+        base.config, **REPLACED[key]))
 
 
 @pytest.fixture(scope="module")
-def host_march(host_lib):
-    fn = host_lib.grt_host_march_kerr_boyer
-    fn.restype = None
-    fn.argtypes = ([ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8)
+def host_march(tmp_path_factory):
+    """``run(key, state, params, features, opts)``: the host march of the
+    emitted dynamic struct of ``kerr_boyer``, ``schwarzschild`` or a
+    ``REPLACED`` config of it, with any trace option."""
+    import torch_emit_host as eh
 
-    def run(metric, state, params, features, max_steps):
-        arrs = [t.numpy().copy() for t in state]
-        fx = np.abs(arrs[1][:, 0]).copy()
-        feats = (ctypes.c_float * 6)(*features)
-        fn(params["rs"], params["a"], feats, len(fx), max_steps,
-           *[a.ctypes.data for a in arrs], fx.ctypes.data)
-        return integrate.RayState(*(torch.from_numpy(a) for a in arrs))
+    ms = {n: metrics.get_metric(n) for n in ("kerr_boyer", "schwarzschild")}
+    ms.update((k, replaced(k)) for k in REPLACED)
+    headers = {k: emit.emit_metric(m) for k, m in ms.items()}
+    lib = eh.build(list(headers.values()),
+                   tmp_path_factory.mktemp("march_host"),
+                   every_option=[h.struct for h in headers.values()])
 
-    return run
-
-
-@pytest.fixture(scope="module")
-def host_march_any(host_lib):
-    """``run(struct, metric, state, params, features, opts)``: the host
-    march of any instance and trace option."""
-    fn = host_lib.grt_host_march
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8)
-
-    def run(struct, param_names, state, params, features, opts):
-        arrs = [t.numpy().copy() for t in state]
-        fx = np.abs(arrs[1][:, 0]).copy()
-        feats = np.array([*features, *integrate.schedule_constants(features)],
-                         np.float32)
-        mp = np.array([params[k] for k in param_names] + [0.0], np.float32)
-        rc = fn(struct.encode(), mp.ctypes.data, feats.ctypes.data,
-                int(opts.planar), int(opts.integrator == "euler"),
-                int(opts.reparameterisation), len(fx), opts.max_steps,
-                *[a.ctypes.data for a in arrs], fx.ctypes.data)
-        assert rc == 0, struct
-        return integrate.RayState(*(torch.from_numpy(a) for a in arrs))
+    def run(key, state, params, features, opts):
+        h = headers[key]
+        return eh.host_march(lib[h.struct], h, state, params, features, opts)
 
     return run
 
@@ -251,9 +139,9 @@ def test_host_march_matches_plain_torch(host_march):
     st = integrate.init_ray_state(m, torch.from_numpy(pos),
                                   torch.from_numpy(vel), params, feats)
     st.status[::7] = integrate.DEAD
-    host = host_march(m, st, params, feats, 4096)
-    ref = integrate.trace_rays_reference(
-        m, st, params, feats, integrate.TraceOptions(max_steps=4096))
+    opts = integrate.TraceOptions(max_steps=4096)
+    host = host_march("kerr_boyer", st, params, feats, opts)
+    ref = integrate.trace_rays_reference(m, st, params, feats, opts)
 
     np.testing.assert_array_equal(host.status.numpy(), ref.status.numpy())
     steps_eq = host.steps.numpy() == ref.steps.numpy()
@@ -275,9 +163,9 @@ def test_host_march_step_budget(host_march):
     pos, vel = (np.asarray(a) for a in make_rays(16))
     st = integrate.init_ray_state(m, torch.from_numpy(pos),
                                   torch.from_numpy(vel), params, feats)
-    host = host_march(m, st, params, feats, 5)
-    ref = integrate.trace_rays_reference(
-        m, st, params, feats, integrate.TraceOptions(max_steps=5))
+    opts = integrate.TraceOptions(max_steps=5)
+    host = host_march("kerr_boyer", st, params, feats, opts)
+    ref = integrate.trace_rays_reference(m, st, params, feats, opts)
     np.testing.assert_array_equal(host.status.numpy(), ref.status.numpy())
     np.testing.assert_array_equal(host.steps.numpy(), ref.steps.numpy())
     assert (host.steps.numpy() <= 5).all()
@@ -311,13 +199,10 @@ def _assert_same_march(host, ref, min_escaped, dead_velocity_rtol=1e-4):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
 
 
-# The Kerr family is held as kerr_boyer is (test_host_kerr_family below).
+# The Kerr family is held as kerr_boyer is
+# (torch_emit_host.assert_kerr_family).
 KERR_FAMILY = ("kerr_boyer", "kerr_newman_boyer", "kerr_ingoing_ef",
                "kerr_rational_polynomial", "kerr_schild", "kerr_newman_schild")
-INSTANCE_CASES = [(n, False) for n in sorted(raymarch.INSTANCES)
-                  if n not in KERR_FAMILY]
-INSTANCE_CASES += [(n, True) for n in sorted(raymarch.INSTANCES)
-                   if metrics.get_metric(n).spherically_symmetric]
 
 
 # Metrics whose rays the blow-up test stops at a horizon, where |v^t| has
@@ -358,79 +243,7 @@ def _assert_same_march_tanh_wall(host, ref, m, st, params, feats, opts):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("name,planar", INSTANCE_CASES)
-def test_host_instance_matches_plain_torch(host_march_any, name, planar):
-    """Every kernel instance but kerr_boyer's (above), 4-D, and in planar
-    mode where the metric is spherically symmetric: 64 rays, every 7th born
-    DEAD, against the plain torch march (the ``TANH_WALL`` metrics by
-    ``_assert_same_march_tanh_wall``)."""
-    m = metrics.get_metric(name)
-    params = m.params()
-    feats = integrate.Features.for_metric(m)
-    struct, names = raymarch.INSTANCES[name]
-    st = integrate.init_ray_state(m, *generic_rays(m, params), params, feats)
-    st.status[::7] = integrate.DEAD
-    opts = integrate.TraceOptions(max_steps=4096, planar=planar)
-    host = host_march_any(struct, names, st, params, feats, opts)
-    ref = integrate.trace_rays_reference(m, st, params, feats, opts)
-    if name in TANH_WALL:
-        _assert_same_march_tanh_wall(host, ref, m, st, params, feats, opts)
-    else:
-        _assert_same_march(host, ref, 16, BLOW_UP_DEAD_VELOCITY_RTOL.get(
-            name, 1e-4))
-    if name == "godel_cylindrical":
-        # The rays launched next to the axis and aimed at it die at the
-        # cylindrical terminator.
-        axis = ray_set(name, 64)[0][:, 1] < 0.1
-        dead = host.status.numpy() == integrate.DEAD
-        assert (dead[axis][1:]).all()
-        assert (host.position.numpy()[axis][1:, 1] < 0.005).all()
-    # Rays born DEAD are untouched.
-    for a, b in zip(host, st):
-        np.testing.assert_array_equal(a.numpy()[::7], b.numpy()[::7])
-
-
-@pytest.mark.parametrize("name", KERR_FAMILY[1:])
-def test_host_kerr_family_matches_plain_torch(host_march_any, name):
-    """The other Kerr-family instances as kerr_boyer's above: 64 rays in the
-    metric's chart, every 7th born DEAD; fates equal on all, step counts on
-    at least 62, escaped positions within 1e-4 where the step counts agree
-    (libm's sin/cos and torch's may differ in the last ulp, and torch's CPU
-    sqrt is not correctly rounded: it differs from IEEE sqrt on about 0.7%
-    of float32 inputs), except on a ray that takes more than 1.5 times the
-    median step count of the escaped rays: it lingered near the photon
-    sphere, where the last ulp grows by about a bit a step
-    (kerr_newman_boyer's boundary ray, 884 steps against a median of 480,
-    ends 7.2e-3 apart; kerr_newman_schild's ray of 1,726 steps against a
-    median of 840, 0.025).  The Kerr-Schild instances (the rank-1
-    acceleration) are held so too: their chain takes two square roots.  On
-    the card every instance equals the plain march bit for bit
-    (chip_smoke.py phase 14)."""
-    m = metrics.get_metric(name)
-    params = m.params()
-    feats = integrate.Features.for_metric(m)
-    struct, names = raymarch.INSTANCES[name]
-    st = integrate.init_ray_state(m, *generic_rays(m, params), params, feats)
-    st.status[::7] = integrate.DEAD
-    opts = integrate.TraceOptions(max_steps=4096)
-    host = host_march_any(struct, names, st, params, feats, opts)
-    ref = integrate.trace_rays_reference(m, st, params, feats, opts)
-    np.testing.assert_array_equal(host.status.numpy(), ref.status.numpy())
-    steps_eq = host.steps.numpy() == ref.steps.numpy()
-    assert steps_eq.sum() >= 62, steps_eq.sum()
-    escaped = ref.status.numpy() == integrate.ESCAPED
-    steps = ref.steps.numpy()
-    long_ = escaped & (steps > 1.5 * np.median(steps[escaped]))
-    ok = escaped & steps_eq & ~long_
-    assert ok.sum() >= 16 and long_.sum() <= 8, (ok.sum(), long_.sum())
-    np.testing.assert_allclose(host.position.numpy()[ok],
-                               ref.position.numpy()[ok], rtol=1e-4,
-                               atol=1e-4)
-    for a, b in zip(host, st):
-        np.testing.assert_array_equal(a.numpy()[::7], b.numpy()[::7])
-
-
-def test_host_instance_off_the_equator(host_march_any):
+def test_host_instance_off_the_equator(host_march):
     """The 4-D schwarzschild instance on rays with a theta velocity: the
     theta tangent and both trigonometric values are live (fates equal on
     all 32 rays, step counts on at least 30, as for kerr_boyer)."""
@@ -440,7 +253,7 @@ def test_host_instance_off_the_equator(host_march_any):
     st = integrate.init_ray_state(m, *generic_rays(m, params, 32, tilt=0.03),
                                   params, feats)
     opts = integrate.TraceOptions(max_steps=4096)
-    host = host_march_any("Schwarzschild", ("rs",), st, params, feats, opts)
+    host = host_march("schwarzschild", st, params, feats, opts)
     ref = integrate.trace_rays_reference(m, st, params, feats, opts)
     np.testing.assert_array_equal(host.status.numpy(), ref.status.numpy())
     steps_eq = host.steps.numpy() == ref.steps.numpy()
@@ -456,7 +269,7 @@ def test_host_instance_off_the_equator(host_march_any):
 @pytest.mark.parametrize("planar", [False, True])
 @pytest.mark.parametrize("option", [dict(integrator="euler"),
                                     dict(reparameterisation=True)])
-def test_host_step_options_match_plain_torch(host_march_any, option, planar):
+def test_host_step_options_match_plain_torch(host_march, option, planar):
     """The Euler integrator and Verlet with affine reparameterisation on
     schwarzschild, 4-D and planar."""
     m = metrics.get_metric("schwarzschild")
@@ -464,34 +277,30 @@ def test_host_step_options_match_plain_torch(host_march_any, option, planar):
     feats = integrate.Features.for_metric(m)
     st = integrate.init_ray_state(m, *generic_rays(m, params), params, feats)
     opts = integrate.TraceOptions(max_steps=2048, planar=planar, **option)
-    host = host_march_any("Schwarzschild", ("rs",), st, params, feats, opts)
+    host = host_march("schwarzschild", st, params, feats, opts)
     ref = integrate.trace_rays_reference(m, st, params, feats, opts)
     _assert_same_march(host, ref, 16)
     if option.get("reparameterisation"):
         assert (ref.running_dlambda_dnew.numpy() != 1.0).any()
 
 
-@pytest.mark.parametrize("struct,override", [
-    ("CylindricalSchwarzschild", dict(has_cylindrical_singularity=True,
-                                      cylindrical_terminator=3.0)),
-    ("NonsingularSchwarzschild", dict(unconditionally_nonsingular=True)),
-])
-def test_host_replaced_config_branches(host_march_any, struct, override):
+@pytest.mark.parametrize("key", sorted(REPLACED))
+def test_host_replaced_config_branches(host_march, key):
     """The cylindrical terminator and ``unconditionally_nonsingular``, which
-    no ported metric's config sets: schwarzschild with a replaced config
-    against the same struct with the same flag."""
+    no registered metric's config sets: the struct emitted from
+    schwarzschild with a replaced config against the plain march of that
+    metric."""
     base = metrics.get_metric("schwarzschild")
-    m = dataclasses.replace(base, config=dataclasses.replace(base.config,
-                                                             **override))
+    m = replaced(key)
     params = m.params()
     feats = integrate.Features.for_metric(m)
     st = integrate.init_ray_state(m, *generic_rays(m, params), params, feats)
     opts = integrate.TraceOptions(max_steps=2048)
-    host = host_march_any(struct, ("rs",), st, params, feats, opts)
+    host = host_march(key, st, params, feats, opts)
     ref = integrate.trace_rays_reference(m, st, params, feats, opts)
     _assert_same_march(host, ref, 16)
     plain = integrate.trace_rays_reference(base, st, params, feats, opts)
-    if "has_cylindrical_singularity" in override:
+    if key == "cylindrical":
         # Rays that the plain config lets fall further die at r < 3.
         dead = ref.status.numpy() == integrate.DEAD
         assert dead.any() and (ref.steps.numpy()[dead]

@@ -168,12 +168,18 @@ def test_render_data_work_counts_each_array_once(name, planar, extra):
 
 
 def test_metric_of_the_kernel_is_registered():
-    """Every kernel instance belongs to a registered metric and takes that
+    """Every metric of the catalogue is registered and emits its kernel
+    struct, which ``check_compiled_metric`` accepts and which takes the
     metric's parameters, all of them, in the order of its C++ struct."""
-    assert set(raymarch.INSTANCES) == set(metrics.REGISTRY)
-    for name, (struct, param_names) in raymarch.INSTANCES.items():
-        assert set(param_names) == set(metrics.get_metric(name).defaults)
-        assert struct.isidentifier()
+    assert len(metrics.CATALOGUE) == 31
+    for name in metrics.CATALOGUE:
+        m = metrics.REGISTRY[name]
+        raymarch.check_compiled_metric(m)
+        inst = raymarch.instance_of(m)
+        assert inst.label == inst.metric == name and inst.baked is None
+        assert inst.params == tuple(m.defaults)
+        assert inst.struct.isidentifier()
+        assert f"struct {inst.struct} {{" in inst.header
 
 
 def test_smoke_counts_every_instance_it_marches():
@@ -181,14 +187,14 @@ def test_smoke_counts_every_instance_it_marches():
     own operations per trial iteration: each metric has its 4-D count, and a
     planar one where the pipeline traces it planar; phase 26 drives the
     catalogue slices, which are the instances but for the eight of PRs 1-4."""
-    for name in raymarch.INSTANCES:
+    for name in metrics.CATALOGUE:
         assert chip_smoke.OPS_BY_INSTANCE[name, False] > 0
         if metrics.get_metric(name).spherically_symmetric:
             assert chip_smoke.OPS_BY_INSTANCE[name, True] > 0
     first = {"kerr_boyer", "schwarzschild", "schwarzschild_fast",
              "schwarzschild_skewed", "schwarzschild_ingoing_ef", "de_sitter",
              "minkowski", "minkowski_skew"}
-    assert set(chip_smoke.CATALOGUES) == set(raymarch.INSTANCES) - first
+    assert set(chip_smoke.CATALOGUES) == set(metrics.CATALOGUE) - first
     assert len(chip_smoke.CATALOGUES) == len(set(chip_smoke.CATALOGUES)) == 23
 
 

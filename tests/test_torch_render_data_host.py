@@ -36,8 +36,9 @@ from torch.overrides import TorchFunctionMode
 
 from geodesic_raytracing_tpu_torch import content, metrics
 from geodesic_raytracing_tpu_torch.camera import Camera
-from geodesic_raytracing_tpu_torch.ops import emit, integrate, raymarch
+from geodesic_raytracing_tpu_torch.ops import emit, integrate
 from geodesic_raytracing_tpu_torch.render import pipeline as pl
+import torch_emit_host as eh
 
 torch.set_num_threads(1)
 
@@ -49,8 +50,7 @@ SHIM = r"""
 #include <string.h>
 
 #include "render_data.cuh"
-#include "emitted.cuh"
-
+INCLUDES
 namespace {
 
 struct Arrays {
@@ -111,16 +111,7 @@ extern "C" int grt_host_render_data(
     render_all<grt::M>(mparams, c, n, a);       \
     return 0;                                   \
   }
-  TRY(KerrBoyer)
-  TRY(Schwarzschild)
-  TRY(SchwarzschildFast)
-  TRY(SchwarzschildSkewed)
-  TRY(Minkowski)
-  TRY(KerrSchild)
-  TRY(SchwarzschildIngoingEF)
-  TRY(DoubleKerr)
-  TRY(EMITTED)
-#undef TRY
+TRYS#undef TRY
   return 1;
 }
 
@@ -147,8 +138,11 @@ def rn_metric():
 
 @pytest.fixture(scope="module")
 def emitted():
-    """The pack metric's emitted header (``ops/emit.py``)."""
-    return emit.emit_metric(rn_metric())
+    """``{name: Header}``: the emitted structs of the cases' metrics (None:
+    the pack metric's; ``ops/emit.py``)."""
+    return {name: emit.emit_metric(rn_metric() if name is None
+                                   else metrics.get_metric(name))
+            for name in dict.fromkeys(c[1] for c in CASES)}
 
 
 @pytest.fixture(scope="module")
@@ -158,8 +152,9 @@ def host_lib(tmp_path_factory, emitted):
         pytest.skip("g++ is not installed: the host build of "
                     "render_data.cuh needs it")
     d = tmp_path_factory.mktemp("render_data_host")
-    (d / "emitted.cuh").write_text(emitted.text)
-    (d / "shim.cpp").write_text(SHIM.replace("EMITTED", emitted.struct))
+    hs = list(emitted.values())
+    (d / "shim.cpp").write_text(SHIM.replace("INCLUDES", eh.includes(hs, d))
+                                .replace("TRYS", eh.dispatch(hs)))
     lib = d / "librender_data_host.so"
     # No sincosf: glibc's sinf and cosf, as the libm loops call them.
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-Wall",
@@ -211,11 +206,11 @@ class LibmMode(TorchFunctionMode):
         return torch.from_numpy(out)
 
 
-def host_render(lib, struct, names, metric, state, ku, params, features,
+def host_render(lib, header, metric, state, ku, params, features,
                 inv_quat=None):
-    """The host build's render data of ``state`` by the struct ``struct``
-    (its parameters ``names`` in its order; the polar position and velocity
-    from the same torch calls as the eager path), as a ``RenderData``."""
+    """The host build's render data of ``state`` by the emitted struct of
+    ``header`` (the polar position and velocity from the same torch calls
+    as the eager path), as a ``RenderData``."""
     pos, vel = state.position.T, state.velocity.T
     polar = metric.to_polar(pos, params).contiguous().numpy()
     polar_vel = metric.to_polar_velocity(pos, vel, params).contiguous()
@@ -224,7 +219,7 @@ def host_render(lib, struct, names, metric, state, ku, params, features,
     cfg = metric.config
     u, t = float(features.universe_size), float(cfg.singular_terminator)
     consts = np.array([u * u, t * t, 0.5 * (u + t)], np.float32)
-    mp = np.array([params[k] for k in names] + [0.0], np.float32)
+    mp = np.array([params[k] for k in header.params] + [0.0], np.float32)
     ins = [state.position.contiguous().numpy(),
            state.velocity.contiguous().numpy(),
            state.running_dlambda_dnew.contiguous().numpy(),
@@ -235,11 +230,11 @@ def host_render(lib, struct, names, metric, state, ku, params, features,
             np.empty(n, np.int32), np.empty(n, np.int32),
             np.empty((n, 2), np.float32)]
     rc = lib.grt_host_render_data(
-        struct.encode(), mp.ctypes.data, consts.ctypes.data,
+        header.struct.encode(), mp.ctypes.data, consts.ctypes.data,
         int(cfg.singular), int(cfg.traversable_event_horizon), n,
         *[a.ctypes.data for a in ins], None if quat is None else
         quat.ctypes.data, *[o.ctypes.data for o in outs])
-    assert rc == 0, struct
+    assert rc == 0, header.struct
     return pl.RenderData(*(torch.from_numpy(o) for o in outs),
                          steps=state.steps)
 
@@ -295,43 +290,36 @@ def _traversable(m):
     return dataclasses.replace(m, config=cfg)
 
 
-# (case, metric, struct, planar): 4-D Kerr; planar Schwarzschild with its
-# quaternions; a singular metric without a traversable horizon (planar and
-# 4-D) and with one (the same struct: the branch is the config's); flat
-# space's constant metric in a cartesian chart; charts whose to_polar is
-# not the identity; the rank-1 Kerr-Schild struct; a null coordinate (no
-# g_rr) with a traversable horizon; an emitted pack struct; the cylindrical
-# chart of the complex-pair two-body metric, whose g_{t phi} puts the frame
-# basis' Gram-Schmidt through an off-diagonal entry (its eager march costs
-# ~36 ms a step on one core, so its endpoints march 32 steps).
+# (case, metric or None for the pack, planar): 4-D Kerr; planar
+# Schwarzschild with its quaternions; a singular metric without a traversable
+# horizon (planar and 4-D) and with one (the same struct: the branch is the
+# config's); flat space's constant metric in a cartesian chart; charts whose
+# to_polar is not the identity; the rank-1 Kerr-Schild struct; a null
+# coordinate (no g_rr) with a traversable horizon; the pack's struct; the
+# cylindrical chart of the complex-pair two-body metric, whose g_{t phi}
+# puts the frame basis' Gram-Schmidt through an off-diagonal entry (its
+# eager march costs ~36 ms a step on one core, so its endpoints march 32
+# steps).
 CASES = [
-    ("kerr_boyer", "kerr_boyer", "KerrBoyer", True),
-    ("schwarzschild_planar", "schwarzschild", "Schwarzschild", True),
-    ("schwarzschild_fast_planar", "schwarzschild_fast", "SchwarzschildFast",
-     True),
-    ("schwarzschild_fast_4d", "schwarzschild_fast", "SchwarzschildFast",
-     False),
-    ("schwarzschild_fast_traversable", "schwarzschild_fast",
-     "SchwarzschildFast", True),
-    ("minkowski", "minkowski", "Minkowski", True),
-    ("schwarzschild_skewed", "schwarzschild_skewed", "SchwarzschildSkewed",
-     True),
-    ("kerr_schild", "kerr_schild", "KerrSchild", True),
-    ("schwarzschild_ingoing_ef", "schwarzschild_ingoing_ef",
-     "SchwarzschildIngoingEF", True),
-    ("pack_reissner_nordstrom", None, None, True),
-    ("double_kerr", "double_kerr", "DoubleKerr", True),
+    ("kerr_boyer", "kerr_boyer", True),
+    ("schwarzschild_planar", "schwarzschild", True),
+    ("schwarzschild_fast_planar", "schwarzschild_fast", True),
+    ("schwarzschild_fast_4d", "schwarzschild_fast", False),
+    ("schwarzschild_fast_traversable", "schwarzschild_fast", True),
+    ("minkowski", "minkowski", True),
+    ("schwarzschild_skewed", "schwarzschild_skewed", True),
+    ("kerr_schild", "kerr_schild", True),
+    ("schwarzschild_ingoing_ef", "schwarzschild_ingoing_ef", True),
+    ("pack_reissner_nordstrom", None, True),
+    ("double_kerr", "double_kerr", True),
 ]
 MARCH_STEPS = {"double_kerr": 32}
 
 
-@pytest.mark.parametrize("case,name,struct,planar", CASES,
-                         ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("case,name,planar", CASES, ids=[c[0] for c in CASES])
 def test_host_render_data_matches_eager(host_lib, emitted, case, name,
-                                        struct, planar):
+                                        planar):
     m = rn_metric() if name is None else metrics.get_metric(name)
-    names = emitted.params if name is None else raymarch.INSTANCES[name][1]
-    struct = struct or emitted.struct
     if case.endswith("traversable"):
         m = _traversable(m)
     params = m.params()
@@ -342,7 +330,7 @@ def test_host_render_data_matches_eager(host_lib, emitted, case, name,
     with LibmMode(host_lib):
         ref = pl.compute_render_data_reference(m, state, ku, params,
                                                features, inv_quat=iquat)
-        got = host_render(host_lib, struct, names, m, state, ku, params,
+        got = host_render(host_lib, emitted[name], m, state, ku, params,
                           features, iquat)
     for field in ("z_shift", "side", "terminated", "angles", "steps"):
         assert same_bits(getattr(got, field), getattr(ref, field)), field

@@ -11,20 +11,17 @@ trace_rays_recorded_cuda`` drives the card.
   within 1e-3 (the rule holds escaped positions; a ray falling into the
   hole amplifies a last-ulp difference); the other final fields of the
   rays that did not die within 1e-3.
-* The kernel compiled as host code by g++ (``csrc/march.cuh``, as
-  tests/test_torch_raymarch_host.py builds it), launched once per slot with
-  a budget of ``steps_per_slot`` trial iterations and the launch state's
-  |v^t|, against the plain recorded march: fates, step counts and slot
+* The kernel compiled as host code by g++ (``csrc/march.cuh`` with the
+  metric's emitted struct, as tests/torch_emit_host.py builds it), launched
+  once per slot with a budget of ``steps_per_slot`` trial iterations and
+  the launch state's |v^t|, against the plain recorded march: fates, step counts and slot
   positions as the host tests hold the instances (equal fates and steps,
   positions within 1e-4).
 * The slot launches raise on CPU tensors: the card's path has no fallback.
 """
 
-import ctypes
 import dataclasses
 import math
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -38,62 +35,13 @@ from geodesic_raytracing_tpu.ops import integrate as jintegrate
 from geodesic_raytracing_tpu.render import pipeline as jpl
 from geodesic_raytracing_tpu_torch import carry
 from geodesic_raytracing_tpu_torch import metrics as tmetrics
-from geodesic_raytracing_tpu_torch.ops import integrate, raymarch
+from geodesic_raytracing_tpu_torch.ops import emit, integrate, raymarch
+import torch_emit_host as eh
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 DEAD_TOL = dict(rtol=1e-3, atol=1e-3)
-
-CSRC = raymarch.CSRC
-
-SHIM = r"""
-#include "march.cuh"
-
-// One kernel instance of the default trace options marched over every ray
-// in index order, from the (N, 4) / (N,) arrays of a RayState, with the
-// given budget of trial iterations a ray (one slot) and blow-up baseline.
-template <class M>
-static void march(const float* mparams, const float* feats, int n,
-                  int max_steps, float* pos, float* vel, float* acc,
-                  float* next_ds, float* rdl, int* status, int* steps,
-                  const float* f_in_x) {
-  const M m = M::from_params(mparams);
-  const grt::Features f = grt::features_from(feats);
-  for (int i = 0; i < n; ++i) {
-    if (status[i] != grt::ACTIVE) continue;
-    grt::Ray s;
-    for (int c = 0; c < 4; ++c) {
-      s.pos[c] = pos[4 * i + c];
-      s.vel[c] = vel[4 * i + c];
-      s.acc[c] = acc[4 * i + c];
-    }
-    s.next_ds = next_ds[i];
-    s.rdl = rdl[i];
-    s.status = status[i];
-    s.steps = steps[i];
-    grt::march_ray<grt::DefaultOptions>(m, f, f_in_x[i], max_steps, s);
-    for (int c = 0; c < 4; ++c) {
-      pos[4 * i + c] = s.pos[c];
-      vel[4 * i + c] = s.vel[c];
-      acc[4 * i + c] = s.acc[c];
-    }
-    next_ds[i] = s.next_ds;
-    rdl[i] = s.rdl;
-    status[i] = s.status;
-    steps[i] = s.steps;
-  }
-}
-
-#define ENTRY(M)                                                          \
-  extern "C" void slot_##M(const float* p, const float* f, int n, int ms, \
-                           float* a, float* b, float* c, float* d,        \
-                           float* e, int* g, int* h, const float* x) {    \
-    march<grt::M>(p, f, n, ms, a, b, c, d, e, g, h, x);                   \
-  }
-ENTRY(Schwarzschild)
-ENTRY(Minkowski)
-"""
 
 
 def _jax_camera_rays(name, size, pitch=-math.pi / 2):
@@ -219,40 +167,25 @@ def test_plain_recorded_march_is_a_scan_of_slots(recorded):
 
 @pytest.fixture(scope="module")
 def slot_lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ is not installed: the host build of march.cuh "
-                    "needs it")
-    d = tmp_path_factory.mktemp("slots_host")
-    (d / "shim.cpp").write_text(SHIM)
-    lib = d / "libslots_host.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-Wall",
-                    "-Werror", "-shared", "-fPIC", "-I", str(CSRC),
-                    str(d / "shim.cpp"), "-o", str(lib)], check=True,
-                   capture_output=True, timeout=600)
-    return ctypes.CDLL(str(lib))
+    """``{metric name: (Header, entry point)}``: the emitted structs of the
+    metrics marched here, built for the host (``torch_emit_host``)."""
+    hs = {n: emit.emit_metric(tmetrics.get_metric(n))
+          for n in ("schwarzschild", "minkowski")}
+    lib = eh.build(list(hs.values()), tmp_path_factory.mktemp("slots_host"))
+    return {n: (h, lib[h.struct]) for n, h in hs.items()}
 
 
 def _host_recorded(lib, m, st, feats, n_slots, per):
     """The kernel's arithmetic in slots: one host 'launch' per slot, each
     from the previous one's state, every one with the launch |v^t|."""
-    struct, names = raymarch.INSTANCES[m.name]
-    fn = getattr(lib, f"slot_{struct}")
-    fn.restype = None
-    arrs = [t.numpy().copy() for t in st]
-    fx = np.abs(arrs[1][:, 0]).copy()
-    feats_arr = np.array([*feats, *integrate.schedule_constants(feats)],
-                         np.float32)
-    mp = np.array([m.params()[k] for k in names] + [0.0], np.float32)
-    path = [arrs[0].copy()]
+    header, fn = lib[m.name]
+    fx = np.abs(st.velocity[:, 0].numpy()).copy()
+    opts = integrate.TraceOptions(max_steps=per)
+    path = [st.position.numpy().copy()]
     for _ in range(n_slots):
-        fn(mp.ctypes.data_as(ctypes.c_void_p),
-           feats_arr.ctypes.data_as(ctypes.c_void_p), len(fx), per,
-           *[ctypes.c_void_p(a.ctypes.data) for a in arrs],
-           ctypes.c_void_p(fx.ctypes.data))
-        path.append(arrs[0].copy())
-    return (integrate.RayState(*(torch.from_numpy(a) for a in arrs)),
-            np.stack(path))
+        st = eh.host_march(fn, header, st, m.params(), feats, opts, fx)
+        path.append(st.position.numpy().copy())
+    return st, np.stack(path)
 
 
 def test_host_kernel_in_slots_equals_plain_recorded_march(slot_lib,
