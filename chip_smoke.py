@@ -751,6 +751,113 @@ def observer_row(tag, metric, camera, params, launches, rounds=20) -> dict:
     }
 
 
+# The launch state's operations a ray, estimated as 1.5 times the instance's
+# operations a trial iteration (OPS_BY_INSTANCE: one dual metric evaluation
+# with its contraction and inverse, as the launch acceleration takes): the
+# null fix's plain metric evaluation and the direction, the rotation and the
+# step seed are about half of it again.
+LAUNCH_OPS_FACTOR = 1.5
+
+
+def launch_state_row(tag, metric, camera, params, settings, feats, launches,
+                     rounds=20) -> dict:
+    """The kernels-table row of ``metric``'s launch-state kernel on every
+    pixel of ``settings``' frame: ``pipeline.rays_for_pixels`` (the kernel)
+    against ``rays_for_pixels_reference`` (its eager twin) bit for bit on
+    the state, ku_uobsu and a planar ray's inverse quaternion, asserted; the
+    launch's ms, the mean of ``rounds`` back to back queued behind a device
+    sleep (the host's dispatch hidden); the twin's ms, the median of 3 so
+    queued; the bound, the larger of the bytes (cx and cy read, 8 B; the
+    state written, 48 B of position, velocity and acceleration and 20 of
+    next_ds, running_dlambda_dnew, status, steps and ku_uobsu; a planar
+    ray's quaternion, 16 B) and the operations (``LAUNCH_OPS_FACTOR`` times
+    the instance's ``OPS_BY_INSTANCE``) at the card's peaks.
+    ``launches``: the ``launch_state_kernel`` counter of the path's own
+    frame."""
+    import torch
+    from geodesic_raytracing_tpu_torch.ops import integrate
+    from geodesic_raytracing_tpu_torch.render import pipeline as pl
+
+    dev = torch.device("cuda")
+    camera = camera.to(dev)
+    planar = pl._planar_enabled(metric, settings)
+    position, es = pl.camera_frame(metric, camera, params)
+    cx, cy = pl._grid_coords(settings.width, settings.height, 1.0, dev)
+
+    def launch(fn):
+        return fn(metric, camera, position, es, params, settings, feats, cx,
+                  cy, planar)
+
+    got, ref = launch(pl.rays_for_pixels), launch(
+        pl.rays_for_pixels_reference)
+    differing = {}
+    for field, a, b in zip((*integrate.RayState._fields, "ku_uobsu",
+                            "inv_quat"),
+                           (*got[0], got[1], got[2]),
+                           (*ref[0], ref[1], ref[2])):
+        if a is None and b is None:
+            continue
+        same = a.view(torch.int32) == b.view(torch.int32)
+        if a.dtype == torch.float32:
+            same |= torch.isnan(a) & torch.isnan(b)
+        differing[field] = int((~same).sum())
+    n = cx.shape[0]
+    print(f"{tag} {n} rays, launch-state kernel vs eager twin: elements "
+          f"differing {differing}")
+    assert not any(differing.values()), differing
+    del got, ref
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for _ in range(rounds):
+        launch(pl.rays_for_pixels)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / rounds
+    plain = []
+    for _ in range(3):
+        torch.cuda._sleep(600_000_000)
+        ev[0].record()
+        launch(pl.rays_for_pixels_reference)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain.append(ev[0].elapsed_time(ev[1]))
+    per_ray = 8 + 48 + 20 + (16 if planar else 0)
+    ops = LAUNCH_OPS_FACTOR * OPS_BY_INSTANCE[metric.name, False] * n
+    bytes_ms = n * per_ray / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"{tag} {metric.name} launch-state kernel {ms:.4f} ms (mean of "
+          f"{rounds} back to back), eager twin {statistics.median(plain):.3f}"
+          f" ms; bound {bound:.4f} ms by {by} ({per_ray} B a ray, "
+          f"{bytes_ms:.4f} ms; {ops:.0f} operations, {ops_ms:.4f} ms); share "
+          f"of the bound {bound / ms:.4f}; {launches} launch(es) in the "
+          f"path's frame")
+    return {
+        "name": f"launch_state_{metric.name}",
+        "route": "cuda",
+        "source": "geodesic_raytracing_tpu_torch/csrc/launch_state.cuh",
+        "replaces": "geodesic_raytracing_tpu/render/pipeline.py:136",
+        "launches": launches,
+        "max_abs_err": 0.0,  # bit for bit, asserted above
+        "ms": ms,
+        "plain_ms": statistics.median(plain),
+        "rays": n,
+        "bytes_per_ray": per_ray,
+        "operations": ops,
+        "bytes_bound_ms": bytes_ms,
+        "ops_bound_ms": ops_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "share_of_bound": bound / ms,
+        "library_ms": None,  # no PyTorch call computes a launch state
+        "planar": planar,
+    }
+
+
 def median_launch_ms(metric, state, params, feats, opts, width, rounds=3):
     """Median kernel time (CUDA events) of ``rounds`` launches on
     ``state``."""
@@ -1623,10 +1730,13 @@ def second_path(dev, sky) -> dict:
     counters = profiling.recent_frames()[-1].counters
     rd_launches = counters.get("render_data_kernel", 0)
     cam_launches = counters.get("camera_kernel", 0)
+    ls_launches = counters.get("launch_state_kernel", 0)
     black = checked(dense_img, "dense")
     assert counts == {"schwarzschild": 1}, counts
     assert rd_launches == 1, rd_launches
     assert cam_launches == 1 and "camera_eager" not in counters, counters
+    assert ls_launches == 1 and "launch_state_eager" not in counters, \
+        counters
     (d_in, d_out, d_width, d_opts), = launch
     assert d_opts.planar and d_width == 1920
     assert bool((d_in.position[:, 2] == d_in.position[0, 2]).all())
@@ -1720,6 +1830,9 @@ def second_path(dev, sky) -> dict:
     del ku, iq
     out["observer"] = observer_row("[16 observer]", metric, camera, params,
                                    cam_launches)
+    out["launch_state"] = launch_state_row(
+        "[16 launch state]", metric, camera, params, settings, feats,
+        ls_launches)
 
     steady = []
     with stage_events(pl, integrate) as read:
@@ -3973,8 +4086,11 @@ def main(argv=None) -> int:
     counters = profiling.recent_frames()[-1].counters
     rd_launches = counters.get("render_data_kernel", 0)
     cam_launches = counters.get("camera_kernel", 0)
+    ls_launches = counters.get("launch_state_kernel", 0)
     assert rd_launches == 1, rd_launches
     assert cam_launches == 1 and "camera_eager" not in counters, counters
+    assert ls_launches == 1 and "launch_state_eager" not in counters, \
+        counters
     dense_img = img
     finite = bool(torch.isfinite(img).all())
     black = float((img == 0).all(dim=-1).float().mean())
@@ -4128,6 +4244,8 @@ def main(argv=None) -> int:
     del s5, ku5, fin5
     ob_row = observer_row("[5 observer]", metric, camera, params,
                           cam_launches)
+    ls_row = launch_state_row("[5 launch state]", metric, camera, params,
+                              settings, feats, ls_launches)
     dense_mrays = bench_protocol_mrays(
         lambda: pl.render_frame(metric, camera, params, sky, settings, feats,
                                 device=dev), n_rays)
@@ -4428,6 +4546,7 @@ def main(argv=None) -> int:
     schw = second_path(dev, sky)
     rd_schw = schw.pop("render_data")
     ob_schw = schw.pop("observer")
+    ls_schw = schw.pop("launch_state")
     took("16")
     planar = planar_vs_4d(dev, sky)
     took("17")
@@ -4567,7 +4686,7 @@ def main(argv=None) -> int:
             # 2-rank check and the banding cost.
             "parallel": par_row,
         },
-    }, rd_row, rd_schw, ob_row, ob_schw,
+    }, rd_row, rd_schw, ob_row, ob_schw, ls_row, ls_schw,
         *(instance_row(m) for m in sorted(per_metric)),
         *content["rows"]]}
     print(json.dumps(table))

@@ -35,7 +35,8 @@ marches; ``-`` where no device time was taken), then ``; launches <n>``
 (ray-march kernel launches, 0 off the card), ``; render_data_kernel <k> of
 <n>`` (the frame's render data calls the render-data kernel served, 0 off
 the card, of all), ``; camera_kernel <k> of <n>`` (its observer tetrads the
-observer kernel served, likewise) and, adaptive,
+observer kernel served, likewise), ``; launch_state_kernel <k> of <n>`` (its
+ray launch states the launch-state kernel served, likewise) and, adaptive,
 ``; refine_share <k/nq>`` and ``; refine_demand <share> (frame <id>)``: the
 newest demand the budget controller has read, which belongs to a frame
 ``latency`` frames back.

@@ -66,6 +66,17 @@
 // it: the launch, and the latency of a chain of a few thousand dependent
 // float operations in one thread; nothing here is worth a second thread.
 //
+// And it holds the launch state of every ray (`grt_launch_state`,
+// launch_state.cuh): one thread per ray computes its pixel's direction, the
+// velocity from the observer tetrad, in planar mode the rotation into the
+// equator, the null fix, the launch acceleration, the step seed and
+// ku_uobsu, and writes the (N, 4) / (N,) state that grt_raymarch reads, in
+// place of the eager jvp over the whole batch of its twin (render/
+// pipeline.py::rays_for_pixels_reference).  What bounds it: 68 bytes written
+// a ray (84 with a planar ray's quaternion) against one metric evaluation
+// and one acceleration a ray; the observer's g e0 at the camera, the same for
+// every ray, is computed once a block.
+//
 // The kernels allocate nothing and do not synchronise; the wrapper
 // (ops/raymarch.py) launches them on the current stream and checks each
 // launch.
@@ -73,6 +84,7 @@
 // metric parameters are kernel arguments.
 #include <cuda_runtime.h>
 
+#include "launch_state.cuh"
 #include "march.cuh"
 #include "observer.cuh"
 #include "render_data.cuh"
@@ -270,6 +282,79 @@ __global__ void observer_kernel(M m, const float* x, const float* gx,
     for (int mu = 0; mu < 4; ++mu) es[4 * a + mu] = out[a][mu];
 }
 
+// The launch state's inputs and outputs (launch_state.cuh).  Pixel rays
+// read cx, cy (N,), the focal length (a 0-d tensor on the card) and the
+// camera quaternion (4,); rays of a chart that is not the identity read
+// their generic position and velocity (4, N) through their strides instead
+// (gpos not null).  Every ray reads the camera's position x (4,) and tetrad
+// es (4, 4) row-major.  The state is written as grt_raymarch reads it, and
+// inv_quat (4, N) where not null (planar pixel rays).
+struct LaunchArrays {
+  const float* cx;
+  const float* cy;
+  const float* f_stop;
+  const float* quat;
+  const float* gpos;
+  long long gpos_s0, gpos_s1;
+  const float* gvel;
+  long long gvel_s0, gvel_s1;
+  const float* x;
+  const float* es;
+  float4* pos;
+  float4* vel;
+  float4* acc;
+  float* next_ds;
+  float* rdl;
+  int* status;
+  int* steps;
+  float* ku_uobsu;
+  float* inv_quat;
+};
+
+// One thread per ray, in index order.  The first thread of a block computes
+// the observer's g e0 at the camera, which every ray of the block reads.
+template <class M>
+__global__ void __launch_bounds__(GRT_THREADS)
+    launch_state_kernel(M m, grt::LaunchConsts c, int n, LaunchArrays r) {
+#ifdef GRT_BAKED_PARAMS
+  constexpr float kBaked[] = {GRT_BAKED_PARAMS 0.0f};
+  const M mk = M::from_params(kBaked);
+#else
+  const M& mk = m;
+#endif
+  __shared__ float obs_low[4];
+  if (threadIdx.x == 0) grt::observer_low(mk, r.x, r.es, obs_low);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  grt::Ray s;
+  float ku;
+  if (r.gpos != nullptr) {
+    float pos[4], vel[4];
+    for (int k = 0; k < 4; ++k) {
+      pos[k] = r.gpos[k * r.gpos_s0 + i * r.gpos_s1];
+      vel[k] = r.gvel[k * r.gvel_s0 + i * r.gvel_s1];
+    }
+    grt::launch_ray(mk, c, obs_low, pos, vel, s, ku);
+  } else {
+    float q[4], iq[4];
+    for (int k = 0; k < 4; ++k) q[k] = r.quat[k];
+    grt::launch_pixel(mk, c, obs_low, r.cx[i], r.cy[i], *r.f_stop, q, r.x,
+                      r.es, s, ku, iq);
+    if (r.inv_quat != nullptr)
+      for (int k = 0; k < 4; ++k)
+        r.inv_quat[static_cast<long long>(k) * n + i] = iq[k];
+  }
+  r.pos[i] = make_float4(s.pos[0], s.pos[1], s.pos[2], s.pos[3]);
+  r.vel[i] = make_float4(s.vel[0], s.vel[1], s.vel[2], s.vel[3]);
+  r.acc[i] = make_float4(s.acc[0], s.acc[1], s.acc[2], s.acc[3]);
+  r.next_ds[i] = s.next_ds;
+  r.rdl[i] = s.rdl;
+  r.status[i] = s.status;
+  r.steps[i] = s.steps;
+  r.ku_uobsu[i] = ku;
+}
+
 using Metric = grt::GRT_METRIC;
 
 }  // namespace
@@ -366,6 +451,50 @@ extern "C" int grt_observer_tetrad(const float* mparams, const void* x,
       m, static_cast<const float*>(x), static_cast<const float*>(gx),
       static_cast<const float*>(gy), static_cast<const float*>(gz),
       static_cast<const float*>(speed), static_cast<float*>(es));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch state of n rays (launch_state.cuh): one launch on `stream`.
+// `mparams` as grt_raymarch's; `consts` the four floats of
+// grt::LaunchConsts (half width, half height, trace sign,
+// max_acceleration_change) and `planar` its flag.  Pixel rays: cx, cy (N,),
+// f_stop (1,), quat (4,), gpos null; otherwise gpos and gvel (4, N) with
+// their four strides in `strides`.  x (4,) and es (4, 4) are the camera's
+// position and tetrad.  Writes pos, vel, acc (N, 4), next_ds, rdl (N,),
+// status, steps (N,) int, ku_uobsu (N,) and, not null, inv_quat (4, N).
+// Returns the CUDA error of the launch (0 = launched).
+extern "C" int grt_launch_state(const float* mparams, const float* consts,
+                                int planar, int n, const void* cx,
+                                const void* cy, const void* f_stop,
+                                const void* quat, const void* gpos,
+                                const void* gvel, const long long* strides,
+                                const void* x, const void* es, void* pos,
+                                void* vel, void* acc, void* next_ds,
+                                void* rdl, void* status, void* steps,
+                                void* ku_uobsu, void* inv_quat,
+                                void* stream) {
+  if (n <= 0) return 0;
+  const LaunchArrays r{static_cast<const float*>(cx),
+                       static_cast<const float*>(cy),
+                       static_cast<const float*>(f_stop),
+                       static_cast<const float*>(quat),
+                       static_cast<const float*>(gpos), strides[0],
+                       strides[1], static_cast<const float*>(gvel),
+                       strides[2], strides[3], static_cast<const float*>(x),
+                       static_cast<const float*>(es),
+                       static_cast<float4*>(pos), static_cast<float4*>(vel),
+                       static_cast<float4*>(acc),
+                       static_cast<float*>(next_ds), static_cast<float*>(rdl),
+                       static_cast<int*>(status), static_cast<int*>(steps),
+                       static_cast<float*>(ku_uobsu),
+                       static_cast<float*>(inv_quat)};
+  const grt::LaunchConsts c{consts[0], consts[1], consts[2], consts[3],
+                            planar};
+  const Metric m = Metric::from_params(mparams);
+  const int blocks = (n + GRT_THREADS - 1) / GRT_THREADS;
+  launch_state_kernel<Metric><<<blocks, GRT_THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(m, c, n,
+                                                                     r);
   return static_cast<int>(cudaGetLastError());
 }
 

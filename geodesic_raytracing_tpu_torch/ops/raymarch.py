@@ -50,8 +50,14 @@ observer tetrad at the camera's one point (``csrc/observer.cuh``;
 ``observer_tetrad_cuda``): the frame basis, orientation and boost in one
 launch of one thread, bit for bit ``camera.observer_tetrad_reference`` on
 the card in place of its ~2,760 eager ops, taken by
-``camera.observer_tetrad``.  ``asks_for_grad`` is the rule that sends a
-call to the eager twins instead: the kernels are forward-only.
+``camera.observer_tetrad``.  And so does every ray's launch state
+(``csrc/launch_state.cuh``; ``launch_state_cuda``): the pixel's direction,
+the planar rotation, the null fix, the launch acceleration, the step seed
+and ku_uobsu in one launch, bit for bit
+``render.pipeline.rays_for_pixels_reference`` on the card in place of its
+eager jvp over the whole batch, taken by ``render.pipeline.rays_for_pixels``.
+``asks_for_grad`` is the rule that sends a call to the eager twins instead:
+the kernels are forward-only.
 
 The wrappers launch on CUDA tensors or raise: there is no fallback, and an
 unregistered metric, or one that differs from the registered metric of its
@@ -401,6 +407,10 @@ def get_lib(inst: Instance):
                 ctypes.POINTER(ctypes.c_longlong), *[vp] * 6]
             lib.grt_observer_tetrad.restype = ctypes.c_int
             lib.grt_observer_tetrad.argtypes = [fp, *[vp] * 7]
+            lib.grt_launch_state.restype = ctypes.c_int
+            lib.grt_launch_state.argtypes = [
+                fp, fp, *[ctypes.c_int] * 2, *[vp] * 6,
+                ctypes.POINTER(ctypes.c_longlong), *[vp] * 12]
             _libs[key] = (inst, lib)
         return _libs[key][1]
 
@@ -626,6 +636,84 @@ def observer_tetrad_cuda(metric: Metric, position: torch.Tensor, axes,
     _raise_on(lib, rc, "observer-tetrad kernel launch")
     profiling.count("camera_kernel")
     return es
+
+
+def launch_state_cuda(metric: Metric, params, features: Features,
+                      position: torch.Tensor, es: torch.Tensor, *,
+                      sign: float, planar: bool = False,
+                      pixels: tuple | None = None,
+                      generic: tuple | None = None) -> tuple:
+    """The launch state of every ray by the launch-state kernel of
+    ``metric``'s library (``csrc/launch_state.cuh``): one launch on the
+    current stream, no wait for the device.  ``position`` (4,) and ``es``
+    (4, 4) are the camera's generic position and observer tetrad.  The rays
+    are either ``pixels`` = ``(cx, cy, width, height, f_stop, quat)``: the
+    pixel coordinates (N,) of the width x height image, the focal length (a
+    0-d tensor, ``camera.focal_length``) and the camera quaternion (4,),
+    traced with ``sign`` (``render.pipeline._trace_sign``) and, with
+    ``planar``, rotated into the equator of the metric's identity chart; or
+    ``generic`` = ``(pos, vel)``: generic positions and velocities (4, N),
+    read through their strides (a chart's eager ``to_planar`` made them).
+    Returns ``(state, ku_uobsu, inv_quat)``, bit for bit
+    ``render.pipeline.rays_for_pixels_reference`` on the card (``inv_quat``
+    (4, N) for planar pixel rays, else None).  Each call adds to the open
+    frame's ``launch_state_kernel`` counter."""
+    what = "launch_state_cuda"
+    if (pixels is None) == (generic is None):
+        raise ValueError(f"{what}: give pixels or generic rays, not both")
+    inst = instance_of(metric)
+    values = _param_values(metric, inst, params, what)
+    f32, i32 = torch.float32, torch.int32
+    position, es = position.contiguous(), es.contiguous()
+    _check("position", position, (4,), f32, what)
+    _check("es", es, (4, 4), f32, what)
+    strides = (ctypes.c_longlong * 4)()
+    if pixels is not None:
+        cx, cy, width, height, f_stop, quat = pixels
+        n = cx.shape[0]
+        cx, cy = cx.contiguous(), cy.contiguous()
+        quat, f_stop = quat.contiguous(), f_stop.reshape(1)
+        for name, t, shape in (("cx", cx, (n,)), ("cy", cy, (n,)),
+                               ("f_stop", f_stop, (1,)),
+                               ("quat", quat, (4,))):
+            _check(name, t, shape, f32, what)
+        ins = (cx, cy, f_stop, quat, None, None)
+    else:
+        gpos, gvel = generic
+        n = gpos.shape[1]
+        for name, t in (("pos", gpos), ("vel", gvel)):
+            _check(name, t, (4, n), f32, what, contiguous=False)
+        strides[:] = (*gpos.stride(), *gvel.stride())
+        width = height = 0
+        ins = (None, None, None, None, gpos, gvel)
+    # width / 2.0 and height / 2.0 as the eager ops cast them to float32.
+    consts = (ctypes.c_float * 4)(width / 2.0, height / 2.0, float(sign),
+                                  float(features.max_acceleration_change))
+    mparams = (ctypes.c_float * max(len(values), 1))(*values)
+    dev = position.device
+    state = RayState(
+        position=torch.empty((n, 4), dtype=f32, device=dev),
+        velocity=torch.empty((n, 4), dtype=f32, device=dev),
+        acceleration=torch.empty((n, 4), dtype=f32, device=dev),
+        next_ds=torch.empty((n,), dtype=f32, device=dev),
+        running_dlambda_dnew=torch.empty((n,), dtype=f32, device=dev),
+        status=torch.empty((n,), dtype=i32, device=dev),
+        steps=torch.empty((n,), dtype=i32, device=dev))
+    ku = torch.empty((n,), dtype=f32, device=dev)
+    inv_quat = (torch.empty((4, n), dtype=f32, device=dev)
+                if planar and pixels is not None else None)
+    lib = get_lib(inst)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.grt_launch_state(
+            mparams, consts, int(planar), n,
+            *(None if t is None else t.data_ptr() for t in ins), strides,
+            position.data_ptr(), es.data_ptr(),
+            *(t.data_ptr() for t in state), ku.data_ptr(),
+            None if inv_quat is None else inv_quat.data_ptr(), stream)
+    _raise_on(lib, rc, "launch-state kernel launch")
+    profiling.count("launch_state_kernel")
+    return state, ku, inv_quat
 
 
 def asks_for_grad(*tensors, params) -> bool:

@@ -2,8 +2,10 @@
 ``geodesic_raytracing_tpu.render.pipeline``: the dense and the adaptive frame).
 
 Stages, each a plain function on tensors of one device: ``init_camera_rays``
-(observer tetrad, pixel directions, null rays), ``integrate.trace_rays`` (the
-CUDA ray-march kernel on a GPU), ``compute_render_data`` (snap to the
+(observer tetrad, pixel directions, null rays: on a GPU one launch of the
+observer kernel and one of the launch-state kernel),
+``integrate.trace_rays`` (the CUDA ray-march kernel on a GPU),
+``compute_render_data`` (snap to the
 universe or the terminator sphere, texture coordinates, redshift factor: on
 a GPU one launch of the render-data kernel) and ``shade`` (EWA sky
 sampling, redshift colour).  For a spherically symmetric metric the rays are
@@ -14,8 +16,9 @@ The adaptive frame (``adaptive_sampling=True``) marches a 16x coarser
 prepass image, the quarter grid (every even pixel, minus the rays the
 prepass proves black) and the three other pixels of the top-k quarter blocks
 by angular error; the remaining pixels are interpolated.  Each march is one
-launch of the same kernel, and so is each render data; every other stage
-is plain torch ops, none of which waits for the device.
+launch of the same kernel, and so is each launch state and each render
+data; every other stage is plain torch ops, none of which waits for the
+device.
 """
 
 from __future__ import annotations
@@ -147,6 +150,12 @@ def _grid_coords(w: int, h: int, step: float, device):
     return xx.reshape(-1), yy.reshape(-1)
 
 
+def _identity_chart(metric: Metric) -> bool:
+    """The metric's generic coordinates are its polar ones."""
+    return {metric.config.to_polar, metric.config.from_polar} <= {
+        "", "polar_to_polar"}
+
+
 def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
                     settings: RenderSettings, features: Features,
                     cx: Tensor, cy: Tensor, planar: bool = False):
@@ -154,7 +163,54 @@ def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
     W x H image (``init_rays_generic`` cl.cl:3143-3251).  With ``planar``
     every ray is rotated into the equatorial plane (``correct_lightray``).
     Returns ``(state, ku_uobsu, inv_quat)`` (inv_quat None unless
-    planar)."""
+    planar).
+
+    Pixels on a CUDA device, asking for no gradient, take one launch of the
+    launch-state kernel (``ops.raymarch.launch_state_cuda``), bit for bit its
+    eager twin :func:`rays_for_pixels_reference`; a metric without a kernel
+    instance raises ``NotImplementedError``, as the march does.  In planar
+    mode a chart that is not the identity first takes its eager
+    ``to_planar``; the kernel starts from the rotated rays.  The twin serves
+    the CPU and a call in grad mode where the camera or a parameter requires
+    grad.  Each call adds to the open frame's ``launch_state_kernel`` or
+    ``launch_state_eager`` counter, and on both paths a planar chart that is
+    not the identity to ``chart_eager``."""
+    chart = planar and not _identity_chart(metric)
+    if chart:
+        profiling.count("chart_eager")
+    if not cx.is_cuda or raymarch.asks_for_grad(position, es, camera.quat,
+                                                params=params):
+        profiling.count("launch_state_eager")
+        return rays_for_pixels_reference(metric, camera, position, es,
+                                         params, settings, features, cx, cy,
+                                         planar)
+    sign = _trace_sign(metric, settings.flip_geodesic_direction)
+    if chart:
+        dirs = cam.directions_for_pixels(cx, cy, settings.width,
+                                         settings.height, camera.quat,
+                                         settings.fov_degrees)
+        velocity = _launch_velocity(dirs, es, sign)
+        p_t, v_t, inv_quat = pl_planar.to_planar(
+            metric, position[:, None].expand(4, velocity.shape[1])
+            .contiguous(), velocity, params)
+        state, ku, _ = raymarch.launch_state_cuda(
+            metric, params, features, position, es, sign=sign, planar=True,
+            generic=(p_t, v_t))
+        return state, ku, inv_quat
+    f_stop = cam.focal_length(settings.width, settings.fov_degrees,
+                              cx.device)
+    return raymarch.launch_state_cuda(
+        metric, params, features, position, es, sign=sign, planar=planar,
+        pixels=(cx, cy, settings.width, settings.height, f_stop,
+                camera.quat))
+
+
+def rays_for_pixels_reference(metric: Metric, camera: cam.Camera, position,
+                              es, params, settings: RenderSettings,
+                              features: Features, cx: Tensor, cy: Tensor,
+                              planar: bool = False):
+    """:func:`rays_for_pixels` in eager torch ops on any device (the
+    launch-state kernel's twin; differentiable)."""
     dirs = cam.directions_for_pixels(cx, cy, settings.width,
                                      settings.height, camera.quat,
                                      settings.fov_degrees)
@@ -162,19 +218,23 @@ def rays_for_pixels(metric: Metric, camera: cam.Camera, position, es, params,
                                planar, settings.flip_geodesic_direction)
 
 
+def _launch_velocity(dirs: Tensor, es: Tensor, sign: float) -> Tensor:
+    """The generic velocities (4, N) of camera-space directions ``dirs``
+    (3, N) in the tetrad ``es``: d0 e1 + d1 e2 + d2 e3 + sign e0."""
+    return (dirs[0][None, :] * es[1][:, None]
+            + dirs[1][None, :] * es[2][:, None]
+            + dirs[2][None, :] * es[3][:, None]
+            + sign * es[0][:, None])
+
+
 def rays_for_directions(metric: Metric, position, es, params,
                         features: Features, dirs: Tensor,
                         planar: bool = False, flip: bool = False):
     """Null rays along the camera-space directions ``dirs`` (3, N) from the
     observer at ``position`` with tetrad ``es``: ``rays_for_pixels`` after
-    its pixel directions.  Returns ``(state, ku_uobsu, inv_quat)``."""
-    sign = _trace_sign(metric, flip)
-    velocity = (
-        dirs[0][:, None] * es[1][None, :]
-        + dirs[1][:, None] * es[2][None, :]
-        + dirs[2][:, None] * es[3][None, :]
-        + sign * es[0][None, :]
-    )
+    its pixel directions, in eager torch ops.  Returns ``(state, ku_uobsu,
+    inv_quat)``."""
+    velocity = _launch_velocity(dirs, es, _trace_sign(metric, flip)).T
     n = velocity.shape[0]
     positions = position.expand(n, 4)
 
@@ -300,7 +360,7 @@ def _chart_to_polar(metric: Metric, state: RayState, params):
     open frame counts ``chart_eager``."""
     pos, vel = state.position.T, state.velocity.T
     span = contextlib.nullcontext()
-    if metric.config.to_polar not in ("", "polar_to_polar"):
+    if not _identity_chart(metric):
         profiling.count("chart_eager")
         span = profiling.span("chart")
     with span:

@@ -34,8 +34,10 @@ launches), ``render_data_kernel`` and ``render_data_eager``
 (``compute_render_data`` calls served by the render-data kernel and by its
 eager twin), ``camera_kernel`` and ``camera_eager``
 (``camera.observer_tetrad`` calls served by the observer kernel and by its
-eager twin), ``chart_eager`` (``compute_render_data`` calls that took the
-chart's eager transform), ``refine_share`` (the refine launch's blocks over
+eager twin), ``launch_state_kernel`` and ``launch_state_eager``
+(``rays_for_pixels`` calls served by the launch-state kernel and by its
+eager twin), ``chart_eager`` (``compute_render_data`` and planar
+``rays_for_pixels`` calls that took the chart's eager transform), ``refine_share`` (the refine launch's blocks over
 the quarter blocks) and ``refine_demand`` (the share of quarter blocks the
 error test asked to refine, recorded against its own frame when the budget
 controller reads it, ``latency`` frames later).
@@ -377,8 +379,8 @@ def describe(f: Frame) -> str:
     / device ms, summed over the spans of a name; device "-" off the card),
     its ``launches``, its render data and observer tetrad calls served by
     their kernels of all (``render_data_kernel k of n``, ``camera_kernel k
-    of n``, where it made any) and its other counters: the CLI's view of the
-    recorder."""
+    of n``, ``launch_state_kernel k of n``, where it made any) and its other
+    counters: the CLI's view of the recorder."""
     parts = []
     for name in dict.fromkeys(s.name for s in f.spans):
         dev = f.device_ms(name)
@@ -387,7 +389,7 @@ def describe(f: Frame) -> str:
     counters = dict(f.counters)
     line = (f"Stages (host / device ms): {', '.join(parts)}"
             f"; launches {counters.pop('launches', 0):g}")
-    for stage in ("render_data", "camera"):
+    for stage in ("render_data", "camera", "launch_state"):
         kernel = counters.pop(f"{stage}_kernel", 0)
         calls = kernel + counters.pop(f"{stage}_eager", 0)
         if calls:

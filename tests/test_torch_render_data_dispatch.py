@@ -231,4 +231,4 @@ def test_a_camera_frame_on_the_card_counts_one_kernel_call(cuda, recorder):
     pl.render_frame(m, cam, m.params(), sky, settings, device=cuda)
     (f,) = recorder.recent_frames()
     assert f.counters == {"launches": 1, "render_data_kernel": 1,
-                          "camera_kernel": 1}
+                          "camera_kernel": 1, "launch_state_kernel": 1}

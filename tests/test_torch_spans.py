@@ -130,10 +130,11 @@ def test_a_dense_frame_takes_its_stage_spans(recorder):
     assert [s.name for s in f.spans if s.parent is top] == STAGES
     assert [s.name for s in f.spans if s.parent is ray_init] == [
         "camera", "launch_state"]
-    # No kernel launch on the CPU: the camera and render data take their
-    # eager paths; the polar chart is the identity, so no eager chart
-    # transform.
-    assert f.counters == {"camera_eager": 1, "render_data_eager": 1}
+    # No kernel launch on the CPU: the camera, the launch state and render
+    # data take their eager paths; the polar chart is the identity, so no
+    # eager chart transform.
+    assert f.counters == {"camera_eager": 1, "render_data_eager": 1,
+                          "launch_state_eager": 1}
     assert f.host_ms("frame") >= sum(f.host_ms(n) for n in STAGES)
     assert f.host_ms("ray_init") >= (f.host_ms("camera")
                                      + f.host_ms("launch_state"))
@@ -157,12 +158,13 @@ def test_a_cylindrical_chart_takes_the_chart_span(recorder):
     (chart,) = [s for s in dk.spans if s.name == "chart"]
     assert chart.parent.name == "render_data"
     assert dk.counters == {"camera_eager": 1, "render_data_eager": 1,
-                           "chart_eager": 1}
+                           "launch_state_eager": 1, "chart_eager": 1}
     assert profiling.describe(dk).endswith(
         "; launches 0; render_data_kernel 0 of 1; camera_kernel 0 of 1"
-        "; chart_eager 1")
+        "; launch_state_kernel 0 of 1; chart_eager 1")
     assert [s.name for s in schw.spans] == DENSE
-    assert schw.counters == {"camera_eager": 1, "render_data_eager": 1}
+    assert schw.counters == {"camera_eager": 1, "render_data_eager": 1,
+                             "launch_state_eager": 1}
 
 
 def test_adaptive_frames_take_their_stage_spans(recorder):
@@ -187,9 +189,12 @@ def test_adaptive_frames_take_their_stage_spans(recorder):
     nq = 8 * 8
     share = pl._refine_k(nq, 0.375) / nq
     assert second.counters == {"camera_eager": 1, "refine_share": share,
-                               "render_data_eager": 2}
+                               "render_data_eager": 2,
+                               "launch_state_eager": 2}
     assert set(first.counters) == {"camera_eager", "refine_share",
-                                   "refine_demand", "render_data_eager"}
+                                   "refine_demand", "render_data_eager",
+                                   "launch_state_eager"}
+    assert first.counters["launch_state_eager"] == 3
     assert 0.0 < first.counters["refine_demand"] <= 1.0
 
 
@@ -220,4 +225,5 @@ def test_the_cli_bench_prints_each_frame_stages(recorder, capsys):
         assert [p.split()[0] for p in stages.split(": ", 1)[1].split(
             "; ")[0].split(", ")] == DENSE
         assert stages.endswith("; launches 0; render_data_kernel 0 of 1"
-                               "; camera_kernel 0 of 1")
+                               "; camera_kernel 0 of 1"
+                               "; launch_state_kernel 0 of 1")
